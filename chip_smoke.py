@@ -6,7 +6,8 @@
 Phases (any failure exits non-zero, and no result line is printed):
 
 0. Card and build: the card's name and power limit (nvidia-smi), then the
-   hand-written kernels built from ``src/repro_torch/csrc`` with nvcc.
+   three hand-written kernels built from ``src/repro_torch/csrc`` with nvcc,
+   one process per source, in parallel.
 1. Kernels against their plain torch versions, on the card, at the main
    path's shapes: error, kernel / plain / library times (CUDA events), and
    the least time the card could take (its bound).
@@ -24,6 +25,24 @@ Phases (any failure exits non-zero, and no result line is printed):
    pagerank on both devices on the same partition.
 4. A torch.profiler trace of a short ADWISE run: kernels and device busy
    time per step, against the step's wall time from phase 2.
+5. ``flash_attention`` against its plain version on the card: at the
+   serving shape (q (4, 24, 2048, 128), k/v (4, 8, 2048, 128), bf16,
+   causal — each prefill layer's launch), at Tq = Tk = 2000, at the shapes
+   of the JAX kernel tests in fp32 and fp16, at each Dh in {32, 64, 96,
+   128}, and non-causal at Tk = 256; at each, kernel / plain / SDPA times
+   and the bound (SDPA is timed as a yardstick only; the port never calls
+   it).
+6. LM serving at full width: ``repro_torch.launch.serve.main`` on
+   Llama-3.2-3B (28 layers, bf16, random weights from the seed), batch 4,
+   prompt 2048, 64 generated tokens — 28 flash launches in the prefill,
+   none in decode, tokens in range, logits finite; prefill and decode
+   rates and peak memory. Then a second prefill of the same model (steady
+   state), a torch.profiler trace of a third (device time by kernel), and
+   one of decode steps (device busy time per step against its wall).
+7. The card against the port's CPU path at full width: 2 layers of
+   Llama-3.2-3B in fp32 (TF32 off), batch 1, prompt 300, 4 decode steps —
+   prefill and decode logits at 2e-3, greedy tokens equal wherever the
+   top-2 margin exceeds that.
 
 Then one JSON line with every kernel's numbers, and, last, the
 ``{"ok": true, "device": ...}`` line. It imports nothing of JAX and nothing
@@ -44,6 +63,7 @@ SRC = os.path.join(HERE, "src")
 # Peak rates of one H100 SXM (NVIDIA data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12  # tensor cores, bf16 and fp16 alike
 
 CHECKS: list[str] = []
 
@@ -111,9 +131,9 @@ def eager_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
+def bound(bytes_moved: float, ops: float, ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -457,6 +477,252 @@ def phase_profile(k):
             f"{e.self_device_time_total / steps:.3f} us per step")
 
 
+# ----------------------------------------------------------------------------
+# Phase 5: flash_attention against its plain version
+# ----------------------------------------------------------------------------
+
+# Tolerance of the kernel against its plain version, by dtype, as rtol = atol
+# (the JAX kernel tests' form). fp32 and fp16 are the JAX tests' values;
+# bf16 is 2e-2, about two bf16 ulps at |out| <= 4 (ulp 2^-6 in [2, 4)): the
+# plain version computes in fp32 and rounds once; the kernel also rounds
+# the probabilities to bf16 before P @ V, and the two outputs may then
+# round to neighbouring bf16 values.
+FA_TOL = {"float32": 2e-3, "float16": 5e-3, "bfloat16": 2e-2}
+
+
+def fa_work(b, hq, hkv, tq, tk, dh, itemsize, causal):
+    """(bytes, operations) attention needs on these shapes: q, k, v read
+    once, the output written once; 4·Dh operations (two multiply-adds) per
+    live (query, key) pair of every head — with causality at the end of KV,
+    row r sees Tk - Tq + r + 1 keys."""
+    nbytes = itemsize * (2 * b * hq * tq * dh + 2 * b * hkv * tk * dh)
+    live = tq * (tk - tq) + tq * (tq + 1) // 2 if causal else tq * tk
+    return nbytes, 4 * b * hq * live * dh
+
+
+def phase_flash():
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(12)
+
+    def inputs(b, hq, hkv, tq, tk, dh, dtype):
+        return [torch.as_tensor(rng.normal(size=sh).astype(np.float32)).to(device=dev, dtype=dtype)
+                for sh in ((b, hq, tq, dh), (b, hkv, tk, dh), (b, hkv, tk, dh))]
+
+    def measure(tag, shape, dtype, causal=True):
+        """Error against the plain version (checked), then kernel, plain and
+        SDPA times and the bound. SDPA's is_causal aligns to the top left,
+        so where Tq < Tk it gets the end-aligned mask instead."""
+        b, hq, hkv, tq, tk, dh = shape
+        q, k, v = inputs(*shape, dtype)
+        got = ops.flash_attention(q, k, v, causal=causal)
+        want = ref.flash_attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        name = str(dtype).split(".")[1]
+        tol = FA_TOL[name]
+        check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+              f"flash_attention {tag} {shape} {name} causal={causal}: within rtol = atol = {tol}")
+        mask = None
+        if causal and tq < tk:
+            qpos = torch.arange(tq, device=dev) + (tk - tq)
+            mask = qpos[:, None] >= torch.arange(tk, device=dev)[None, :]
+
+        def lib():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  is_causal=causal and mask is None, enable_gqa=True)
+
+        sdpa_err = (lib().float() - want.float()).abs().max().item()
+        nbytes, nops = fa_work(*shape, q.element_size(), causal)
+        big = nops > 1e10
+        ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal), iters=10 if big else 50)
+        plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=causal), iters=3 if big else 20)
+        library = cuda_ms(lib, iters=10 if big else 50)
+        bms, by = bound(nbytes, nops, FP32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S)
+        log(f"kernel flash_attention {tag} q=({b},{hq},{tq},{dh}) kv=({b},{hkv},{tk},{dh}) {name} "
+            f"causal={causal}: max_abs_err={err} (rtol=atol={tol}) sdpa_max_abs_err={sdpa_err} "
+            f"ms={ms:.5f} plain_ms={plain:.5f} "
+            f"sdpa_ms={library:.5f} bound_ms={bms:.6f} ({by}) bytes={nbytes} ops={nops} "
+            f"kernel_tflops={nops / ms / 1e9:.2f} sdpa_tflops={nops / library / 1e9:.2f}")
+        return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                    library_ms=library)
+
+    row = measure("serve", (4, 24, 8, 2048, 2048, 128), torch.bfloat16)
+    row["shape"] = "q (4,24,2048,128), k/v (4,8,2048,128), bf16, causal"
+    measure("ragged", (1, 24, 8, 2000, 2000, 128), torch.bfloat16)
+    # The JAX kernel tests' shapes (tests/test_kernels.py), in fp32 and fp16.
+    for dtype in (torch.float32, torch.float16):
+        for shape in [(1, 1, 1, 8, 8, 32), (2, 4, 2, 130, 130, 64), (1, 8, 1, 256, 256, 128),
+                      (2, 4, 4, 64, 64, 64), (1, 4, 2, 1, 513, 64), (1, 2, 2, 100, 356, 32)]:
+            measure("test", shape, dtype)
+    for dh in (32, 64, 96, 128):
+        for dtype in (torch.bfloat16, torch.float32):
+            measure(f"Dh={dh}", (2, 12, 4, 517, 517, dh), dtype)
+    for dtype in (torch.float32, torch.bfloat16):
+        measure("non-causal", (2, 8, 2, 256, 256, 64), dtype, causal=False)
+    return row
+
+
+# ----------------------------------------------------------------------------
+# Phase 6: LM serving at full width
+# ----------------------------------------------------------------------------
+
+SERVE_ARGS = ["--arch", "llama3.2-3b", "--batch", "4", "--prompt-len", "2048", "--gen", "64"]
+
+
+def phase_serve():
+    import gc
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    cfg = get_config("llama3.2-3b")
+    b, t, n_gen = 4, 2048, 64
+    torch.cuda.reset_peak_memory_stats()
+    info = {}
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    gen = serve.main(SERVE_ARGS, info=info)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    check(gen.shape == (b, n_gen) and (gen >= 0).all() and (gen < cfg.vocab).all(),
+          "serve: (4, 64) tokens in [0, vocab)")
+    check(info["logits_finite"], "serve: prefill and decode logits finite")
+    check(info["prefill_launches"]["flash_attention"] == cfg.n_layers == 28,
+          "serve: 28 flash_attention launches in the prefill")
+    check(info["decode_launches"]["flash_attention"] == 0, "serve: no flash_attention launch in decode")
+    check(counts["flash_attention"] == 28, "serve: 28 flash_attention launches in the run")
+    steps = n_gen - 1
+    log(f"serve llama3.2-3b B={b} prompt={t} gen={n_gen}: prefill_ms={info['prefill_s'] * 1e3:.3f} "
+        f"prefill_tok_per_s={b * t / info['prefill_s']:.1f} "
+        f"decode_ms_per_token={info['decode_s'] / steps * 1e3:.3f} (per step of {b} tokens) "
+        f"decode_tok_per_s={info['decode_tokens'] / info['decode_s']:.1f} "
+        f"peak_mem_GiB={info['peak_bytes'] / 2**30:.3f} main_wall_s={wall:.3f} "
+        f"(weights init and the loop included) params={cfg.param_count()}")
+    log(f"serve generated[0][:12] = {gen[0, :12].tolist()}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Steady state: the same model again, a second prefill, and decode steps
+    # under torch.profiler — device busy time per step against the wall.
+    model = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab, (b, t)),
+                              dtype=torch.int32).cuda()
+    cache = lm.init_cache(cfg, b, t + n_gen, device="cuda")
+    lm.forward_cached(model, cfg, cache, prompts, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = lm.forward_cached(model, cfg, cache, prompts, 0)
+    tok = logits[:, -1:].argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    del logits
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        lm.forward_cached(model, cfg, cache, prompts, 0)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kern)
+    log(f"serve prefill profile: kernels={sum(e.count for e in kern)} "
+        f"device_busy_ms={busy_us / 1e3:.3f} (profiled)")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"serve prefill kernel {e.key[:80]}: {e.count} launches, "
+            f"{e.self_device_time_total / 1e3:.3f} ms ({e.self_device_time_total / busy_us:.3f} of busy)")
+    for i in range(3):  # warm decode
+        lg, _ = lm.forward_cached(model, cfg, cache, tok, t + i)
+        tok = lg[:, -1:].argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    n_prof = 8
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(n_prof):
+            lg, _ = lm.forward_cached(model, cfg, cache, tok, t + 3 + i)
+            tok = lg[:, -1:].argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        wall_prof = time.perf_counter() - t0
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kern)
+    n_kern = sum(e.count for e in kern)
+    log(f"serve steady: second prefill_ms={t_prefill * 1e3:.3f} "
+        f"prefill_tok_per_s={b * t / t_prefill:.1f}")
+    log(f"serve decode profile: {n_prof} steps, kernels_per_step={n_kern / n_prof:.1f} "
+        f"device_busy_ms_per_step={busy_us / n_prof / 1e3:.3f} "
+        f"wall_ms_per_step={wall_prof / n_prof * 1e3:.3f} (profiled) "
+        f"idle_share={1 - busy_us / 1e6 / wall_prof:.3f}")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"serve decode kernel {e.key[:80]}: {e.count / n_prof:.1f} per step, "
+            f"{e.self_device_time_total / n_prof:.1f} us per step")
+    del model, cache, prompts
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ----------------------------------------------------------------------------
+# Phase 7: the LM on the card against the port's CPU path, full width
+# ----------------------------------------------------------------------------
+
+def phase_lm_parity():
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+
+    log(f"lm parity: allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn={torch.backends.cudnn.allow_tf32}")
+    tol = 2e-3
+    cfg = dataclasses.replace(get_config("llama3.2-3b"), n_layers=2, dtype="float32")
+    cpu_model = lm.init_params(cfg, torch.Generator().manual_seed(0))
+    gpu_model = lm.LM(cfg, device="cuda")
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    prompt_len, n_dec = 300, 4
+    prompts = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab, (1, prompt_len)),
+                              dtype=torch.int32)
+    caches = [lm.init_cache(cfg, 1, prompt_len + n_dec, device=d) for d in ("cpu", "cuda")]
+    before = ops.launch_counts()["flash_attention"]
+    a, _ = lm.forward_cached(cpu_model, cfg, caches[0], prompts, 0)
+    g, _ = lm.forward_cached(gpu_model, cfg, caches[1], prompts.cuda(), 0)
+    check(ops.launch_counts()["flash_attention"] - before == 2, "lm parity: 2 flash launches in prefill")
+    errs = [(g.cpu() - a).abs().max().item()]
+    check(torch.allclose(g.cpu(), a, rtol=tol, atol=tol), "lm parity: prefill logits within 2e-3")
+    same, decided = 0, 0
+    last_a, last_g = a[:, -1], g[:, -1].cpu()
+    for i in range(n_dec + 1):
+        top2 = last_a.topk(2, dim=-1).values
+        if (top2[:, 0] - top2[:, 1]).item() > tol:
+            decided += 1
+            check(torch.equal(last_a.argmax(-1), last_g.argmax(-1)),
+                  f"lm parity: greedy token {i} equal (margin above {tol})")
+        same += int(torch.equal(last_a.argmax(-1), last_g.argmax(-1)))
+        if i == n_dec:
+            break
+        tok = last_a.argmax(-1, keepdim=True).to(torch.int32)  # the CPU's token feeds both
+        a, _ = lm.forward_cached(cpu_model, cfg, caches[0], tok, prompt_len + i)
+        g, _ = lm.forward_cached(gpu_model, cfg, caches[1], tok.cuda(), prompt_len + i)
+        errs.append((g.cpu() - a).abs().max().item())
+        check(torch.allclose(g.cpu(), a, rtol=tol, atol=tol), f"lm parity: decode step {i} logits within 2e-3")
+        last_a, last_g = a[:, -1], g[:, -1].cpu()
+    log(f"lm parity llama3.2-3b width, 2 layers, fp32, prompt {prompt_len}, {n_dec} decode steps: "
+        f"max_abs_err per step={errs} tokens equal {same}/{n_dec + 1} "
+        f"({decided} with top-2 margin > {tol})")
+    del cpu_model, gpu_model, caches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch not found beside this script; run it "
@@ -477,6 +743,7 @@ def main() -> int:
         log(f"torch {torch.__version__} cuda {torch.version.cuda} "
             f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
         from repro_torch.kernels import _build, ops
+        from repro_torch.kernels import flash_attention as fa_mod
         from repro_torch.kernels import segment_sum as ss_mod
         from repro_torch.kernels import window_score as ws_mod
 
@@ -506,7 +773,18 @@ def main() -> int:
         t0 = time.perf_counter()
         phase_profile(k=32)
         log(f"phase 4 (profile of the step): {time.perf_counter() - t0:.1f}s")
-        sources = {"window_score": ws_mod, "segment_sum": ss_mod}
+        t0 = time.perf_counter()
+        kernel_rows["flash_attention"] = phase_flash()
+        log(f"phase 5 (flash_attention vs plain): {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        serve_counts = phase_serve()
+        log(f"phase 6 (LM serving): {time.perf_counter() - t0:.1f}s launches={serve_counts}")
+        check(serve_counts["flash_attention"] > 0, "flash_attention launched on the serving path")
+        counts["flash_attention"] = serve_counts["flash_attention"]
+        t0 = time.perf_counter()
+        phase_lm_parity()
+        log(f"phase 7 (LM cuda vs cpu): {time.perf_counter() - t0:.1f}s")
+        sources = {"window_score": ws_mod, "segment_sum": ss_mod, "flash_attention": fa_mod}
         kernels = []
         for name, row in kernel_rows.items():
             kernels.append(dict(

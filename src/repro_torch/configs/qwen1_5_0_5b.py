@@ -1,0 +1,16 @@
+"""Qwen1.5-0.5B — small dense with QKV bias [hf:Qwen/Qwen1.5-0.5B]."""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen1.5-0.5b",
+    family="dense",
+    n_layers=24,
+    d_model=1024,
+    n_heads=16,
+    n_kv=16,
+    d_head=64,
+    d_ff=2816,
+    vocab=151936,
+    qkv_bias=True,
+    rope_theta=1e6,
+)

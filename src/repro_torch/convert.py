@@ -1,9 +1,14 @@
 """State carried across between the two packages, as numpy arrays.
 
-The system has no weights: its state is the ADWISE scan carry and the
-partitioned graph. These functions turn their fields, taken out of either
-package as numpy arrays, into the port's types and back, so a test can
-start both packages from the same mid-stream state.
+The partitioner has no weights: its state is the ADWISE scan carry and the
+partitioned graph. The LM side has weights and a KV cache. These functions
+turn their fields, taken out of either package as numpy arrays, into the
+port's types and back, so a test can start both packages from the same
+state.
+
+A bfloat16 leaf of the JAX package arrives as an ``ml_dtypes.bfloat16``
+numpy array, which ``torch.tensor`` rejects; it goes through float32,
+which holds every bfloat16 value exactly, both ways.
 
 The port's carry keeps a scatter-dump row W on the three lazy-traversal
 caches (``cached_rcs``, ``cached_ver_u``, ``cached_ver_v``), where the JAX
@@ -13,16 +18,25 @@ package's shapes.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
 
 from repro_torch import compat
 from repro_torch.core.adwise import Carry
+from repro_torch.configs.base import ArchConfig
 from repro_torch.engine import partitioned
+from repro_torch.models import lm
 
-__all__ = ["carry_from_numpy", "carry_to_numpy", "partitioned_graph_from_numpy"]
+__all__ = [
+    "carry_from_numpy",
+    "carry_to_numpy",
+    "partitioned_graph_from_numpy",
+    "lm_params_from_numpy",
+    "cache_from_numpy",
+    "cache_to_numpy",
+]
 
 _PADDED = {"cached_rcs": 0.0, "cached_ver_u": -1, "cached_ver_v": -1}
 _DTYPES = {
@@ -79,3 +93,93 @@ def partitioned_graph_from_numpy(
         np.asarray(degrees, np.int32), num_vertices, k,
         compat.resolve_device(device),
     )
+
+
+def _as_torch(a, dtype: torch.dtype | None, device) -> torch.Tensor:
+    """A numpy leaf as a tensor; bfloat16 (by name, so no ``ml_dtypes``
+    import is needed) goes through float32, and so does any leaf when
+    ``dtype`` is given."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        dtype = dtype or torch.bfloat16
+        a = a.astype(np.float32)
+    elif dtype is not None:
+        a = a.astype(np.float32)
+    t = torch.from_numpy(np.array(a, order="C"))  # a writable copy
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def _leaves(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_leaves(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+@torch.no_grad()
+def lm_params_from_numpy(
+    params: Mapping[str, Any], cfg: ArchConfig, device=None, tp: int = 1,
+) -> lm.LM:
+    """The port's :class:`~repro_torch.models.lm.LM` on ``device`` from the
+    nested dict of JAX ``lm.init_params`` leaves as numpy arrays.
+
+    The stacked ``blocks`` leaves (leading axis = layer) are split per
+    layer. Every leaf must be present with the port's shape, and nothing
+    else may be: a missing, extra or mis-shaped leaf raises.
+    """
+    model = lm.LM(cfg, tp, device=device)
+    src = _leaves(params)
+    want = {}
+    for name, p in model.named_parameters():
+        if name.startswith("blocks."):
+            _, i, rest = name.split(".", 2)
+            want[name] = (f"blocks.{rest}", int(i))
+        else:
+            want[name] = (name, None)
+    missing = {key for key, _ in want.values()} - set(src)
+    extra = set(src) - {key for key, _ in want.values()}
+    if missing or extra:
+        raise KeyError(
+            f"lm_params_from_numpy: missing leaves {sorted(missing)}, unexpected {sorted(extra)}"
+        )
+    for name, p in model.named_parameters():
+        key, layer = want[name]
+        a = np.asarray(src[key])
+        if layer is not None:
+            if a.shape[0] != cfg.n_layers:
+                raise ValueError(
+                    f"lm_params_from_numpy: {key} stacks {a.shape[0]} layers, "
+                    f"the config {cfg.n_layers}"
+                )
+            a = a[layer]
+        if tuple(a.shape) != tuple(p.shape):
+            raise ValueError(
+                f"lm_params_from_numpy: {name} has shape {tuple(a.shape)}, "
+                f"expected {tuple(p.shape)}"
+            )
+        p.copy_(_as_torch(a, p.dtype, p.device))
+    return model
+
+
+def cache_from_numpy(cache: Mapping[str, Any], device=None) -> lm.Cache:
+    """A port KV cache ``dict(kv=(k, v))`` on ``device`` from the JAX
+    ``init_cache`` / ``forward_cached`` cache as numpy arrays (dense
+    layout: each (n_layers, B, KV, S, Dh))."""
+    dev = compat.resolve_device(device)
+    k, v = cache["kv"]
+    return dict(kv=(_as_torch(k, None, dev), _as_torch(v, None, dev)))
+
+
+def cache_to_numpy(cache: lm.Cache) -> Dict[str, Any]:
+    """The cache as numpy arrays in the JAX layout; a bfloat16 cache comes
+    out as float32 (exact)."""
+
+    def out(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    k, v = cache["kv"]
+    return dict(kv=(out(k), out(v)))

@@ -23,7 +23,7 @@ from repro_torch import compat
 
 __all__ = ["KERNELS", "BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "build", "load"]
 
-KERNELS = ("window_score", "segment_sum")
+KERNELS = ("window_score", "segment_sum", "flash_attention")
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 # <checkout>/src/repro_torch/kernels/_build.py -> <checkout>/build/repro_torch
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"

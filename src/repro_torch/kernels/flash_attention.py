@@ -1,0 +1,156 @@
+"""``flash_attention``: causal / non-causal GQA attention (forward) on Hopper.
+
+Replaces the TPU kernel ``flash_attention_pallas`` + ``_kernel`` of the JAX
+package (``src/repro/kernels/flash_attention.py``): online softmax over KV
+tiles with fp32 running max, sum and accumulator, KV head = q_head // group,
+causality aligned to the end of KV, tiles above the diagonal skipped. The
+CUDA source is ``csrc/flash_attention.cu``; its header states the bound
+(tensor-core operations at the serving shape) and the design (one block per
+64-row q tile, the KV walk a loop inside the block, the ragged edges masked
+in the kernel; fp16 and bf16 on the tensor cores with ``mma.sync``, fp32
+with FMAs).
+
+:func:`flash_attention` takes CUDA tensors only; ``kernels.ops`` checks the
+shapes and sends CPU tensors to the plain version,
+:func:`~repro_torch.kernels.ref.flash_attention_ref`, bound here as
+``flash_attention_plain``. ``LAUNCHES`` counts kernel launches (a launch
+recorded into a CUDA graph counts in ``CAPTURED`` instead; see
+``kernels/window_score.py``).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import flash_attention_ref as flash_attention_plain
+
+__all__ = [
+    "HEAD_DIMS",
+    "KV_ALIGN",
+    "check_shapes",
+    "flash_attention",
+    "flash_attention_plain",
+    "LAUNCHES",
+    "REPLACES",
+]
+
+REPLACES = "src/repro/kernels/flash_attention.py:77"  # flash_attention_pallas
+LAUNCHES = 0
+CAPTURED = 0
+HEAD_DIMS = (32, 64, 96, 128)
+# Non-causal calls need Tk a multiple of the TPU kernel's KV block, as the
+# JAX package asserts (it pads K and relies on the causal mask to hide it).
+KV_ALIGN = 128
+
+_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+_fn = None
+
+
+def _launcher():
+    global _fn
+    if _fn is None:
+        lib = _build.load("flash_attention")
+        fn = lib.flash_attention_launch
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i] + [ll] * 12 + [ctypes.c_float, i, p]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def _rows_aligned(t: torch.Tensor) -> bool:
+    """Every (b, h, row) of ``t`` starts on 16 bytes."""
+    return t.data_ptr() % 16 == 0 and all(
+        st * t.element_size() % 16 == 0 for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1
+    )
+
+
+def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> None:
+    """The op's shape contract, on either device: q (B, Hq, Tq, Dh), k and v
+    (B, Hkv, Tk, Dh) with Hq % Hkv == 0; causal calls need Tq <= Tk (query
+    row r sits at position Tk - Tq + r), non-causal ones Tk % 128 == 0."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not isinstance(t, torch.Tensor) or t.dim() != 4:
+            raise ValueError(f"flash_attention: {name} must be a 4-D tensor (B, H, T, Dh)")
+    b, hq, tq, dh = q.shape
+    if tuple(k.shape) != tuple(v.shape):
+        raise ValueError(f"flash_attention: k {tuple(k.shape)} and v {tuple(v.shape)} differ")
+    if k.shape[0] != b or k.shape[3] != dh:
+        raise ValueError(
+            f"flash_attention: q {tuple(q.shape)} and k {tuple(k.shape)} differ in batch or Dh"
+        )
+    hkv, tk = k.shape[1], k.shape[2]
+    if hkv == 0 or hq % hkv != 0:
+        raise ValueError(f"flash_attention: Hq={hq} is not a multiple of Hkv={hkv}")
+    if causal and tq > tk:
+        raise ValueError(f"flash_attention: causal needs Tq <= Tk, got Tq={tq}, Tk={tk}")
+    if not causal and tk % KV_ALIGN != 0:
+        raise ValueError(
+            f"flash_attention: non-causal needs Tk divisible by {KV_ALIGN}, got Tk={tk}"
+        )
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, Hq, Tq, Dh)
+    k: torch.Tensor,  # (B, Hkv, Tk, Dh)
+    v: torch.Tensor,  # (B, Hkv, Tk, Dh)
+    *,
+    causal: bool = True,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """(B, Hq, Tq, Dh) attention in ``q.dtype`` from the CUDA kernel.
+
+    q, k and v: CUDA tensors of one dtype (float32, float16 or bfloat16) on
+    one device, Dh in :data:`HEAD_DIMS`, each with a contiguous last axis
+    (any strides on the other three; a 16-bit input whose rows do not start
+    on 16 bytes, which the kernel's vector loads need, is copied into a
+    contiguous tensor first). The output is laid out as
+    (B, Tq, Hq, Dh) in memory and returned as its (B, Hq, Tq, Dh) view, so
+    a caller that merges the heads next gets a free reshape.
+    """
+    global LAUNCHES, CAPTURED
+    check_shapes(q, k, v, causal)
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention: the kernel takes CUDA tensors, got {dev}")
+    for name, t in (("k", k), ("v", v)):
+        if t.device != dev:
+            raise ValueError(f"flash_attention: {name} is on {t.device}, q on {dev}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"flash_attention: {name} is {t.dtype}, q is {q.dtype}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"flash_attention: dtype must be float32, float16 or bfloat16, got {q.dtype}")
+    b, hq, tq, dh = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: Dh must be one of {HEAD_DIMS}, got {dh}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(3) != 1:
+            raise ValueError(f"flash_attention: {name} must have a contiguous last axis")
+    if q.element_size() == 2:
+        q, k, v = (t if _rows_aligned(t) else t.clone(memory_format=torch.contiguous_format)
+                   for t in (q, k, v))
+    if b > 65535 or hq > 65535:
+        raise ValueError(f"flash_attention: B={b} and Hq={hq} must be at most 65535")
+    out = torch.empty((b, tq, hq, dh), dtype=q.dtype, device=dev).transpose(1, 2)
+    if b == 0 or tq == 0:
+        return out
+    if tk == 0:
+        raise ValueError("flash_attention: Tk must be at least 1")
+    scale = float(scale) if scale is not None else 1.0 / (dh**0.5)
+    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _launcher()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
+            b, hq, hkv, tq, tk, dh, *strides, scale, int(bool(causal)), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention: kernel launch failed (cudaError {err})")
+    if torch.cuda.is_current_stream_capturing():
+        CAPTURED += 1
+    else:
+        LAUNCHES += 1
+    return out

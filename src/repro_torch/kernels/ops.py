@@ -1,7 +1,7 @@
 """Public kernel ops of the port, dispatched by the device of the tensors.
 
 Counterpart of the JAX package's ``kernels/ops.py`` (``window_score``,
-``segment_sum_sorted``), without its tier ladder: a CPU tensor goes to the
+``segment_sum_sorted``, ``flash_attention``), without its tier ladder: a CPU tensor goes to the
 plain torch version in ``kernels/ref.py``, a CUDA tensor to the hand-written
 kernel — which launches or raises. Nothing falls back from one to the other,
 and there is no autotune table in this slice.
@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import segment_sum as _ss
 from repro_torch.kernels import window_score as _ws
@@ -18,13 +19,14 @@ __all__ = [
     "window_score",
     "window_score_rows",
     "segment_sum_sorted",
+    "flash_attention",
     "launch_counts",
     "reset_launch_counts",
     "captured_counts",
     "credit_replays",
 ]
 
-_KERNELS = {"window_score": _ws, "segment_sum": _ss}
+_KERNELS = {"window_score": _ws, "segment_sum": _ss, "flash_attention": _fa}
 
 
 def _device_of(*tensors: torch.Tensor) -> torch.device:
@@ -96,6 +98,27 @@ def segment_sum_sorted(
     if data.device.type == "cpu":
         return _ref.segment_sum_ref(data, layout.seg_ids, layout.num_segments)
     return _ss.segment_sum(data.contiguous(), layout)
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, Hq, Tq, Dh)
+    k: torch.Tensor,  # (B, Hkv, Tk, Dh)
+    v: torch.Tensor,  # (B, Hkv, Tk, Dh)
+    *,
+    causal: bool = True,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """(B, Hq, Tq, Dh) GQA attention in ``q.dtype`` (see
+    ``kernels/flash_attention.py``); ``scale`` defaults to Dh**-0.5.
+
+    Raises on shapes outside the op's contract
+    (:func:`~repro_torch.kernels.flash_attention.check_shapes`) on either
+    device.
+    """
+    if _device_of(q, k, v).type == "cpu":
+        _fa.check_shapes(q, k, v, causal)
+        return _ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
+    return _fa.flash_attention(q, k, v, causal=causal, scale=scale)
 
 
 def launch_counts() -> dict[str, int]:

@@ -4,8 +4,8 @@ Each function is the semantic ground truth its CUDA kernel is held against
 on the card, and the path ``kernels.ops`` takes for a tensor that lies on the
 CPU. Port of the JAX package's ``kernels/ref.py``: the same operation order,
 so on the CPU the results are bit-equal to the JAX oracles where the
-arithmetic allows it (``window_score``) and equal to fp32 summation order
-elsewhere (``segment_sum``).
+arithmetic allows it (``window_score``) and equal up to fp32 summation
+order elsewhere (``segment_sum``, ``flash_attention``).
 """
 from __future__ import annotations
 
@@ -13,7 +13,10 @@ import torch
 
 NEG_INF = -1e30
 
-__all__ = ["window_score_ref", "window_score_rows_ref", "segment_sum_ref"]
+__all__ = [
+    "window_score_ref", "window_score_rows_ref", "segment_sum_ref",
+    "flash_attention_ref",
+]
 
 
 def _replication(rep_u, rep_v, deg_u, deg_v, max_deg) -> torch.Tensor:
@@ -105,3 +108,36 @@ def segment_sum_ref(
     out = torch.zeros((num_segments, d), dtype=torch.float32, device=data.device)
     idx = seg_ids.long()[:, None].expand(e, d)
     return out.scatter_add_(0, idx, data.float())
+
+
+def flash_attention_ref(
+    q: torch.Tensor,  # (B, Hq, Tq, Dh)
+    k: torch.Tensor,  # (B, Hkv, Tk, Dh)
+    v: torch.Tensor,  # (B, Hkv, Tk, Dh)
+    *,
+    causal: bool = True,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """GQA softmax attention with fp32 accumulation, output in ``q.dtype``.
+
+    Query head h reads KV head h // (Hq / Hkv). Causality is aligned to the
+    *end* of KV: query row r sits at position Tk - Tq + r (so the same
+    function serves prefill, Tq == Tk, and decode append, Tq < Tk); masked
+    logits are NEG_INF, as in the JAX oracle.
+    """
+    b, hq, tq, dh = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    group = hq // hkv
+    scale = scale if scale is not None else 1.0 / (dh**0.5)
+    qf = q.float() * scale
+    kf = k.float()
+    vf = v.float()
+    qg = qf.reshape(b, hkv, group, tq, dh)
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, kf)
+    if causal:
+        qpos = torch.arange(tq, device=q.device) + (tk - tq)
+        mask = qpos[:, None] >= torch.arange(tk, device=q.device)[None, :]
+        logits = torch.where(mask, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", probs, vf)
+    return out.reshape(b, hq, tq, dh).to(q.dtype)

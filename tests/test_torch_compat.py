@@ -47,8 +47,8 @@ def test_library_names_follow_the_sources():
 
 def test_launch_counters_reset_and_credit():
     ops.reset_launch_counts()
-    assert ops.launch_counts() == {"window_score": 0, "segment_sum": 0}
+    assert ops.launch_counts() == {"window_score": 0, "segment_sum": 0, "flash_attention": 0}
     ops.credit_replays({"window_score": 3}, 5)
-    assert ops.launch_counts() == {"window_score": 15, "segment_sum": 0}
+    assert ops.launch_counts() == {"window_score": 15, "segment_sum": 0, "flash_attention": 0}
     ops.reset_launch_counts()
     assert ops.launch_counts()["window_score"] == 0

@@ -1,5 +1,6 @@
 """The port on the card: each CUDA kernel against its plain torch version,
-and the CUDA-graph scan driver against the plain CPU loop.
+the CUDA-graph scan driver against the plain CPU loop, and the dense LM on
+the card against its CPU path.
 
 Every test here needs a CUDA device; without one it skips. This file
 imports neither ``jax`` nor ``repro``, so it runs where only the port is
@@ -11,11 +12,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.core import AdwiseConfig, driver, partition_stream
 from repro_torch.engine import build_partitioned_graph, pagerank
 from repro_torch.graph import make_graph
 from repro_torch.kernels import ops
 from repro_torch.kernels.segment_sum import segment_layout
+from repro_torch.models import lm
 
 pytestmark = pytest.mark.cuda
 
@@ -23,6 +26,16 @@ WS_SHAPES = [
     (1, 2, True), (7, 3, True), (128, 32, True), (200, 20, True),
     (130, 64, False), (64, 5, False), (256, 32, True),
 ]
+# b, hq, hkv, tq, tk, dh, causal — prefill, ragged edges, decode append,
+# chunked continuation, GQA groups 1-4, non-causal at Tk = 256.
+FA_SHAPES = [
+    (1, 1, 1, 8, 8, 32, True), (2, 4, 2, 130, 130, 64, True),
+    (1, 8, 1, 256, 256, 128, True), (2, 4, 4, 64, 64, 64, True),
+    (1, 4, 2, 1, 513, 64, True), (1, 2, 2, 100, 356, 32, True),
+    (1, 6, 2, 200, 200, 96, True), (2, 6, 2, 77, 300, 128, True),
+    (1, 3, 1, 2000, 2000, 128, True), (2, 4, 2, 50, 256, 64, False),
+]
+FA_TOL = {torch.float32: 2e-3, torch.float16: 5e-3, torch.bfloat16: 2e-2}
 SS_SHAPES = [
     (10, 8, 5, np.float32), (1000, 64, 300, np.float32),
     (3000, 32, 700, np.float32), (513, 128, 129, np.float32),
@@ -130,3 +143,109 @@ def test_pagerank_on_the_card_matches_cpu(cuda):
     b, _ = pagerank(build_partitioned_graph(edges, assign, n, 4, device=cuda), iters=20)
     assert ops.launch_counts()["segment_sum"] - before == 20
     np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-8)
+
+
+def _fa_inputs(shape, dtype, device):
+    b, hq, hkv, tq, tk, dh, _ = shape
+    rng = np.random.default_rng(b * 7 + tq + dh)
+    return [torch.as_tensor(rng.normal(size=sh).astype(np.float32)).to(device=device, dtype=dtype)
+            for sh in ((b, hq, tq, dh), (b, hkv, tk, dh), (b, hkv, tk, dh))]
+
+
+@pytest.mark.parametrize("shape", FA_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(cuda, shape, dtype):
+    q, k, v = _fa_inputs(shape, dtype, cuda)
+    causal = shape[-1]
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert ops.launch_counts()["flash_attention"] - before == 1
+    want = ops.flash_attention(q.cpu(), k.cpu(), v.cpu(), causal=causal)
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = FA_TOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dh", [32, 64, 96, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_takes_strided_views(cuda, dh, dtype):
+    """q, k, v as (B, H, T, Dh) views of (B, T, H, Dh) tensors, as the
+    model passes them, and an explicit scale: the same as contiguous."""
+    rng = np.random.default_rng(dh)
+    qt, kt, vt = (torch.as_tensor(rng.normal(size=(2, 150, h, dh)).astype(np.float32))
+                  .to(device=cuda, dtype=dtype) for h in (6, 2, 2))
+    q, k, v = (t.transpose(1, 2) for t in (qt, kt, vt))
+    got = ops.flash_attention(q, k, v, scale=0.2)
+    want = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), scale=0.2)
+    assert torch.equal(got, want)
+    tol = FA_TOL[dtype]
+    np.testing.assert_allclose(
+        got.float().cpu().numpy(),
+        ops.flash_attention(q.cpu(), k.cpu(), v.cpu(), scale=0.2).float().numpy(),
+        rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+def test_flash_attention_kernel_takes_unaligned_rows(cuda, dtype):
+    """16-bit rows that do not start on 16 bytes (an odd offset into a
+    buffer) give the same result as the aligned input."""
+    shape = (1, 4, 70, 64)
+    n = int(np.prod(shape))
+    buf = torch.randn(3 * n + 1, generator=torch.Generator().manual_seed(0)).to(device=cuda,
+                                                                                 dtype=dtype)
+    q, k, v = (buf[1 + i * n:1 + (i + 1) * n].view(shape) for i in range(3))
+    assert q.data_ptr() % 16 != 0
+    got = ops.flash_attention(q, k, v)
+    assert torch.equal(got, ops.flash_attention(q.clone(), k.clone(), v.clone()))
+    want = ops.flash_attention(q.cpu(), k.cpu(), v.cpu())
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().numpy(),
+                               rtol=FA_TOL[dtype], atol=FA_TOL[dtype])
+
+
+def test_flash_attention_kernel_rejects_bad_input(cuda):
+    q = torch.zeros(1, 4, 8, 32, device=cuda)
+    k = torch.zeros(1, 2, 8, 32, device=cuda)
+    with pytest.raises(ValueError, match="Dh must be one of"):
+        ops.flash_attention(torch.zeros(1, 4, 8, 80, device=cuda),
+                            torch.zeros(1, 2, 8, 80, device=cuda),
+                            torch.zeros(1, 2, 8, 80, device=cuda))
+    with pytest.raises(TypeError, match="float32, float16 or bfloat16"):
+        ops.flash_attention(q.double(), k.double(), k.double())
+    with pytest.raises(TypeError, match="k is torch.float16"):
+        ops.flash_attention(q, k.half(), k)
+    with pytest.raises(ValueError, match="contiguous last axis"):
+        ops.flash_attention(torch.zeros(1, 4, 32, 8, device=cuda).transpose(2, 3), k, k)
+    with pytest.raises(ValueError, match="share one device"):
+        ops.flash_attention(q, k.cpu(), k)
+    with pytest.raises(ValueError, match="Tq <= Tk"):
+        ops.flash_attention(torch.zeros(1, 4, 9, 32, device=cuda), k, k)
+    with pytest.raises(ValueError, match="divisible by 128"):
+        ops.flash_attention(q, k, k, causal=False)
+
+
+def test_dense_lm_on_the_card_matches_cpu(cuda):
+    """Reduced llama3.2-3b (fp32): prefill + 3 decode steps on the card
+    against the same weights on the CPU; one kernel launch per layer in the
+    prefill, none in decode."""
+    cfg = get_config("llama3.2-3b").reduced()
+    cpu_model = lm.init_params(cfg, torch.Generator().manual_seed(0))
+    gpu_model = lm.LM(cfg, device=cuda)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab, (2, 40)),
+                              dtype=torch.int32)
+    caches = [lm.init_cache(cfg, 2, 44, device=d) for d in ("cpu", cuda)]
+    before = ops.launch_counts()["flash_attention"]
+    a, _ = lm.forward_cached(cpu_model, cfg, caches[0], prompts, 0)
+    b, _ = lm.forward_cached(gpu_model, cfg, caches[1], prompts.to(cuda), 0)
+    assert ops.launch_counts()["flash_attention"] - before == cfg.n_layers
+    np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), rtol=2e-3, atol=2e-3)
+    tok = a[:, -1:].argmax(-1).to(torch.int32)
+    before = ops.launch_counts()["flash_attention"]
+    for i in range(3):
+        a, _ = lm.forward_cached(cpu_model, cfg, caches[0], tok, 40 + i)
+        b, _ = lm.forward_cached(gpu_model, cfg, caches[1], tok.to(cuda), 40 + i)
+        np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), rtol=2e-3, atol=2e-3)
+        tok = a[:, -1:].argmax(-1).to(torch.int32)
+    assert ops.launch_counts()["flash_attention"] == before
+    for x, y in zip(caches[0]["kv"], caches[1]["kv"]):
+        np.testing.assert_allclose(y.cpu().numpy(), x.numpy(), rtol=2e-3, atol=2e-3)

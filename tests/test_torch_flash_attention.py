@@ -1,0 +1,103 @@
+"""The port's ``flash_attention`` op on the CPU against the JAX package.
+
+On a CPU tensor ``repro_torch.kernels.ops.flash_attention`` runs its plain
+torch version. It is held here against the JAX package's Pallas kernel in
+interpret mode (``tier="interpret"``, the TPU kernel's own blocks and online
+softmax, run on this CPU) and against its XLA reference (``tier="xla"``), on
+the same numpy inputs: the six shapes of ``tests/test_kernels.py``, plus
+Dh 96, a GQA group of 3 and a Tq that is not a multiple of 128. Tolerances
+are the JAX kernel tests': 2e-3 in fp32, 5e-3 in fp16 (another summation
+and exponent order). The CUDA kernel is held against the plain version on
+the card by ``tests/test_torch_cuda.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro_torch.kernels import ops
+from repro_torch.kernels import flash_attention as fa
+
+torch.set_num_threads(1)
+
+SHAPES = [
+    # b, hq, hkv, tq, tk, dh, dtype — the shapes of tests/test_kernels.py
+    (1, 1, 1, 8, 8, 32, np.float32),
+    (2, 4, 2, 130, 130, 64, np.float32),
+    (1, 8, 1, 256, 256, 128, np.float32),   # MQA
+    (2, 4, 4, 64, 64, 64, np.float16),
+    (1, 4, 2, 1, 513, 64, np.float32),      # decode append
+    (1, 2, 2, 100, 356, 32, np.float32),    # chunked continuation
+    # and what the port's models add
+    (1, 6, 2, 200, 200, 96, np.float32),    # Dh 96 (phi-3), GQA group 3
+    (2, 6, 2, 77, 300, 128, np.float16),    # group 3, Dh 128, Tq % 128 != 0
+]
+
+
+def _inputs(b, hq, hkv, tq, tk, dh, dtype):
+    rng = np.random.default_rng(b * 7 + tq)
+    q = rng.normal(size=(b, hq, tq, dh)).astype(dtype)
+    k = rng.normal(size=(b, hkv, tk, dh)).astype(dtype)
+    v = rng.normal(size=(b, hkv, tk, dh)).astype(dtype)
+    return q, k, v
+
+
+def _tol(dtype):
+    return 5e-3 if dtype == np.float16 else 2e-3
+
+
+@pytest.mark.parametrize("b,hq,hkv,tq,tk,dh,dtype", SHAPES)
+@pytest.mark.parametrize("tier", ["interpret", "xla"])
+def test_plain_matches_jax(b, hq, hkv, tq, tk, dh, dtype, tier):
+    q, k, v = _inputs(b, hq, hkv, tq, tk, dh, dtype)
+    want = jops.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), tier=tier)
+    got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v))
+    assert got.dtype == torch.from_numpy(q).dtype and got.shape == q.shape
+    tol = _tol(dtype)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("tier", ["interpret", "xla"])
+def test_non_causal_and_explicit_scale_match_jax(tier):
+    q, k, v = _inputs(2, 4, 2, 64, 256, 32, np.float32)
+    want = jops.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                causal=False, scale=0.3, tier=tier)
+    got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                              causal=False, scale=0.3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-3, atol=2e-3)
+
+
+def test_bf16_matches_jax_xla_reference():
+    """bf16 in and out: both compute in fp32 and round once at the end, so
+    they agree within one bf16 ulp of |out| <= 4 (2^-6)."""
+    q, k, v = _inputs(1, 6, 2, 96, 96, 128, np.float32)
+    want = jops.flash_attention(jnp.asarray(q, jnp.bfloat16), jnp.asarray(k, jnp.bfloat16),
+                                jnp.asarray(v, jnp.bfloat16), tier="xla")
+    t = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)]
+    got = ops.flash_attention(*t)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               rtol=0, atol=2.0**-6)
+
+
+@pytest.mark.parametrize("q_shape,k_shape,causal,match", [
+    ((1, 4, 8, 32), (1, 3, 8, 32), True, "multiple of Hkv"),
+    ((1, 4, 9, 32), (1, 2, 8, 32), True, "Tq <= Tk"),
+    ((1, 4, 8, 32), (1, 2, 200, 32), False, "divisible by 128"),
+    ((2, 4, 8, 32), (1, 2, 8, 32), True, "batch or Dh"),
+    ((1, 4, 8, 32), (1, 2, 8, 64), True, "batch or Dh"),
+    ((4, 8, 32), (1, 2, 8, 32), True, "4-D"),
+])
+def test_op_rejects_shapes_outside_its_contract(q_shape, k_shape, causal, match):
+    q, k = torch.zeros(q_shape), torch.zeros(k_shape)
+    with pytest.raises(ValueError, match=match):
+        ops.flash_attention(q, k, k.clone(), causal=causal)
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    q = torch.zeros(1, 2, 4, 32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fa.flash_attention(q, q, q)
+    assert fa.flash_attention_plain is not None and fa.REPLACES.endswith(":77")
