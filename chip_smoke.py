@@ -10,7 +10,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    one process per source, in parallel.
 1. Kernels against their plain torch versions, on the card, at the main
    path's shapes: error, kernel / plain / library times (CUDA events), and
-   the least time the card could take (its bound).
+   the least time the card could take (its bound). ``window_score``'s row
+   op is read from (V+1, K) replica tables and timed beside an empty
+   kernel on its grid (the launch floor), on three windows: ids below 200
+   (the inputs the kernel before the redesign was timed on), a window of
+   the brain_like stream over its 40,001-row table (the main path's data,
+   reported in the kernels line), and a hub.
 2. The main path at full preset size: ``brain_like`` at scale 1.0 (40,000
    vertices; 400,000 edges drawn, 352,471 after de-duplication, in file
    order), k = 32, window_max = 256, lazy
@@ -25,17 +30,20 @@ Phases (any failure exits non-zero, and no result line is printed):
    pagerank on both devices on the same partition.
 4. A torch.profiler trace of a short ADWISE run: kernels and device busy
    time per step, against the step's wall time from phase 2.
-5. ``flash_attention`` against its plain version on the card: at the
-   serving shape (q (4, 24, 2048, 128), k/v (4, 8, 2048, 128), bf16,
-   causal — each prefill layer's launch), at Tq = Tk = 2000, at the shapes
-   of the JAX kernel tests in fp32 and fp16, at each Dh in {32, 64, 96,
-   128}, and non-causal at Tk = 256; at each, kernel / plain / SDPA times
-   and the bound (SDPA is timed as a yardstick only; the port never calls
-   it).
+5. ``flash_attention`` against its plain version on the card, each call
+   checked to have run the body ``body_for`` names: at the serving shape
+   (q (4, 24, 2048, 128), k/v (4, 8, 2048, 128), bf16, causal — each
+   prefill layer's launch, on the ``wgmma`` body), the same at Dh 64, at
+   Tq = Tk = 2000, at a long context (B = 1, T = 8192; the plain version
+   checked once, not timed),
+   at Tk = 129 for Dh 64 and 128, at the shapes of the JAX kernel tests in
+   fp32 and fp16, at each Dh in {32, 64, 96, 128}, and non-causal at
+   Tk = 256; at each, kernel / plain / SDPA times and the bound (SDPA is
+   timed as a yardstick only; the port never calls it).
 6. LM serving at full width: ``repro_torch.launch.serve.main`` on
    Llama-3.2-3B (28 layers, bf16, random weights from the seed), batch 4,
    prompt 2048, 64 generated tokens — 28 flash launches in the prefill,
-   none in decode, tokens in range, logits finite; prefill and decode
+   all on the ``wgmma`` body, none in decode, tokens in range, logits finite; prefill and decode
    rates and peak memory. Then a second prefill of the same model (steady
    state), a torch.profiler trace of a third (device time by kernel), and
    one of decode steps (device busy time per step against its wall).
@@ -52,6 +60,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -157,33 +166,48 @@ def ws_inputs(w, k, seed):
     )
 
 
+def ws_table_inputs(w, k, v, seed, uv=None):
+    """A window of W slots over a (v + 1)-row vertex table, as the ADWISE
+    step holds it: slot ids (random in [0, v), or ``uv``), valid flags, a
+    (v + 1, K) bool replica table and (v + 1,) int32 degrees."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    if uv is None:
+        uv = rng.integers(0, v, (w, 2))
+    return (
+        np.asarray(uv, np.int32),
+        rng.random(w) < 0.85,
+        rng.random((v + 1, k)) < 0.2,
+        rng.integers(1, 40, v + 1).astype(np.int32),
+    )
+
+
 def ws_work(uv, valid, rows, k, use_cs):
     """(bytes, operations) the row-scoring function needs on these inputs:
     every input it reads read once, the output written once. It reads the
-    selected rows' ids, degrees and replica rows, max_deg, and, for the
-    clustering score, every slot's (u, v) and valid flag and the replica row
-    of every slot that shares an endpoint with a selected row (rep_v where
-    its u matches, rep_u where its v does). Operations: per row one
-    4-comparison match test per window slot, per (row, p) one add per
-    matched slot and ~8 epilogue operations."""
+    selected rows' ids, the replica-table rows and degrees of their
+    endpoints, max_deg, and, for the clustering score, every slot's (u, v)
+    and valid flag and the table row of every vertex that a matching slot
+    brings in (v_j where u_j matches, u_j where v_j does), each row once.
+    Operations: per row one 4-comparison match test per window slot, per
+    (row, p) one add per matched slot and ~8 epilogue operations."""
     import numpy as np
 
     w = len(uv)
     r = len(rows)
     u, v = uv[:, 0], uv[:, 1]
-    need_u = np.zeros(w, bool)
-    need_v = np.zeros(w, bool)
-    need_u[rows] = need_v[rows] = True
+    ends = set(u[rows].tolist()) | set(v[rows].tolist())
+    table_rows = set(ends)
     den = 0
     if use_cs:
         for i in rows:
             keep = valid & (np.arange(w) != i)
             a = ((u == u[i]) | (u == v[i])) & keep
             b = ((v == u[i]) | (v == v[i])) & keep
-            need_v |= a
-            need_u |= b
+            table_rows |= set(v[a].tolist()) | set(u[b].tolist())
             den += int(a.sum()) + int(b.sum())
-    nbytes = (r * 4 + 2 * r * 4 + 4 + (need_u.sum() + need_v.sum()) * k
+    nbytes = (r * 4 + len(ends) * 4 + 4 + len(table_rows) * k
               + use_cs * (w * 8 + w) + r * k * 4)
     ops = r * w * 4 * use_cs + k * den + 8 * r * k
     return int(nbytes), ops
@@ -220,31 +244,47 @@ def phase_kernels(edges, n):
         log(f"kernel window_score full W={w} K={k} cs={use_cs}: max_abs_err={err} "
             f"bit_equal={bit_equal} ms={ms:.5f} plain_ms={plain:.5f}")
 
-    # window_score, the step's row variant: R = 32 rows of W = 256, K = 32.
+    # window_score, the step's row variant: R = 32 rows of W = 256, K = 32,
+    # read from a (V+1, K) replica table: ids below 200 (the inputs the
+    # previous kernel was timed on), a window of the brain_like stream over
+    # its full 40,001-row table, and a hub window whose first slot matches
+    # every column.
+    from repro_torch.kernels import window_score as ws_mod
+
     w, k, r = 256, 32, 32
-    arr = ws_inputs(w, k, 7)
-    t = [T(a) for a in arr[:6]]
     rows_np = np.random.default_rng(8).choice(w, r, replace=False).astype(np.int32)
+    rows_np[0] = 0
     rows = T(rows_np)
     md = T(np.int32(40))
-    got = ops.window_score_rows(*t, md, rows)
-    want = ref.window_score_rows_ref(*t, md, rows)
-    torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    bit_equal = torch.equal(got.view(torch.int32), want.view(torch.int32))
-    check(torch.allclose(got, want, rtol=1e-5, atol=1e-5), "window_score rows within 1e-5")
-    ms = cuda_ms(lambda: ops.window_score_rows(*t, md, rows), iters=200)
-    plain = cuda_ms(lambda: ref.window_score_rows_ref(*t, md, rows), iters=200)
-    eager = eager_ms(lambda: ops.window_score_rows(*t, md, rows), iters=200)
-    b, o = ws_work(arr[0], arr[1], rows_np, k, True)
-    bms, by = bound(b, o)
-    log(f"kernel window_score rows R={r} W={w} K={k}: max_abs_err={err} "
-        f"bit_equal={bit_equal} ms={ms:.5f} plain_ms={plain:.5f} eager_call_ms={eager:.5f} "
-        f"bound_ms={bms:.3g} ({by}) bytes={b} ops={o}")
-    rows_out["window_score"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-        library_ms=None, shape=f"rows R={r} of W={w}, K={k}", bit_equal=bit_equal,
-    )
+    hub = np.stack([np.full(w, 7), np.random.default_rng(9).integers(0, 200, w)], 1)
+    cases = [("ids<200", ws_table_inputs(w, k, 200, 7)),
+             ("brain_like window", ws_table_inputs(w, k, n, 7, uv=edges[100_000:100_000 + w])),
+             ("hub", ws_table_inputs(w, k, 200, 7, uv=hub))]
+    floor = cuda_ms(lambda: ws_mod.launch_floor(r), iters=200)
+    for tag, arr in cases:
+        t = [T(a) for a in arr]
+        got = ops.window_score_rows(*t, md, rows)
+        want = ref.window_score_rows_ref(*t, md, rows)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        bit_equal = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        check(bit_equal, f"window_score rows ({tag}) bit-equal to the plain version")
+        ms = cuda_ms(lambda: ops.window_score_rows(*t, md, rows), iters=200)
+        plain = cuda_ms(lambda: ref.window_score_rows_ref(*t, md, rows), iters=200)
+        eager = eager_ms(lambda: ops.window_score_rows(*t, md, rows), iters=200)
+        b, o = ws_work(arr[0], arr[1], rows_np, k, True)
+        bms, by = bound(b, o)
+        log(f"kernel window_score rows R={r} W={w} K={k} ({tag}, table {len(arr[3])} rows): "
+            f"max_abs_err={err} bit_equal={bit_equal} ms={ms:.5f} launch_floor_ms={floor:.5f} "
+            f"plain_ms={plain:.5f} eager_call_ms={eager:.5f} bound_ms={bms:.3g} ({by}) "
+            f"bytes={b} ops={o} (before the redesign: 0.02659 ms)")
+        if tag == "brain_like window":  # the main path's data
+            rows_out["window_score"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                library_ms=None,
+                shape=f"rows R={r} of W={w}, K={k}, brain_like window, table {len(arr[3])} x {k}",
+                bit_equal=bit_equal, launch_floor_ms=floor,
+            )
 
     # segment_sum at the main path's message layout (E = 2m, S = V).
     dst = np.concatenate([edges[:, 1], edges[:, 0]])
@@ -362,7 +402,7 @@ def phase_main_path(edges, n, k, window_max):
             check(launches == st["steps_run"] + st["warmup_steps"],
                   "adwise: one window_score launch per step run")
             line += (f" steps={st['steps_run']} steps_per_s={st['steps_run'] / loop_s:.1f} "
-                     f"us_per_step={loop_s / st['steps_run'] * 1e6:.2f} setup_s={st['setup_s']:.3f} "
+                     f"us_per_step={loop_s / st['steps_run'] * 1e6:.2f} (before the redesign: 361.92) setup_s={st['setup_s']:.3f} "
                      f"scan_calls={st['scan_calls']} score_rows={st['score_rows']} "
                      f"final_w={st['final_w']} window_score_launches={launches}")
         log(line)
@@ -501,10 +541,13 @@ def fa_work(b, hq, hkv, tq, tk, dh, itemsize, causal):
 
 
 def phase_flash():
+    import gc
+
     import numpy as np
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
 
     dev = torch.device("cuda")
@@ -514,13 +557,18 @@ def phase_flash():
         return [torch.as_tensor(rng.normal(size=sh).astype(np.float32)).to(device=dev, dtype=dtype)
                 for sh in ((b, hq, tq, dh), (b, hkv, tk, dh), (b, hkv, tk, dh))]
 
-    def measure(tag, shape, dtype, causal=True):
-        """Error against the plain version (checked), then kernel, plain and
-        SDPA times and the bound. SDPA's is_causal aligns to the top left,
-        so where Tq < Tk it gets the end-aligned mask instead."""
+    def measure(tag, shape, dtype, causal=True, time_plain=True):
+        """Error against the plain version (checked), the body that ran
+        (checked), then kernel, plain and SDPA times and the bound. SDPA's
+        is_causal aligns to the top left, so where Tq < Tk it gets the
+        end-aligned mask instead. ``time_plain=False`` checks the plain
+        version once and does not time it."""
         b, hq, hkv, tq, tk, dh = shape
         q, k, v = inputs(*shape, dtype)
+        body = fa.body_for(dtype, dh)
+        before = fa.LAUNCHES_BY_BODY[body]
         got = ops.flash_attention(q, k, v, causal=causal)
+        check(fa.LAUNCHES_BY_BODY[body] - before == 1, f"flash_attention {tag} {shape} ran the {body} body")
         want = ref.flash_attention_ref(q, k, v, causal=causal)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
@@ -538,23 +586,42 @@ def phase_flash():
                                                   is_causal=causal and mask is None, enable_gqa=True)
 
         sdpa_err = (lib().float() - want.float()).abs().max().item()
+        del want
         nbytes, nops = fa_work(*shape, q.element_size(), causal)
         big = nops > 1e10
         ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal), iters=10 if big else 50)
-        plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=causal), iters=3 if big else 20)
+        plain = (cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=causal), iters=3 if big else 20)
+                 if time_plain else None)
         library = cuda_ms(lib, iters=10 if big else 50)
         bms, by = bound(nbytes, nops, FP32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S)
-        log(f"kernel flash_attention {tag} q=({b},{hq},{tq},{dh}) kv=({b},{hkv},{tk},{dh}) {name} "
-            f"causal={causal}: max_abs_err={err} (rtol=atol={tol}) sdpa_max_abs_err={sdpa_err} "
-            f"ms={ms:.5f} plain_ms={plain:.5f} "
-            f"sdpa_ms={library:.5f} bound_ms={bms:.6f} ({by}) bytes={nbytes} ops={nops} "
+        line = (f"kernel flash_attention {tag} q=({b},{hq},{tq},{dh}) kv=({b},{hkv},{tk},{dh}) {name} "
+                f"causal={causal} body={body}: max_abs_err={err} (rtol=atol={tol}) "
+                f"sdpa_max_abs_err={sdpa_err} ms={ms:.5f} ")
+        if plain is not None:
+            line += f"plain_ms={plain:.5f} "
+        else:
+            line += "plain_ms=not timed "
+        log(line + f"sdpa_ms={library:.5f} bound_ms={bms:.6f} ({by}) bytes={nbytes} ops={nops} "
             f"kernel_tflops={nops / ms / 1e9:.2f} sdpa_tflops={nops / library / 1e9:.2f}")
         return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-                    library_ms=library)
+                    library_ms=library, body=body)
 
     row = measure("serve", (4, 24, 8, 2048, 2048, 128), torch.bfloat16)
     row["shape"] = "q (4,24,2048,128), k/v (4,8,2048,128), bf16, causal"
+    check(row["body"] == "wgmma", "flash_attention: the serving shape ran the wgmma body")
+    # The serving shape at Dh 64 (Qwen1.5-0.5B's, Granite's and Whisper's head
+    # dim), on the same body.
+    measure("serve Dh=64", (4, 24, 8, 2048, 2048, 64), torch.bfloat16)
     measure("ragged", (1, 24, 8, 2000, 2000, 128), torch.bfloat16)
+    # Long context: the plain version's fp32 logits are 6.4 GB here, so it is
+    # checked once and not timed.
+    measure("long", (1, 24, 8, 8192, 8192, 128), torch.bfloat16, time_plain=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # A ragged one-tile-plus-one-row KV at both wgmma head dims.
+    for dh in (64, 128):
+        for dtype in (torch.bfloat16, torch.float16):
+            measure("Tk=129", (2, 6, 2, 129, 129, dh), dtype)
     # The JAX kernel tests' shapes (tests/test_kernels.py), in fp32 and fp16.
     for dtype in (torch.float32, torch.float16):
         for shape in [(1, 1, 1, 8, 8, 32), (2, 4, 2, 130, 130, 64), (1, 8, 1, 256, 256, 128),
@@ -584,6 +651,7 @@ def phase_serve():
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models import lm
@@ -604,6 +672,9 @@ def phase_serve():
           "serve: 28 flash_attention launches in the prefill")
     check(info["decode_launches"]["flash_attention"] == 0, "serve: no flash_attention launch in decode")
     check(counts["flash_attention"] == 28, "serve: 28 flash_attention launches in the run")
+    by_body = dict(fa.LAUNCHES_BY_BODY)
+    check(by_body["wgmma"] == 28 and sum(by_body.values()) == 28,
+          "serve: the 28 prefill launches ran the wgmma body, and decode launched none")
     steps = n_gen - 1
     log(f"serve llama3.2-3b B={b} prompt={t} gen={n_gen}: prefill_ms={info['prefill_s'] * 1e3:.3f} "
         f"prefill_tok_per_s={b * t / info['prefill_s']:.1f} "
@@ -654,7 +725,7 @@ def phase_serve():
     kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kern)
     n_kern = sum(e.count for e in kern)
-    log(f"serve steady: second prefill_ms={t_prefill * 1e3:.3f} "
+    log(f"serve steady: second prefill_ms={t_prefill * 1e3:.3f} (before the redesign: 142.033) "
         f"prefill_tok_per_s={b * t / t_prefill:.1f}")
     log(f"serve decode profile: {n_prof} steps, kernels_per_step={n_kern / n_prof:.1f} "
         f"device_busy_ms_per_step={busy_us / n_prof / 1e3:.3f} "
@@ -752,7 +823,10 @@ def main() -> int:
         log(f"build: {time.perf_counter() - t0:.2f}s wall ({', '.join(f'{k} {v:.2f}s' for k, v in secs.items())})")
         for name, text in _build.BUILD_LOGS.items():
             for ln in text.splitlines():
-                if "registers" in ln or "spill" in ln or "error" in ln.lower():
+                entry = re.search(r"entry function '\w*?([a-z_]+_kernel\w{0,36})", ln)
+                if entry:
+                    log(f"ptxas {name}: kernel {entry.group(1)}")
+                elif any(w in ln.lower() for w in ("registers", "spill", "error", "warning")):
                     log(f"ptxas {name}: {ln.strip()}")
 
         from repro_torch.graph import make_graph
@@ -793,6 +867,7 @@ def main() -> int:
                 max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
                 bound_ms=row["bound_ms"], bound_by=row["bound_by"],
                 library_ms=row["library_ms"], shape=row["shape"],
+                **{key: row[key] for key in ("body", "launch_floor_ms") if key in row},
             ))
         log(f"checks passed: {len(CHECKS)}; total {time.perf_counter() - t_start:.1f}s")
         log(json.dumps({"kernels": kernels}))

@@ -231,8 +231,7 @@ def _make_step(
 
         # ---- 3) Fresh R (+ CS) for the selected rows: the kernel. ----
         rcs_rows = ops.window_score_rows(
-            win_uv, win_valid, carry.replicas[u], carry.replicas[v],
-            deg[u], deg[v], max_deg, sel_c.to(_I32), use_cs=use_cs,
+            win_uv, win_valid, carry.replicas, deg, max_deg, sel_c, use_cs=use_cs,
         )
         carry.cached_rcs.index_copy_(0, sel_idx, rcs_rows)
         carry.cached_ver_u.index_copy_(0, sel_idx, ver_u[sel_c])

@@ -6,16 +6,18 @@ tiles with fp32 running max, sum and accumulator, KV head = q_head // group,
 causality aligned to the end of KV, tiles above the diagonal skipped. The
 CUDA source is ``csrc/flash_attention.cu``; its header states the bound
 (tensor-core operations at the serving shape) and the design (one block per
-64-row q tile, the KV walk a loop inside the block, the ragged edges masked
-in the kernel; fp16 and bf16 on the tensor cores with ``mma.sync``, fp32
-with FMAs).
+q tile, the KV walk a loop inside the block, the ragged edges masked in the
+kernel). It holds three bodies, and :func:`body_for` names the one a call
+takes: ``"wgmma"`` for fp16 / bf16 at Dh 64 and 128 (TMA loads by a
+producer warpgroup, ``wgmma`` products on two consumer warpgroups),
+``"mma_sync"`` for fp16 / bf16 at Dh 32 and 96, ``"fma"`` for fp32.
 
 :func:`flash_attention` takes CUDA tensors only; ``kernels.ops`` checks the
 shapes and sends CPU tensors to the plain version,
 :func:`~repro_torch.kernels.ref.flash_attention_ref`, bound here as
 ``flash_attention_plain``. ``LAUNCHES`` counts kernel launches (a launch
 recorded into a CUDA graph counts in ``CAPTURED`` instead; see
-``kernels/window_score.py``).
+``kernels/window_score.py``), and ``LAUNCHES_BY_BODY`` splits them by body.
 """
 from __future__ import annotations
 
@@ -27,12 +29,17 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention_ref as flash_attention_plain
 
 __all__ = [
+    "BODIES",
     "HEAD_DIMS",
     "KV_ALIGN",
+    "WGMMA_HEAD_DIMS",
+    "body_for",
     "check_shapes",
+    "rows_aligned",
     "flash_attention",
     "flash_attention_plain",
     "LAUNCHES",
+    "LAUNCHES_BY_BODY",
     "REPLACES",
 ]
 
@@ -40,11 +47,17 @@ REPLACES = "src/repro/kernels/flash_attention.py:77"  # flash_attention_pallas
 LAUNCHES = 0
 CAPTURED = 0
 HEAD_DIMS = (32, 64, 96, 128)
+WGMMA_HEAD_DIMS = (64, 128)
+BODIES = ("fma", "mma_sync", "wgmma")  # the kernel's codes 0, 1, 2
+LAUNCHES_BY_BODY = dict.fromkeys(BODIES, 0)
 # Non-causal calls need Tk a multiple of the TPU kernel's KV block, as the
 # JAX package asserts (it pads K and relies on the causal mask to hide it).
 KV_ALIGN = 128
 
 _DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+# The launcher's codes above every cudaError_t (csrc/flash_attention.cu).
+_ERR_ENCODE = 100000
+_ERR_NO_ENCODER = 200000
 _fn = None
 
 
@@ -54,16 +67,34 @@ def _launcher():
         lib = _build.load("flash_attention")
         fn = lib.flash_attention_launch
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i] + [ll] * 12 + [ctypes.c_float, i, p]
+        fn.argtypes = ([p, p, p, p, i, i, i, i, i, i, i] + [ll] * 12
+                       + [ctypes.c_float, i, p, ctypes.POINTER(i)])
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
-def _rows_aligned(t: torch.Tensor) -> bool:
-    """Every (b, h, row) of ``t`` starts on 16 bytes."""
+def body_for(dtype: torch.dtype, dh: int) -> str:
+    """The kernel body a CUDA call with this dtype and head dim takes:
+    ``"wgmma"`` for fp16 / bf16 at Dh 64 and 128, ``"mma_sync"`` for
+    fp16 / bf16 at Dh 32 and 96, ``"fma"`` for fp32 (exact products)."""
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: Dh must be one of {HEAD_DIMS}, got {dh}")
+    if dtype == torch.float32:
+        return "fma"
+    if dtype in (torch.float16, torch.bfloat16):
+        return "wgmma" if dh in WGMMA_HEAD_DIMS else "mma_sync"
+    raise TypeError(f"flash_attention: dtype must be float32, float16 or bfloat16, got {dtype}")
+
+
+def rows_aligned(t: torch.Tensor) -> bool:
+    """Every (b, h, row) of ``t`` starts on 16 bytes, at a positive stride:
+    the rule of the 16-bit bodies' 16-byte loads, and TMA's rule for a
+    tensor map's base and strides (an axis of extent 1 has no stride to
+    check)."""
     return t.data_ptr() % 16 == 0 and all(
-        st * t.element_size() % 16 == 0 for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1
+        st > 0 and st * t.element_size() % 16 == 0
+        for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1
     )
 
 
@@ -105,10 +136,11 @@ def flash_attention(
     q, k and v: CUDA tensors of one dtype (float32, float16 or bfloat16) on
     one device, Dh in :data:`HEAD_DIMS`, each with a contiguous last axis
     (any strides on the other three; a 16-bit input whose rows do not start
-    on 16 bytes, which the kernel's vector loads need, is copied into a
-    contiguous tensor first). The output is laid out as
-    (B, Tq, Hq, Dh) in memory and returned as its (B, Hq, Tq, Dh) view, so
-    a caller that merges the heads next gets a free reshape.
+    on 16 bytes, which the kernel's vector and TMA loads need, is copied into
+    a contiguous tensor first). The output is laid out as (B, Tq, Hq, Dh) in
+    memory and returned as its (B, Hq, Tq, Dh) view, so a caller that merges
+    the heads next gets a free reshape. The kernel takes the body
+    :func:`body_for` names; ``LAUNCHES_BY_BODY`` counts the one it reports.
     """
     global LAUNCHES, CAPTURED
     check_shapes(q, k, v, causal)
@@ -124,13 +156,12 @@ def flash_attention(
         raise TypeError(f"flash_attention: dtype must be float32, float16 or bfloat16, got {q.dtype}")
     b, hq, tq, dh = q.shape
     hkv, tk = k.shape[1], k.shape[2]
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: Dh must be one of {HEAD_DIMS}, got {dh}")
+    body_for(q.dtype, dh)  # raises on a Dh no body takes
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"flash_attention: {name} must have a contiguous last axis")
     if q.element_size() == 2:
-        q, k, v = (t if _rows_aligned(t) else t.clone(memory_format=torch.contiguous_format)
+        q, k, v = (t if rows_aligned(t) else t.clone(memory_format=torch.contiguous_format)
                    for t in (q, k, v))
     if b > 65535 or hq > 65535:
         raise ValueError(f"flash_attention: B={b} and Hq={hq} must be at most 65535")
@@ -141,16 +172,26 @@ def flash_attention(
         raise ValueError("flash_attention: Tk must be at least 1")
     scale = float(scale) if scale is not None else 1.0 / (dh**0.5)
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    ran = ctypes.c_int(-1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _launcher()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
             b, hq, hkv, tq, tk, dh, *strides, scale, int(bool(causal)), stream,
+            ctypes.byref(ran),
         )
+    body = BODIES[ran.value] if 0 <= ran.value < len(BODIES) else "none"
+    if err >= _ERR_NO_ENCODER:
+        raise RuntimeError("flash_attention: no cuTensorMapEncodeTiled entry point on this system")
+    if err >= _ERR_ENCODE:
+        raise RuntimeError(
+            f"flash_attention: TMA tensor map refused (CUresult {err - _ERR_ENCODE})")
     if err != 0:
-        raise RuntimeError(f"flash_attention: kernel launch failed (cudaError {err})")
+        raise RuntimeError(
+            f"flash_attention: kernel launch failed (cudaError {err}; body {body})")
     if torch.cuda.is_current_stream_capturing():
         CAPTURED += 1
     else:
         LAUNCHES += 1
+        LAUNCHES_BY_BODY[body] += 1
     return out

@@ -62,20 +62,19 @@ def window_score(
 
 
 def window_score_rows(
-    win_uv, win_valid, rep_u, rep_v, deg_u, deg_v, max_deg, rows,
-    *, use_cs: bool = True,
+    win_uv, win_valid, replicas, deg, max_deg, rows, *, use_cs: bool = True,
 ) -> torch.Tensor:
-    """(R, K) R + CS of window slots ``rows`` — the ADWISE step's rescoring."""
-    dev = _device_of(win_uv, win_valid, rep_u, rep_v, deg_u, deg_v, rows)
+    """(R, K) R + CS of window slots ``rows`` — the ADWISE step's rescoring,
+    read from the (V+1, K) replica and (V+1,) degree tables at the window's
+    vertex ids; ``rows`` is int32 or int64."""
+    dev = _device_of(win_uv, win_valid, replicas, deg, rows)
     max_deg = _scalar(max_deg, torch.int32, dev)
     if dev.type == "cpu":
         return _ref.window_score_rows_ref(
-            win_uv, win_valid, rep_u, rep_v, deg_u, deg_v, max_deg, rows,
-            use_cs=use_cs,
+            win_uv, win_valid, replicas, deg, max_deg, rows, use_cs=use_cs,
         )
     return _ws.window_score_rows(
-        win_uv, win_valid, rep_u, rep_v, deg_u, deg_v, max_deg, rows,
-        use_cs=use_cs,
+        win_uv, win_valid, replicas, deg, max_deg, rows, use_cs=use_cs,
     )
 
 
@@ -129,6 +128,7 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for mod in _KERNELS.values():
         mod.LAUNCHES = 0
+    _fa.LAUNCHES_BY_BODY.update(dict.fromkeys(_fa.BODIES, 0))
 
 
 def captured_counts() -> dict[str, int]:

@@ -72,24 +72,26 @@ def window_score_ref(
 def window_score_rows_ref(
     win_uv: torch.Tensor,  # (W, 2) int32
     win_valid: torch.Tensor,  # (W,) bool
-    rep_u: torch.Tensor,  # (W, K) bool
-    rep_v: torch.Tensor,  # (W, K) bool
-    deg_u: torch.Tensor,  # (W,) int32
-    deg_v: torch.Tensor,  # (W,) int32
+    replicas: torch.Tensor,  # (V+1, K) bool — the step's replica table
+    deg: torch.Tensor,  # (V+1,) int32 — the step's degree table
     max_deg: torch.Tensor,  # () int32
-    rows: torch.Tensor,  # (R,) int — window slots to score, in [0, W)
+    rows: torch.Tensor,  # (R,) int32 / int64 — window slots to score, in [0, W)
     *,
     use_cs: bool = True,
 ) -> torch.Tensor:
     """R + CS (no λ·B, no mask) for the selected window slots: (R, K).
 
     This is what the ADWISE step computes for its lazily rescored rows
-    (the JAX package inlines it in ``core/adwise.py``); row r equals row
-    ``rows[r]`` of :func:`window_score_ref` before its λ·B add and mask.
+    (the JAX package inlines it in ``core/adwise.py``). It gathers the
+    window's replica rows and degrees from the tables at the window's
+    vertex ids, as the JAX step does; row r then equals row ``rows[r]`` of
+    :func:`window_score_ref` on ``replicas[u]``, ``replicas[v]``,
+    ``deg[u]``, ``deg[v]`` before its λ·B add and mask.
     """
     u, v = win_uv[:, 0], win_uv[:, 1]
+    rep_u, rep_v = replicas[u], replicas[v]
     rows = rows.long()
-    g = _replication(rep_u, rep_v, deg_u, deg_v, max_deg)[rows]
+    g = _replication(rep_u, rep_v, deg[u], deg[v], max_deg)[rows]
     if use_cs:
         g = g + _clustering(u[rows], v[rows], rows, u, v, win_valid, rep_u, rep_v)
     return g

@@ -2,17 +2,22 @@
 
 Replaces the TPU kernel ``window_score_pallas`` + ``_kernel`` of the JAX
 package (``src/repro/kernels/window_score.py``). The CUDA source is
-``csrc/window_score.cu``; its header states the bound (launch latency at the
-step's shapes: ~20 KB of replica rows per call) and the design (one block per
-scored row, int32 match counts, an FMA-free fp32 epilogue in the JAX order,
-so the kernel is bit-equal to the plain version).
+``csrc/window_score.cu``; its header states the bound (launch latency plus
+one chain of dependent reads at the step's shapes: ~20 KB per call) and the
+design (one block per scored row, one thread per window column, the
+matched columns compacted with ``__ballot_sync`` and only their replica
+rows read, int32 counts, an FMA-free fp32 epilogue in the JAX order, so the
+kernel is bit-equal to the plain version).
 
 Two entry points into one kernel:
 
-* :func:`window_score` — the full (W, K) op, λ·B added and masked, matching
+* :func:`window_score` — the full (W, K) op on the window's (W, K) replica
+  rows, λ·B added and masked, matching
   :func:`~repro_torch.kernels.ref.window_score_ref`;
 * :func:`window_score_rows` — R + CS for R selected window slots, what the
-  ADWISE step rescores (:func:`~repro_torch.kernels.ref.window_score_rows_ref`).
+  ADWISE step rescores, read straight from the step's (V+1, K) replica and
+  (V+1,) degree tables at the window's vertex ids
+  (:func:`~repro_torch.kernels.ref.window_score_rows_ref`).
 
 Both take CUDA tensors only; ``kernels.ops`` sends CPU tensors to the plain
 versions, which live in ``kernels/ref.py`` and are bound here as
@@ -55,10 +60,23 @@ def _launcher():
         lib = _build.load("window_score")
         fn = lib.window_score_launch
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, p, p]
+        fn.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p, p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def launch_floor(n_blocks: int) -> None:
+    """Launch an empty kernel on ``n_blocks`` blocks of 32 threads on the
+    current stream — the launch floor a timing of the row op is read
+    against. Not counted in ``LAUNCHES``."""
+    lib = _build.load("window_score")
+    fn = lib.window_score_floor_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(int(n_blocks), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"window_score: empty kernel launch failed (cudaError {err})")
 
 
 def _check(name, t, dtype, shape, device):
@@ -84,16 +102,25 @@ def _count() -> None:
 
 def _launch(win_uv, win_valid, rep_u, rep_v, deg_u, deg_v, max_deg,
             bal, allowed, lam, rows, use_cs):
+    """Full op when ``rows`` is None (rep_*/deg_* are the window's rows),
+    row op otherwise (rep_u is rep_v, the (V+1, K) table; deg_u is deg_v)."""
     dev = win_uv.device
     if dev.type != "cuda":
         raise ValueError(f"window_score: the kernel takes CUDA tensors, got {dev}")
-    w, k = rep_u.shape
+    w = win_uv.shape[0] if win_uv.dim() == 2 else -1
+    if rows is None:
+        k = rep_u.shape[1] if rep_u.dim() == 2 else -1
+        n_tab = w
+        _check("rep_u", rep_u, torch.bool, (w, k), dev)
+        _check("rep_v", rep_v, torch.bool, (w, k), dev)
+        _check("deg_u", deg_u, torch.int32, (w,), dev)
+        _check("deg_v", deg_v, torch.int32, (w,), dev)
+    else:
+        n_tab, k = rep_u.shape if rep_u.dim() == 2 else (-1, -1)
+        _check("replicas", rep_u, torch.bool, (n_tab, k), dev)
+        _check("deg", deg_u, torch.int32, (n_tab,), dev)
     _check("win_uv", win_uv, torch.int32, (w, 2), dev)
     _check("win_valid", win_valid, torch.bool, (w,), dev)
-    _check("rep_u", rep_u, torch.bool, (w, k), dev)
-    _check("rep_v", rep_v, torch.bool, (w, k), dev)
-    _check("deg_u", deg_u, torch.int32, (w,), dev)
-    _check("deg_v", deg_v, torch.int32, (w,), dev)
     _check("max_deg", max_deg, torch.int32, (), dev)
     if rows is None:
         _check("bal", bal, torch.float32, (k,), dev)
@@ -101,18 +128,24 @@ def _launch(win_uv, win_valid, rep_u, rep_v, deg_u, deg_v, max_deg,
         _check("lam", lam, torch.float32, (), dev)
         n_rows = w
     else:
+        if not isinstance(rows, torch.Tensor) or rows.dtype not in (torch.int32, torch.int64):
+            raise TypeError("window_score: rows must be an int32 or int64 tensor")
         n_rows = rows.shape[0] if rows.dim() == 1 else -1
-        _check("rows", rows, torch.int32, (n_rows,), dev)
+        _check("rows", rows, rows.dtype, (n_rows,), dev)
     out = torch.empty((n_rows, k), dtype=torch.float32, device=dev)
     if n_rows == 0 or w == 0 or k == 0:
         return out
+    if n_tab == 0:
+        raise ValueError("window_score: the replica table has no rows")
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    rows_64 = int(rows is not None and rows.dtype == torch.int64)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _launcher()(
             ptr(win_uv), ptr(win_valid), ptr(rep_u), ptr(rep_v), ptr(deg_u),
             ptr(deg_v), ptr(max_deg), ptr(bal), ptr(allowed), ptr(lam),
-            ptr(rows), n_rows, w, k, int(bool(use_cs)), ptr(out), stream,
+            ptr(rows), rows_64, n_tab, n_rows, w, k,
+            int(bool(use_cs)), ptr(out), stream,
         )
     if err != 0:
         raise RuntimeError(f"window_score: kernel launch failed (cudaError {err})")
@@ -127,8 +160,10 @@ def window_score(win_uv, win_valid, rep_u, rep_v, deg_u, deg_v, bal, allowed,
                    bal, allowed, lam, None, use_cs)
 
 
-def window_score_rows(win_uv, win_valid, rep_u, rep_v, deg_u, deg_v, max_deg,
-                      rows, *, use_cs: bool = True) -> torch.Tensor:
-    """(R, K) R + CS for window slots ``rows`` (int32, each in [0, W))."""
-    return _launch(win_uv, win_valid, rep_u, rep_v, deg_u, deg_v, max_deg,
+def window_score_rows(win_uv, win_valid, replicas, deg, max_deg, rows, *,
+                      use_cs: bool = True) -> torch.Tensor:
+    """(R, K) R + CS for window slots ``rows`` (int32 or int64, each in
+    [0, W)), from the (V+1, K) bool replica table and the (V+1,) int32
+    degree table at the window's vertex ids."""
+    return _launch(win_uv, win_valid, replicas, replicas, deg, deg, max_deg,
                    None, None, None, rows, use_cs)

@@ -16,6 +16,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import AdwiseConfig, driver, partition_stream
 from repro_torch.engine import build_partitioned_graph, pagerank
 from repro_torch.graph import make_graph
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels.segment_sum import segment_layout
 from repro_torch.models import lm
@@ -76,11 +77,47 @@ def test_window_score_kernel_bit_equal_to_plain(cuda, w, k, use_cs):
                            use_cs=use_cs)
     np.testing.assert_array_equal(_bits(gpu), _bits(cpu))
     rows = torch.arange(w, dtype=torch.int32).flip(0)
-    a = ops.window_score_rows(*(torch.as_tensor(x) for x in arrays[:6]), 40, rows,
+    tables = _ws_table_inputs(w, k)
+    a = ops.window_score_rows(*(torch.as_tensor(x) for x in tables), 40, rows,
                               use_cs=use_cs)
-    b = ops.window_score_rows(*(torch.as_tensor(x, device=cuda) for x in arrays[:6]), 40,
+    b = ops.window_score_rows(*(torch.as_tensor(x, device=cuda) for x in tables), 40,
                               rows.to(cuda), use_cs=use_cs)
     np.testing.assert_array_equal(_bits(b), _bits(a))
+
+
+def _ws_table_inputs(w, k, v=200, hub=False):
+    """A window over a (v + 1)-row vertex table: ids in [0, v] (v is the
+    table's dump row). With ``hub``, every slot's u is vertex 5, so slot 0
+    matches every valid column, and a quarter of the ids are the dump row."""
+    rng = np.random.default_rng(w * 29 + k)
+    uv = rng.integers(0, v + 1, (w, 2)).astype(np.int32)
+    if hub:
+        uv[:, 0] = 5
+        uv[rng.random(w) < 0.25, 1] = v
+    valid = rng.random(w) < 0.85
+    replicas = rng.random((v + 1, k)) < 0.2
+    deg = rng.integers(1, 40, v + 1).astype(np.int32)
+    return uv, valid, replicas, deg
+
+
+@pytest.mark.parametrize("hub", [False, True])
+@pytest.mark.parametrize("k", [3, 32, 64, 130])
+@pytest.mark.parametrize("w", [7, 200, 256])
+def test_window_score_rows_kernel_bit_equal_on_tables(cuda, w, k, hub):
+    """The row op reads the replica and degree tables itself: bit-equal to
+    the plain version, for int32 and int64 slots, with the hub row, the
+    dump slot (W - 1, where the step sends unused selections) and the
+    table's dump row."""
+    tables = _ws_table_inputs(w, k, hub=hub)
+    rows = np.concatenate([[0, w - 1, w - 1], np.random.default_rng(w + k).integers(0, w, 29)])
+    for dtype in (np.int32, np.int64):
+        r = torch.as_tensor(rows.astype(dtype))
+        for use_cs in (True, False):
+            want = ops.window_score_rows(*(torch.as_tensor(x) for x in tables), 40, r,
+                                         use_cs=use_cs)
+            got = ops.window_score_rows(*(torch.as_tensor(x, device=cuda) for x in tables), 40,
+                                        r.to(cuda), use_cs=use_cs)
+            np.testing.assert_array_equal(_bits(got), _bits(want))
 
 
 def test_window_score_kernel_rejects_bad_input(cuda):
@@ -175,7 +212,10 @@ def test_flash_attention_kernel_takes_strided_views(cuda, dh, dtype):
     qt, kt, vt = (torch.as_tensor(rng.normal(size=(2, 150, h, dh)).astype(np.float32))
                   .to(device=cuda, dtype=dtype) for h in (6, 2, 2))
     q, k, v = (t.transpose(1, 2) for t in (qt, kt, vt))
+    body = fa.body_for(dtype, dh)
+    before = fa.LAUNCHES_BY_BODY[body]
     got = ops.flash_attention(q, k, v, scale=0.2)
+    assert fa.LAUNCHES_BY_BODY[body] - before == 1
     want = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), scale=0.2)
     assert torch.equal(got, want)
     tol = FA_TOL[dtype]
@@ -195,11 +235,37 @@ def test_flash_attention_kernel_takes_unaligned_rows(cuda, dtype):
                                                                                  dtype=dtype)
     q, k, v = (buf[1 + i * n:1 + (i + 1) * n].view(shape) for i in range(3))
     assert q.data_ptr() % 16 != 0
+    before = fa.LAUNCHES_BY_BODY["wgmma"]
     got = ops.flash_attention(q, k, v)
+    assert fa.LAUNCHES_BY_BODY["wgmma"] - before == 1  # after a contiguous copy
     assert torch.equal(got, ops.flash_attention(q.clone(), k.clone(), v.clone()))
     want = ops.flash_attention(q.cpu(), k.cpu(), v.cpu())
     np.testing.assert_allclose(got.float().cpu().numpy(), want.float().numpy(),
                                rtol=FA_TOL[dtype], atol=FA_TOL[dtype])
+
+
+# b, hq, hkv, tq, tk, causal: one tile, a ragged tile, many tiles, decode
+# append, GQA groups 8, 1 and 3, non-causal at Tk = 256.
+WG_SHAPES = [
+    (1, 2, 2, 128, 128, True), (1, 3, 1, 129, 129, True), (1, 3, 1, 2000, 2000, True),
+    (1, 8, 1, 1, 513, True), (2, 8, 8, 129, 129, True), (1, 6, 2, 300, 300, True),
+    (2, 4, 2, 50, 256, False), (1, 4, 2, 256, 256, False),
+]
+
+
+@pytest.mark.parametrize("shape", WG_SHAPES)
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+def test_flash_attention_wgmma_body_matches_plain(cuda, shape, dh, dtype):
+    b, hq, hkv, tq, tk, causal = shape
+    q, k, v = _fa_inputs((b, hq, hkv, tq, tk, dh, causal), dtype, cuda)
+    before = dict(fa.LAUNCHES_BY_BODY)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert fa.LAUNCHES_BY_BODY["wgmma"] - before["wgmma"] == 1
+    assert sum(fa.LAUNCHES_BY_BODY.values()) - sum(before.values()) == 1
+    want = ops.flash_attention(q.cpu(), k.cpu(), v.cpu(), causal=causal)
+    tol = FA_TOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().numpy(), rtol=tol, atol=tol)
 
 
 def test_flash_attention_kernel_rejects_bad_input(cuda):

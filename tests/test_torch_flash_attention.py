@@ -101,3 +101,41 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         fa.flash_attention(q, q, q)
     assert fa.flash_attention_plain is not None and fa.REPLACES.endswith(":77")
+
+
+@pytest.mark.parametrize("dh", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+def test_body_for_names_the_body_of_each_dtype_and_head_dim(dtype, dh):
+    want = ("fma" if dtype == torch.float32
+            else "wgmma" if dh in (64, 128) else "mma_sync")
+    assert fa.body_for(dtype, dh) == want
+    assert want in fa.BODIES and set(fa.LAUNCHES_BY_BODY) == set(fa.BODIES)
+
+
+def test_body_for_rejects_what_no_body_takes():
+    with pytest.raises(ValueError, match="Dh must be one of"):
+        fa.body_for(torch.bfloat16, 80)
+    with pytest.raises(TypeError, match="float32, float16 or bfloat16"):
+        fa.body_for(torch.float64, 64)
+
+
+def test_rows_aligned_is_the_tma_stride_rule():
+    """A tensor map needs its base and every (b, h, row) stride on 16
+    bytes; an axis of extent 1 has no stride to check."""
+    buf = torch.zeros(2 * 8 * 16 * 128 + 64, dtype=torch.bfloat16)
+    base = buf[:2 * 8 * 16 * 128].view(2, 8, 16, 128)
+    assert fa.rows_aligned(base)
+    # (B, T, H, Dh) memory seen as (B, H, T, Dh), as the model passes it.
+    assert fa.rows_aligned(base.view(2, 16, 8, 128).transpose(1, 2))
+    # A base 2 bytes past 16-byte alignment.
+    assert not fa.rows_aligned(buf[1:1 + 2 * 8 * 16 * 128].view(2, 8, 16, 128))
+    # A row stride of 68 elements (136 bytes) is not a multiple of 16 bytes ...
+    wide = torch.zeros(1, 2, 16, 68, dtype=torch.bfloat16)
+    assert not fa.rows_aligned(wide[..., :64])
+    # ... unless the axis has extent 1.
+    assert fa.rows_aligned(wide[:, :, :1, :64])
+    assert fa.rows_aligned(torch.zeros(1, 1, 1, 64, dtype=torch.bfloat16))
+    # A broadcast axis (stride 0) cannot be a tensor map's stride.
+    assert not fa.rows_aligned(torch.zeros(1, 1, 16, 64, dtype=torch.float16).expand(1, 4, 16, 64))
+    # fp32 rows of 32 elements are 128 bytes.
+    assert fa.rows_aligned(torch.zeros(1, 2, 3, 32))

@@ -64,24 +64,66 @@ def test_window_score_plain_matches_jax(w, k, use_cs):
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
 
+def _ws_table_inputs(w, k, v=200):
+    """A window over a (v + 1)-row vertex table, as the ADWISE step holds
+    it: slot ids in [0, v] (v is the table's dump row), a (v + 1, K) bool
+    replica table and (v + 1,) int32 degrees."""
+    rng = np.random.default_rng(w * 29 + k)
+    uv = rng.integers(0, v + 1, (w, 2)).astype(np.int32)
+    valid = rng.random(w) < 0.85
+    replicas = rng.random((v + 1, k)) < 0.2
+    deg = rng.integers(1, 40, v + 1).astype(np.int32)
+    return uv, valid, replicas, deg
+
+
+def _gathered(uv, replicas, deg):
+    u, v = uv[:, 0], uv[:, 1]
+    return replicas[u], replicas[v], deg[u], deg[v]
+
+
 @pytest.mark.parametrize("w,k,use_cs", WS_SHAPES)
 def test_window_score_rows_equal_full_op_rows(w, k, use_cs):
-    uv, valid, repu, repv, degu, degv, bal, _ = _ws_inputs(w, k)
+    uv, valid, replicas, deg = _ws_table_inputs(w, k)
     rng = np.random.default_rng(w + 7 * k)
     rows = rng.integers(0, w, max(1, w // 3)).astype(np.int32)
-    t = _torch_args((uv, valid, repu, repv, degu, degv))
-    got = ops.window_score_rows(*t, 40, torch.as_tensor(rows), use_cs=use_cs)
-    # λ = 0 and every partition allowed: the full op's unmasked rows are R + CS.
-    full = ops.window_score(*t, torch.as_tensor(bal), torch.ones(k, dtype=torch.bool),
+    got = ops.window_score_rows(*_torch_args((uv, valid, replicas, deg)), 40,
+                                torch.as_tensor(rows), use_cs=use_cs)
+    # λ = 0 and every partition allowed: the full op's unmasked rows are R + CS,
+    # here on the table rows gathered at the window's ids.
+    bal = rng.random(k).astype(np.float32)
+    full = ops.window_score(*_torch_args((uv, valid, *_gathered(uv, replicas, deg))),
+                            torch.as_tensor(bal), torch.ones(k, dtype=torch.bool),
                             0.0, 40, use_cs=use_cs)
     live = valid[rows]
     np.testing.assert_array_equal(got.numpy()[live], full.numpy()[rows[live]])
+    # int64 slots (the step's sort order) give the same rows.
+    again = ops.window_score_rows(*_torch_args((uv, valid, replicas, deg)), 40,
+                                  torch.as_tensor(rows.astype(np.int64)), use_cs=use_cs)
+    assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("w,k,use_cs", WS_SHAPES)
+def test_window_score_rows_from_tables_match_jax(w, k, use_cs):
+    """The table-gathered row op gives, bit for bit, the rows of the JAX
+    ``window_score`` on replicas[u], replicas[v], deg[u], deg[v]."""
+    uv, valid, replicas, deg = _ws_table_inputs(w, k)
+    rows = np.arange(w, dtype=np.int32)[::-1].copy()
+    got = ops.window_score_rows(*_torch_args((uv, valid, replicas, deg)), 40,
+                                torch.as_tensor(rows), use_cs=use_cs).numpy()
+    want = np.asarray(jops.window_score(
+        uv, valid, *_gathered(uv, replicas, deg), np.zeros(k, np.float32),
+        np.ones(k, bool), jnp.float32(0.0), jnp.int32(40), use_cs=use_cs, tier="xla"))
+    live = valid[rows]
+    np.testing.assert_array_equal(got[live].view(np.int32), want[rows[live]].view(np.int32))
 
 
 def test_window_score_kernel_wrapper_rejects_cpu_tensors():
     t = _torch_args(_ws_inputs(7, 3))
     with pytest.raises(ValueError, match="CUDA tensors"):
         ws.window_score(*t, torch.tensor(1.3), torch.tensor(40, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ws.window_score_rows(*_torch_args(_ws_table_inputs(7, 3)),
+                             torch.tensor(40, dtype=torch.int32), torch.zeros(2, dtype=torch.int32))
     with pytest.raises(ValueError, match="CUDA tensors"):
         ss.segment_sum(torch.zeros(4, 2), ss.segment_layout([0, 0, 1, 2], 3, "cpu"))
 
