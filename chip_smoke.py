@@ -10,7 +10,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    one process per source, in parallel.
 1. Kernels against their plain torch versions, on the card, at the main
    path's shapes: error, kernel / plain / library times (CUDA events), and
-   the least time the card could take (its bound). ``window_score``'s row
+   the least time the card could take (its bound). ``segment_sum`` at the
+   engine's brain_like message layout, D = 1 and 256, and in f16: small
+   integers equal to the fp64 sum and the plain version, normal data
+   within the fp32 sum bound, repeated calls bit-equal, one device kernel
+   per call (torch.profiler), and several calls captured in one CUDA graph
+   replayed twice, bit-equal to eager, the layout's counters back at 0. ``window_score``'s row
    op is read from (V+1, K) replica tables and timed beside an empty
    kernel on its grid (the launch floor), on three windows: ids below 200
    (the inputs the kernel before the redesign was timed on), a window of
@@ -22,7 +27,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    traversal, clustering score on — partitioned by ADWISE, hash and dbh
    through the registry, checked (every edge assigned, caps respected,
    ADWISE's replication degree below hash's), built into the engine, run
-   through pagerank (30 supersteps) and label propagation, and billed as
+   through pagerank (30 supersteps: the wall, 30 ``segment_sum`` launches;
+   then one superstep under torch.profiler, its device time and the
+   kernel's share) and label propagation, and billed as
    ``benchmarks/bench_total_latency.py`` bills pagerank_300. The kernels'
    launch counts are zeroed just before and read just after.
 3. The card against the port's own CPU path on ``brain_like`` at scale
@@ -294,6 +301,7 @@ def phase_kernels(edges, n):
     seg_t = lay.seg_ids
     longest = int(np.diff(offs_np).max())
     rng = np.random.default_rng(0)
+    graph_data = []
     for d, tag in [(1, "pagerank"), (256, "triangle")]:
         # Small integers first: every partial sum is exact in fp32 (|sum| <=
         # 4 * 37,078 < 2^24), so kernel, plain version and the fp64 sum must
@@ -335,16 +343,37 @@ def phase_kernels(edges, n):
         library = cuda_ms(lib, iters=iters)
         e = len(seg)
         bms, by = bound(e * d * 4 + (n + 1) * 4 + n * d * 4, e * d)
+        per_call = ss_kernels_per_call(lambda: ops.segment_sum_sorted(data, lay))
+        check(per_call == 1, f"segment_sum {tag}: one device kernel per call (profiler)")
         log(f"kernel segment_sum {tag} E={e} D={d} S={n} longest_run={longest} "
-            f"chunks={lay.chunk_out.shape[0]} split_segments={lay.multi_seg.shape[0]}: "
-            f"max_abs_err={err} ms={ms:.5f} "
-            f"plain_ms={plain:.5f} index_add_ms={library:.5f} bound_ms={bms:.5f} ({by})")
+            f"tiles={lay.num_tiles} crossing_segments={lay.cross.shape[0]}: "
+            f"max_abs_err={err} ms={ms:.5f} (before the redesign: {SS_WAS_MS[d]}) "
+            f"plain_ms={plain:.5f} index_add_ms={library:.5f} bound_ms={bms:.5f} ({by}) "
+            f"kernels_per_call={per_call}")
         if tag == "pagerank":
             rows_out["segment_sum"] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-                library_ms=library, shape=f"E={e}, D={d}, S={n}",
+                library_ms=library, shape=f"E={e}, D={d}, S={n}", kernels_per_call=per_call,
             )
-        del data, got, again, want
+        graph_data.append(data)
+        del got, again, want
+    # Several calls in one CUDA graph, replayed twice: the eager bits each
+    # time, and every crossing segment's counter back at 0.
+    eager = [ops.segment_sum_sorted(x, lay) for x in graph_data + graph_data[:1]]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [ops.segment_sum_sorted(x, lay) for x in graph_data + graph_data[:1]]
+    for i in range(2):
+        for o in outs:
+            o.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        check(all(torch.equal(o, w) for o, w in zip(outs, eager)),
+              f"segment_sum: CUDA-graph replay {i} bit-equal to eager")
+        check(int(lay.counters.abs().sum()) == 0, f"segment_sum: counters 0 after replay {i}")
+    log(f"kernel segment_sum graph: {len(outs)} calls (D=1, 256, 1) captured, 2 replays bit-equal")
+    del graph, outs, eager, graph_data
     # f16 input at the kernel test's shape.
     e, d, s = 2048, 16, 256
     seg16 = np.sort(rng.integers(0, s, e)).astype(np.int32)
@@ -354,8 +383,36 @@ def phase_kernels(edges, n):
     want = ref.segment_sum_ref(data, lay16.seg_ids, s)
     torch.cuda.synchronize()
     check(torch.allclose(got, want, rtol=2e-3, atol=2e-3), "segment_sum f16 within 2e-3")
-    log(f"kernel segment_sum f16 E={e} D={d} S={s}: max_abs_err={(got - want).abs().max().item()}")
+    per_call = ss_kernels_per_call(lambda: ops.segment_sum_sorted(data, lay16))
+    check(per_call == 1, "segment_sum f16: one device kernel per call (profiler)")
+    log(f"kernel segment_sum f16 E={e} D={d} S={s}: max_abs_err={(got - want).abs().max().item()} "
+        f"kernels_per_call={per_call}")
     return rows_out
+
+
+# The kernel before its redesign, by D, for the log (NVIDIA H100 80GB HBM3,
+# 700.00 W).
+SS_WAS_MS = {1: 0.01153, 256: 0.26669}
+
+
+def ss_kernels_per_call(fn, calls: int = 5) -> float:
+    """Device kernels per call of ``fn`` under torch.profiler; fails if any
+    of them is not the segment_sum kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import device_kernels
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kern = device_kernels(prof)
+    check(all("segsum_" in e.key for e in kern),
+          f"segment_sum: only its kernel on the device ({[e.key[:60] for e in kern]})")
+    return sum(e.count for e in kern) / calls
 
 
 # ----------------------------------------------------------------------------
@@ -421,11 +478,32 @@ def phase_main_path(edges, n, k, window_max):
     labels, linfo = label_propagation(g)
     t_lp = time.perf_counter() - t0
     check(labels.shape == (n,) and (labels <= np.arange(n)).all(), "label_propagation labels <= own id")
-    log(f"main engine: pagerank 30 supersteps {t_pr:.3f}s, label_propagation "
+    log(f"main engine: pagerank 30 supersteps wall_s={t_pr:.4f}, label_propagation "
         f"{linfo['supersteps']} supersteps {t_lp:.3f}s, segment_sum_launches={seg_launches}, "
         f"components={len(np.unique(labels))}")
     counts = ops.launch_counts()
     log(f"main peak device memory: {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    # One pagerank superstep under torch.profiler: its device time and the
+    # segment_sum kernel's share of it.
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import device_kernels
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pagerank(g, iters=1)
+        torch.cuda.synchronize()
+        t_step = time.perf_counter() - t0
+    kern = device_kernels(prof)
+    busy_us = sum(e.self_device_time_total for e in kern)
+    ss_us = sum(e.self_device_time_total for e in kern if "segsum_" in e.key)
+    check(busy_us > 0 and ss_us > 0, "pagerank superstep profile: segment_sum on the device")
+    log(f"main pagerank superstep profile: kernels={sum(e.count for e in kern)} "
+        f"device_busy_us={busy_us:.3f} segment_sum_us={ss_us:.3f} "
+        f"segment_sum_share={ss_us / busy_us:.4f} wall_ms={t_step * 1e3:.3f} (profiled, "
+        f"pagerank(iters=1) with its set-up)")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"main pagerank kernel {e.key[:80]}: {e.count} launches, {e.self_device_time_total:.3f} us")
 
     # Total latency as benchmarks/bench_total_latency.py forms its rows.
     log("graph,workload,strategy,L,partition_s,process_s,total_s,RD")
@@ -487,11 +565,11 @@ def phase_profile(k):
     per step, busy µs per step (the sum of kernel durations, inflated by the
     profiler's own per-kernel cost), and the kernels that take the most."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import AdwiseConfig, partition_stream
     from repro_torch.graph import make_graph
+    from repro_torch.kernels import device_kernels
 
     # 400 edges of a small brain_like stream: ~660 steps (m + W + 2). The
     # step's shapes are fixed by W and K, so its kernels are those of the
@@ -502,7 +580,7 @@ def phase_profile(k):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         res = partition_stream(edges, n, cfg, device="cuda")
         torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kern = device_kernels(prof)
     steps = res.stats["steps_run"] + res.stats["warmup_steps"]
     if not kern:
         log("profile: the profiler recorded no device activity")
@@ -647,12 +725,11 @@ def phase_serve():
 
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import device_kernels, ops
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models import lm
 
@@ -703,7 +780,7 @@ def phase_serve():
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         lm.forward_cached(model, cfg, cache, prompts, 0)
         torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kern = device_kernels(prof)
     busy_us = sum(e.self_device_time_total for e in kern)
     log(f"serve prefill profile: kernels={sum(e.count for e in kern)} "
         f"device_busy_ms={busy_us / 1e3:.3f} (profiled)")
@@ -722,7 +799,7 @@ def phase_serve():
             tok = lg[:, -1:].argmax(-1).to(torch.int32)
         torch.cuda.synchronize()
         wall_prof = time.perf_counter() - t0
-    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kern = device_kernels(prof)
     busy_us = sum(e.self_device_time_total for e in kern)
     n_kern = sum(e.count for e in kern)
     log(f"serve steady: second prefill_ms={t_prefill * 1e3:.3f} (before the redesign: 142.033) "
@@ -867,7 +944,8 @@ def main() -> int:
                 max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
                 bound_ms=row["bound_ms"], bound_by=row["bound_by"],
                 library_ms=row["library_ms"], shape=row["shape"],
-                **{key: row[key] for key in ("body", "launch_floor_ms") if key in row},
+                **{key: row[key] for key in ("body", "launch_floor_ms", "kernels_per_call")
+                   if key in row},
             ))
         log(f"checks passed: {len(CHECKS)}; total {time.perf_counter() - t_start:.1f}s")
         log(json.dumps({"kernels": kernels}))

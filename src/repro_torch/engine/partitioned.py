@@ -34,7 +34,7 @@ class PartitionedGraph:
       msg_src: (2E,) int32 — sources of the directed messages, sorted by
         destination.
       msg_layout: their destinations (``msg_layout.seg_ids``, (2E,) int32)
-        and the ``segment_sum`` kernel's chunking of them.
+        and the ``segment_sum`` kernel's tile plan of them.
       num_vertices, k: sizes.
     """
 

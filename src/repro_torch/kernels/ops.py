@@ -87,7 +87,9 @@ def segment_sum_sorted(
     Callers build ``layout`` once with
     :func:`~repro_torch.kernels.segment_sum.segment_layout` (the engine does
     so per graph); it carries the sorted segment ids, which the plain
-    version reads, and the chunking the kernel reads.
+    version reads, and the tile plan the kernel reads. The layout is also
+    the kernel's scratch (slots and counters): calls on one layout must not
+    run on two streams or threads at once.
     """
     if data.shape[0] != layout.seg_ids.shape[0]:
         raise ValueError(

@@ -6,22 +6,24 @@ rows into 512-edge chunks per 128-row output block for an MXU one-hot matmul.
 On Hopper the natural form is a sorted-run reduction. The host turns the
 sorted segment ids into a :class:`SegmentLayout` once per graph
 (:func:`segment_layout`, with the input checks of the JAX package's
-``csr_block_layout``): each segment's run cut into chunks of at most
-``CHUNK_ROWS`` rows. ``csrc/segment_sum.cu`` sums every chunk with one warp,
-then adds the chunks of each split segment in a fixed order — fp32, no
-atomics, deterministic, and a hub vertex spread over many warps. Its header
-states the bound (memory: E·D input values read, S·D floats written).
+``csr_block_layout``): the merged list of the E rows and the S segment ends
+cut into tiles of ``TILE_ITEMS`` items (merge path), each tile's first row
+and first segment, and the segments whose rows cross tiles.
+``csrc/segment_sum.cu`` sums every tile with one block in one launch;
+a crossing segment's partials go to slots of the layout, and the last tile
+to arrive adds them in tile order — fp32, no float atomics, deterministic,
+and a hub vertex spread over many blocks. Its header states the bound
+(memory: E·D input values read, S·D floats written).
 
 The plain version is :func:`~repro_torch.kernels.ref.segment_sum_ref`, bound
 here as ``segment_sum_plain``; ``kernels.ops`` sends CPU tensors to it.
-``LAUNCHES`` counts calls of the kernel's launcher (one per call, which
-runs both passes; see ``kernels/window_score.py`` for how CUDA-graph replays
-are credited).
+``LAUNCHES`` counts the kernel's launches (one per call; see
+``kernels/window_score.py`` for how CUDA-graph replays are credited).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import Dict, NamedTuple
 
 import numpy as np
 import torch
@@ -30,7 +32,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import segment_sum_ref as segment_sum_plain
 
 __all__ = [
-    "CHUNK_ROWS",
+    "TILE_ITEMS",
     "SegmentLayout",
     "segment_layout",
     "segment_offsets",
@@ -43,9 +45,9 @@ __all__ = [
 REPLACES = "src/repro/kernels/segment_sum.py:143"  # segment_sum_pallas
 LAUNCHES = 0
 CAPTURED = 0
-# Rows per chunk: a warp's share of one segment. Long runs (hub vertices)
-# split into many chunks, short ones stay one chunk and skip the second pass.
-CHUNK_ROWS = 32
+# Items (rows + segment ends) per tile: one block's share (256 threads, 8
+# items a thread), fixed in the kernel as kTileItems.
+TILE_ITEMS = 2048
 
 _DTYPES = {torch.float32: 0, torch.float16: 1}
 _fn = None
@@ -57,7 +59,7 @@ def _launcher():
         lib = _build.load("segment_sum")
         fn = lib.segment_sum_launch
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, i, p, p, i, p, p, i, p, p, p]
+        fn.argtypes = [p, i, i, i, p, p, i, p, p, p, p, p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -105,61 +107,102 @@ def segment_offsets(seg_ids: np.ndarray, num_segments: int) -> np.ndarray:
 class SegmentLayout(NamedTuple):
     """Where each row of a segment-sorted (E, D) array goes, on one device.
 
+    The merged list of the E rows and the S segment ends (segment s's end
+    follows its last row) is cut into T tiles of ``tile_items`` items; the
+    kernel sums each tile with one block. A segment whose rows lie in more
+    than one tile is *crossing*: each of its tiles leaves a partial in a
+    slot, and the last to arrive adds them in tile order.
+
     seg_ids: (E,) int32 — the sorted segment id of every row (the plain
       version's input, and the engine's message destinations).
-    chunk_row: (C+1,) int32 — chunk c covers rows chunk_row[c] ..
-      chunk_row[c+1]; chunks never straddle a segment and every segment has
-      at least one (an empty segment one empty chunk).
-    chunk_out: (C,) int32 — the output row of a segment's only chunk, or
-      ``-(p + 1)`` for partial row p of a segment cut into several chunks.
-    multi_seg: (M,) int32 — the segments cut into several chunks.
-    multi_ptr: (M+1,) int32 — segment multi_seg[m]'s partial rows, in chunk
-      order: multi_ptr[m] .. multi_ptr[m+1].
-    num_segments, num_partials: S and multi_ptr[-1], on the host.
+    offsets: (S+1,) int32 — segment s's rows are offsets[s] .. offsets[s+1].
+    tiles: (T+1, 4) int32 — per tile: its first row, its first segment (the
+      first whose end is in or after the tile), the crossing segment that
+      ends in it and the crossing segment open at its end (indices into
+      ``cross``, or -1); row T is (E, S, -1, -1).
+    cross: (M, 4) int32 — per crossing segment, in segment order: its id,
+      its first and last tile, and its number of slots (last - first + 1).
+    counters: (M,) int32 — arrivals per crossing segment, 0 between calls.
+    slots: width D -> (2, T, D) fp32 — the tiles' tail and head partials;
+      the buffer of a width is made at the first call at that width.
+    num_segments, tile_items: S and the tile size, on the host.
+
+    The counters and slots make the layout the kernel's scratch: calls on
+    one layout must run one after another on one stream, as the engine's
+    do. Calls from two streams or threads at once, or a launch cut short
+    (which leaves a counter non-zero), give wrong sums without an error.
     """
 
     seg_ids: torch.Tensor
-    chunk_row: torch.Tensor
-    chunk_out: torch.Tensor
-    multi_seg: torch.Tensor
-    multi_ptr: torch.Tensor
+    offsets: torch.Tensor
+    tiles: torch.Tensor
+    cross: torch.Tensor
+    counters: torch.Tensor
+    slots: Dict[int, torch.Tensor]
     num_segments: int
-    num_partials: int
+    tile_items: int
 
     @property
     def device(self) -> torch.device:
         return self.seg_ids.device
 
+    @property
+    def num_tiles(self) -> int:
+        return self.tiles.shape[0] - 1
+
+
+def _tile_plan(offsets: np.ndarray, tile_items: int):
+    """Merge-path tiles of the segment run bounds ``offsets`` (S+1,):
+    ``(tiles, cross)`` as :class:`SegmentLayout` holds them, in numpy."""
+    offs = np.asarray(offsets, np.int64)
+    s = len(offs) - 1
+    e = int(offs[-1])
+    n_tiles = -(-(e + s) // tile_items)
+    # Merged positions: row j sits at j + (segment ends before it), segment
+    # s's end at offs[s + 1] + s.
+    end_pos = offs[1:] + np.arange(s)
+    diag = np.minimum(np.arange(n_tiles + 1) * tile_items, e + s)
+    seg0 = np.searchsorted(end_pos, diag, side="left")
+    row0 = diag - seg0
+    t_last = end_pos // tile_items
+    t_first = (offs[:-1] + np.arange(s)) // tile_items
+    crossing = np.flatnonzero((np.diff(offs) > 0) & (t_first < t_last))
+    tb, te = t_first[crossing], t_last[crossing]
+    cross = np.stack([crossing, tb, te, te - tb + 1], 1)
+    m_in = np.full(n_tiles + 1, -1)
+    m_in[te] = np.arange(len(crossing))
+    # A crossing segment is open at the end of its tiles tb .. te - 1.
+    spans = te - tb
+    m_out = np.full(n_tiles + 1, -1)
+    m_out[np.repeat(tb - np.cumsum(spans) + spans, spans) + np.arange(spans.sum())] = (
+        np.repeat(np.arange(len(crossing)), spans))
+    tiles = np.stack([row0, seg0, m_in, m_out], 1)
+    return tiles.astype(np.int32), cross.reshape(-1, 4).astype(np.int32)
+
 
 def segment_layout(
-    seg_ids: np.ndarray, num_segments: int, device, chunk_rows: int = CHUNK_ROWS,
+    seg_ids: np.ndarray, num_segments: int, device, tile_items: int = TILE_ITEMS,
 ) -> SegmentLayout:
     """Host layout of sorted ``seg_ids`` for :func:`segment_sum`, on
     ``device``. Raises as :func:`segment_offsets` does on ids that are not
-    1-D, sorted and in ``[0, num_segments)``."""
-    if chunk_rows < 1:
-        raise ValueError(f"segment_layout: chunk_rows must be >= 1, got {chunk_rows}")
+    1-D, sorted and in ``[0, num_segments)``. The kernel takes only
+    ``TILE_ITEMS``; the plan itself (and the plain version) takes any size
+    >= 1, with which the CPU tests reach its edge cases at small sizes."""
+    if tile_items < 1:
+        raise ValueError(f"segment_layout: tile_items must be >= 1, got {tile_items}")
     seg_ids = np.asarray(seg_ids)
-    offs = segment_offsets(seg_ids, num_segments).astype(np.int64)
-    runs = np.diff(offs)
-    n_chunks = np.maximum(1, -(-runs // chunk_rows))
-    chunk_seg = np.repeat(np.arange(num_segments), n_chunks)
-    first = np.cumsum(n_chunks) - n_chunks
-    in_seg = np.arange(len(chunk_seg)) - np.repeat(first, n_chunks)
-    chunk_row = np.append(offs[chunk_seg] + in_seg * chunk_rows, offs[-1])
-    split = (n_chunks > 1)[chunk_seg]
-    slot = np.cumsum(split) - 1
-    chunk_out = np.where(split, -(slot + 1), chunk_seg)
-    multi_seg = np.flatnonzero(n_chunks > 1)
-    multi_ptr = np.concatenate([[0], np.cumsum(n_chunks[multi_seg])])
+    offs = segment_offsets(seg_ids, num_segments)
+    if len(seg_ids) + num_segments >= 2**31:
+        raise ValueError("segment_layout: more than 2^31 - 1 rows and segments")
+    tiles, cross = _tile_plan(offs, tile_items)
 
     def put(x):
         return torch.as_tensor(np.asarray(x, np.int32), device=device)
 
     return SegmentLayout(
-        seg_ids=put(seg_ids), chunk_row=put(chunk_row), chunk_out=put(chunk_out),
-        multi_seg=put(multi_seg), multi_ptr=put(multi_ptr),
-        num_segments=int(num_segments), num_partials=int(multi_ptr[-1]),
+        seg_ids=put(seg_ids), offsets=put(offs), tiles=put(tiles), cross=put(cross),
+        counters=torch.zeros(len(cross), dtype=torch.int32, device=device), slots={},
+        num_segments=int(num_segments), tile_items=int(tile_items),
     )
 
 
@@ -188,21 +231,25 @@ def segment_sum(data: torch.Tensor, layout: SegmentLayout) -> torch.Tensor:
         )
     if not data.is_contiguous():
         raise ValueError("segment_sum: data must be contiguous")
-    d = data.shape[1]
-    s = layout.num_segments
-    out = torch.empty((s, d), dtype=torch.float32, device=dev)
+    if layout.tile_items != TILE_ITEMS:
+        raise ValueError(
+            f"segment_sum: the kernel takes tiles of {TILE_ITEMS} items, "
+            f"the layout has {layout.tile_items}"
+        )
+    e, d = data.shape
+    out = torch.empty((layout.num_segments, d), dtype=torch.float32, device=dev)
     if d == 0:
         return out
-    partial = torch.empty((layout.num_partials, d), dtype=torch.float32, device=dev)
+    slots = layout.slots.get(d)
+    if slots is None:
+        slots = layout.slots[d] = torch.empty(
+            (2, layout.num_tiles, d), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _launcher()(
-            data.data_ptr(), _DTYPES[data.dtype], d,
-            layout.chunk_row.data_ptr(), layout.chunk_out.data_ptr(),
-            layout.chunk_out.shape[0],
-            layout.multi_seg.data_ptr(), layout.multi_ptr.data_ptr(),
-            layout.multi_seg.shape[0],
-            partial.data_ptr(), out.data_ptr(), stream,
+            data.data_ptr(), _DTYPES[data.dtype], e, d, layout.offsets.data_ptr(),
+            layout.tiles.data_ptr(), layout.num_tiles, layout.cross.data_ptr(),
+            layout.counters.data_ptr(), slots.data_ptr(), out.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"segment_sum: kernel launch failed (cudaError {err})")

@@ -17,7 +17,7 @@ from repro_torch.core import AdwiseConfig, driver, partition_stream
 from repro_torch.engine import build_partitioned_graph, pagerank
 from repro_torch.graph import make_graph
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import ops
+from repro_torch.kernels import device_kernels, ops
 from repro_torch.kernels.segment_sum import segment_layout
 from repro_torch.models import lm
 
@@ -155,6 +155,118 @@ def test_segment_sum_kernel_exact_on_a_hub(cuda, d, dtype):
     want = ops.segment_sum_sorted(data, segment_layout(seg, 600, "cpu"))
     got = ops.segment_sum_sorted(data.to(cuda), segment_layout(seg, 600, cuda))
     assert torch.equal(got.cpu(), want)
+
+
+# Segment run lengths with the plan's edge cases at the kernel's tiles of
+# 2,048 items: runs ending exactly at a tile edge, tiles wholly inside a hub,
+# a run of empty segments longer than a tile, no rows at all, and one
+# segment over several tiles.
+SS_RUNS = {
+    "tile edges": [2047, 1, 2046, 0, 0, 2048, 3, 4093],
+    "hub": [5, 20000, 3, 0, 7],
+    "empty run": [4] + [0] * 2100 + [6, 1],
+    "no rows": [0] * 5000,
+    "one segment": [16000],
+    "random": list(np.random.default_rng(3).integers(0, 9, 5000)),
+}
+
+
+def _runs_layout(runs, device):
+    runs = np.asarray(runs)
+    seg = np.repeat(np.arange(len(runs)), runs).astype(np.int32)
+    return seg, segment_layout(seg, len(runs), device)
+
+
+@pytest.mark.parametrize("case", sorted(SS_RUNS))
+@pytest.mark.parametrize("d", [1, 3, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_segment_sum_kernel_exact_at_tile_edges(cuda, case, d, dtype, aligned):
+    # Small integers: the kernel's order of adds must give the plain
+    # version's bits. aligned=False hands the kernel data one element off a
+    # 16-byte boundary (its scalar loads).
+    seg, lay = _runs_layout(SS_RUNS[case], cuda)
+    rng = np.random.default_rng(d)
+    data = torch.as_tensor(rng.integers(-4, 5, (len(seg), d))).to(dtype)
+    want = ops.segment_sum_sorted(data, segment_layout(seg, lay.num_segments, "cpu"))
+    buf = torch.empty((len(seg) * d + 1,), dtype=dtype, device=cuda)
+    x = buf[int(not aligned):][: len(seg) * d].view(len(seg), d)
+    x.copy_(data.to(cuda))
+    got = ops.segment_sum_sorted(x, lay)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(ops.segment_sum_sorted(x, lay), got)
+    assert int(lay.counters.abs().sum()) == 0
+
+
+def test_segment_sum_kernel_graph_replays_equal_eager(cuda):
+    # Several calls captured in one CUDA graph and replayed twice give the
+    # eager bits each time: the counters are back at 0 after every launch.
+    seg, lay = _runs_layout(SS_RUNS["hub"] * 5, cuda)
+    rng = np.random.default_rng(5)
+    xs = [torch.as_tensor(rng.normal(size=(len(seg), d)).astype(np.float32)).to(cuda) for d in (1, 1, 256)]
+    eager = [ops.segment_sum_sorted(x, lay) for x in xs]
+    assert lay.cross.shape[0] > 0
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [ops.segment_sum_sorted(x, lay) for x in xs]
+    for _ in range(2):
+        for o in outs:
+            o.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        for o, e in zip(outs, eager):
+            assert torch.equal(o, e)
+        assert int(lay.counters.abs().sum()) == 0
+
+
+def test_segment_sum_kernel_widths_alternate_on_one_layout(cuda):
+    # Eager calls at D = 1 and D = 256 take turns on one layout: they share
+    # its counters (and each width has its own slots), so each call must
+    # leave the counters at 0 for the next, whatever its width.
+    seg, lay = _runs_layout(SS_RUNS["hub"] * 3, cuda)
+    rng = np.random.default_rng(7)
+    xs = {d: torch.as_tensor(rng.integers(-4, 5, (len(seg), d))).float() for d in (1, 256)}
+    want = {d: ops.segment_sum_sorted(x, segment_layout(seg, lay.num_segments, "cpu"))
+            for d, x in xs.items()}
+    xs = {d: x.to(cuda) for d, x in xs.items()}
+    assert lay.cross.shape[0] > 0
+    for d in (1, 256, 1, 256, 256, 1):
+        assert torch.equal(ops.segment_sum_sorted(xs[d], lay).cpu(), want[d])
+        assert int(lay.counters.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("d", [1, 5, 256, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_segment_sum_is_one_kernel_per_call(cuda, d, dtype):
+    from torch.profiler import ProfilerActivity, profile
+
+    seg, lay = _runs_layout(SS_RUNS["hub"] * 3, cuda)
+    x = torch.ones((len(seg), d), dtype=dtype, device=cuda)
+    ops.segment_sum_sorted(x, lay)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            ops.segment_sum_sorted(x, lay)
+        torch.cuda.synchronize()
+    kern = [(e.key, e.count) for e in device_kernels(prof)]
+    assert sum(c for _, c in kern) == 5 and all("segsum_" in k for k, _ in kern), kern
+
+
+@pytest.mark.parametrize("d", [1, 256])
+def test_segment_sum_kernel_brain_like_within_fp32_bound(cuda, d):
+    # The engine's message layout of brain_like at full scale (runs up to
+    # 37,078 rows): within n·2^-24·Σ|x| of the fp64 sum, per segment.
+    edges, n = make_graph("brain_like", seed=0, scale=1.0)
+    seg = np.sort(np.concatenate([edges[:, 1], edges[:, 0]]), kind="stable").astype(np.int32)
+    lay = segment_layout(seg, n, cuda)
+    x = torch.as_tensor(np.random.default_rng(d).normal(size=(len(seg), d)).astype(np.float32)).to(cuda)
+    got = ops.segment_sum_sorted(x, lay).double()
+    idx = lay.seg_ids.long()
+    exact = torch.zeros((n, d), dtype=torch.float64, device=cuda).index_add_(0, idx, x.double())
+    mag = torch.zeros((n, d), dtype=torch.float64, device=cuda).index_add_(0, idx, x.double().abs())
+    runs = torch.as_tensor(np.bincount(seg, minlength=n), dtype=torch.float64, device=cuda)[:, None]
+    assert bool(((got - exact).abs() <= runs * 2.0**-24 * mag).all())
 
 
 @pytest.mark.parametrize("steps_per_graph", [1, 7, 32])

@@ -55,12 +55,13 @@ def test_partitioned_graph_fields_equal_jax(graphs):
     assert tg.replication_degree == jg.replication_degree
     assert tg.sync_volume_bytes == jg.sync_volume_bytes
     np.testing.assert_array_equal(tg.edges_per_partition, jg.edges_per_partition)
-    # The message layout: 2E directed messages, destination-sorted, chunked
+    # The message layout: 2E directed messages, destination-sorted, tiled
     # over all 2E rows and N destinations.
     lay = tg.msg_layout
     dst = lay.seg_ids.numpy()
     assert len(dst) == 2 * len(EDGES) and (np.diff(dst) >= 0).all()
-    assert lay.num_segments == N and int(lay.chunk_row[-1]) == len(dst)
+    assert lay.num_segments == N and int(lay.offsets[-1]) == len(dst)
+    assert tuple(lay.tiles[-1].tolist()) == (len(dst), N, -1, -1)
 
 
 def test_graph_from_numpy_fields_equals_direct_build(graphs):

@@ -6,6 +6,8 @@ import subprocess
 import sys
 import textwrap
 
+import pytest
+
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 PORT = SRC / "repro_torch"
 
@@ -54,3 +56,18 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
+
+
+ROOT = SRC.parent
+CHIP_SCRIPTS = [
+    "chip_smoke.py", "tools/time_flash_attention.py", "tools/time_segment_sum.py",
+]
+
+
+@pytest.mark.parametrize("script", CHIP_SCRIPTS)
+def test_chip_scripts_import_no_jax_or_repro(script):
+    """The scripts run on the card machine, which has no JAX: they import
+    the port only."""
+    lines = (ROOT / script).read_text().splitlines()
+    assert [ln for ln in lines if _IMPORT_RE.match(ln)] == []
+    assert any("repro_torch" in ln for ln in lines)

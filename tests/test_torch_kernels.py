@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
-from repro.kernels.segment_sum import csr_block_layout
+from repro.kernels.segment_sum import csr_block_layout, segment_sum_pallas
 from repro_torch.kernels import ops
 from repro_torch.kernels import segment_sum as ss
 from repro_torch.kernels import window_score as ws
@@ -168,63 +168,180 @@ def test_segment_offsets_are_run_bounds(e, s):
     np.testing.assert_array_equal(np.diff(offs), np.bincount(seg, minlength=s))
 
 
-def _two_pass_sum(data, lay):
-    """The kernel's two passes in numpy: one sum per chunk (to its output
-    row, or to a partial row), then each split segment's partials in order."""
-    rows, out_of = lay.chunk_row.numpy(), lay.chunk_out.numpy()
-    out = np.full((lay.num_segments, data.shape[1]), np.nan, np.float32)
-    partial = np.full((lay.num_partials, data.shape[1]), np.nan, np.float32)
-    for c, o in enumerate(out_of):
-        part = data[rows[c]:rows[c + 1]].sum(0, dtype=np.float32)
-        if o >= 0:
-            out[o] = part
-        else:
-            partial[-o - 1] = part
-    ptr = lay.multi_ptr.numpy()
-    for m, seg in enumerate(lay.multi_seg.numpy()):
-        out[seg] = partial[ptr[m]:ptr[m + 1]].sum(0, dtype=np.float32)
-    return out
+def _tile_model_sum(data, lay):
+    """The kernel's order in numpy: each tile sums the rows of every segment
+    that ends in it (writing it to ``out``, or to a head slot when its rows
+    began in an earlier tile) and of the segment open at its end (a tail
+    slot); then each crossing segment adds its slots in tile order. Returns
+    the (S, D) sums and how many times each segment was written."""
+    offs, tiles, cross = lay.offsets.numpy(), lay.tiles.numpy(), lay.cross.numpy()
+    d = data.shape[1]
+    out = np.full((lay.num_segments, d), np.nan, np.float32)
+    writes = np.zeros(lay.num_segments, np.int64)
+    slots = np.full((2, lay.num_tiles, d), np.nan, np.float32)
+    for t in range(lay.num_tiles):
+        r0, s0, m_in, m_out = tiles[t]
+        r1, s1 = tiles[t + 1][:2]
+        for s in range(s0, s1):
+            part = data[max(offs[s], r0):offs[s + 1]].sum(0, dtype=np.float32)
+            if s == s0 and m_in >= 0:
+                assert cross[m_in][0] == s and cross[m_in][2] == t
+                slots[1, t] = part
+            else:
+                assert offs[s] >= r0  # wholly inside the tile
+                out[s] = part
+                writes[s] += 1
+        if m_out >= 0:
+            assert cross[m_out][0] == s1
+            slots[0, t] = data[max(offs[s1], r0):r1].sum(0, dtype=np.float32)
+    for seg, first, last, n in cross:
+        assert n == last - first + 1
+        acc = np.zeros(d, np.float32)
+        for t in range(first, last):
+            acc = acc + slots[0, t]
+        out[seg] = acc + slots[1, last]
+        writes[seg] += 1
+    return out, writes
 
 
-# (rows, segments, chunk rows, hub rows): empty input, one segment, runs
-# shorter and longer than a chunk, exact multiples of it, and one hub run.
-LAYOUT_CASES = [(0, 7, 32, 0), (1, 1, 32, 0), (5000, 1000, 4, 0), (700, 1, 32, 0),
-                (640, 20, 32, 0), (3000, 300, 32, 2500)]
+def _runs_seg(runs):
+    runs = np.asarray(runs, np.int64)
+    return np.repeat(np.arange(len(runs)), runs).astype(np.int32), len(runs)
 
 
-@pytest.mark.parametrize("e,s,chunk,hub", LAYOUT_CASES)
-def test_segment_layout_chunks_cover_every_run(e, s, chunk, hub):
+def _random_seg(e, s, hub):
     rng = np.random.default_rng(e + s + hub)
-    seg = np.sort(np.concatenate([rng.integers(0, s, e - hub), np.full(hub, s // 2)])).astype(np.int32)
-    lay = ss.segment_layout(seg, s, "cpu", chunk_rows=chunk)
-    rows, out_of = lay.chunk_row.numpy(), lay.chunk_out.numpy()
-    sizes = np.diff(rows)
-    assert rows[0] == 0 and rows[-1] == e and (sizes >= 0).all() and (sizes <= chunk).all()
-    # Every segment owns at least one chunk, and its chunks' rows are its run.
-    chunk_seg = seg[np.minimum(rows[:-1], max(e - 1, 0))] if e else np.arange(s)
-    direct = out_of >= 0
-    np.testing.assert_array_equal(chunk_seg[direct & (sizes > 0)], out_of[direct & (sizes > 0)])
-    multi = lay.multi_seg.numpy()
-    per_seg = np.bincount(out_of[direct], minlength=s) + np.isin(np.arange(s), multi)
-    np.testing.assert_array_equal(per_seg, np.ones(s))
-    runs = np.diff(ss.segment_offsets(seg, s))
-    np.testing.assert_array_equal(np.flatnonzero(runs > chunk), multi)
-    np.testing.assert_array_equal(np.diff(lay.multi_ptr.numpy()), -(-runs[multi] // chunk))
-    assert lay.num_partials == int(lay.multi_ptr[-1]) == int((~direct).sum())
-    np.testing.assert_array_equal(np.sort(-out_of[~direct] - 1), np.arange(lay.num_partials))
+    seg = np.sort(np.concatenate([rng.integers(0, s, e - hub), np.full(hub, s // 2)]))
+    return seg.astype(np.int32), s
 
 
-@pytest.mark.parametrize("e,s,chunk,hub", LAYOUT_CASES)
+# (segment ids, tile items): empty input, one segment, runs shorter and
+# longer than a tile, exact multiples of it, and one hub run (random ids);
+# then, from run lengths, a segment whose last row ends a tile (its end
+# opens the next one), tiles wholly inside a hub, a run of empty segments
+# longer than a tile, no rows over several tiles, and one segment of none.
+LAYOUT_CASES = {
+    "empty input": (lambda: _random_seg(0, 7, 0), 32),
+    "one row": (lambda: _random_seg(1, 1, 0), 32),
+    "short runs": (lambda: _random_seg(5000, 1000, 0), 4),
+    "one segment": (lambda: _random_seg(700, 1, 0), 32),
+    "multiples": (lambda: _random_seg(640, 20, 0), 32),
+    "hub": (lambda: _random_seg(3000, 300, 2500), 32),
+    "tile edge": (lambda: _runs_seg([3, 4, 6, 0, 1, 2, 8, 5, 0, 7]), 8),
+    "inside a hub": (lambda: _runs_seg([5, 100, 3, 1]), 16),
+    "empty run": (lambda: _runs_seg([4] + [0] * 50 + [6, 2]), 16),
+    "no rows": (lambda: _runs_seg([0] * 40), 8),
+    "one empty segment": (lambda: _runs_seg([0]), 8),
+}
+
+
+def _merged_positions(seg, s):
+    offs = ss.segment_offsets(seg, s).astype(np.int64)
+    return np.arange(len(seg)) + seg, offs[1:] + np.arange(s), offs
+
+
+@pytest.mark.parametrize("case", list(LAYOUT_CASES))
+def test_segment_layout_tiles_cover_every_row_and_segment_once(case):
+    make, k = LAYOUT_CASES[case]
+    seg, s = make()
+    e = len(seg)
+    lay = ss.segment_layout(seg, s, "cpu", tile_items=k)
+    tiles, cross = lay.tiles.numpy(), lay.cross.numpy()
+    row0, seg0, m_in, m_out = tiles.T
+    t_count = lay.num_tiles
+    assert t_count == -(-(e + s) // k)
+    assert tuple(tiles[0, :2]) == (0, 0) and tuple(tiles[-1]) == (e, s, -1, -1)
+    # Consecutive tiles own consecutive rows and segment ends, k items each
+    # (the last at most k), so every row and every segment end lies in
+    # exactly one tile ...
+    items = np.diff(row0) + np.diff(seg0)
+    assert (np.diff(row0) >= 0).all() and (np.diff(seg0) >= 0).all()
+    assert (items[:-1] == k).all() and 0 < items[-1] <= k
+    # ... the one its merged position (merge path) falls in.
+    row_pos, end_pos, offs = _merged_positions(seg, s)
+    np.testing.assert_array_equal(row_pos // k, np.searchsorted(row0, np.arange(e), "right") - 1)
+    np.testing.assert_array_equal(end_pos // k, np.searchsorted(seg0, np.arange(s), "right") - 1)
+    # Crossing segments: those with rows before their end's tile, each with
+    # its first row's tile and its end's tile; every other tile boundary
+    # splits none.
+    runs = np.diff(offs)
+    t_first, t_last = (offs[:-1] + np.arange(s)) // k, end_pos // k
+    want = np.flatnonzero((runs > 0) & (offs[:-1] < row0[t_last]))
+    np.testing.assert_array_equal(cross[:, 0], want)
+    np.testing.assert_array_equal(cross[:, 1], t_first[want])
+    np.testing.assert_array_equal(cross[:, 2], t_last[want])
+    np.testing.assert_array_equal(cross[:, 3], t_last[want] - t_first[want] + 1)
+    assert (cross[:, 1] < cross[:, 2]).all()
+    # Each crossing segment ends in one tile and is open at the end of the
+    # tiles before it, back to its first.
+    np.testing.assert_array_equal(np.flatnonzero(m_in >= 0), cross[:, 2])
+    np.testing.assert_array_equal(m_in[cross[:, 2]], np.arange(len(cross)))
+    want_out = np.full(t_count + 1, -1)
+    for m, (_, first, last, _) in enumerate(cross):
+        want_out[first:last] = m
+    np.testing.assert_array_equal(m_out, want_out)
+    assert lay.counters.shape == (len(cross),) and int(lay.counters.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("case", list(LAYOUT_CASES))
 @pytest.mark.parametrize("d", [1, 3])
-def test_segment_layout_two_pass_sum_is_the_segment_sum(e, s, chunk, hub, d):
-    # Small integers: every partial sum is exact in fp32, so the two passes
-    # must give the plain version's result bit for bit.
-    rng = np.random.default_rng(e + s + hub + d)
-    seg = np.sort(np.concatenate([rng.integers(0, s, e - hub), np.full(hub, s // 2)])).astype(np.int32)
-    data = rng.integers(-4, 5, (e, d)).astype(np.float32)
-    lay = ss.segment_layout(seg, s, "cpu", chunk_rows=chunk)
+def test_segment_layout_tile_model_sum_is_the_segment_sum(case, d):
+    # Small integers: every partial sum is exact in fp32, so the tiles and
+    # the fixup must give the plain version's result bit for bit, each
+    # segment written exactly once.
+    make, k = LAYOUT_CASES[case]
+    seg, s = make()
+    rng = np.random.default_rng(len(seg) + s + d)
+    data = rng.integers(-4, 5, (len(seg), d)).astype(np.float32)
+    lay = ss.segment_layout(seg, s, "cpu", tile_items=k)
     want = ops.segment_sum_sorted(torch.as_tensor(data), lay).numpy()
-    np.testing.assert_array_equal(_two_pass_sum(data, lay), want)
+    got, writes = _tile_model_sum(data, lay)
+    np.testing.assert_array_equal(writes, np.ones(s))
+    np.testing.assert_array_equal(got, want)
+
+
+def _pallas_segment_sum(data, seg, s):
+    """The JAX package's TPU kernel, ``segment_sum_pallas``, in interpret
+    mode over its ``csr_block_layout``; (S, D) float32."""
+    perm, loc, chunk_ptr, nchunks, _ = csr_block_layout(seg, s, data.shape[1])
+    padded = np.where((perm >= 0)[:, None], data[np.maximum(perm, 0)], 0).astype(np.float32)
+    out = segment_sum_pallas(
+        jnp.asarray(padded), jnp.asarray(loc), jnp.asarray(chunk_ptr), jnp.asarray(nchunks), s,
+        max_chunks=int(nchunks.max()), interpret=True)
+    return np.asarray(out)[:s]
+
+
+# (segment ids, tile items, D): a 1,000-row hub among short runs, a run of
+# empty segments longer than a tile, and random runs at D = 1.
+PALLAS_CASES = {
+    "hub": (lambda: _random_seg(3000, 300, 1000), 64, 3),
+    "empty segments": (lambda: _runs_seg([3, 0, 9] + [0] * 300 + [40, 1, 0, 2] * 20), 64, 2),
+    "random D=1": (lambda: _random_seg(2000, 150, 0), 32, 1),
+}
+
+
+@pytest.mark.parametrize("case", list(PALLAS_CASES))
+@pytest.mark.parametrize("values", ["small integers", "normal"])
+def test_segment_sum_matches_the_pallas_kernel(case, values):
+    """The plain version and the model of the kernel's order against the
+    JAX package's Pallas kernel (interpret mode): bit-equal on small
+    integers, within 1e-5 on normal f32 data (another summation order)."""
+    make, k, d = PALLAS_CASES[case]
+    seg, s = make()
+    rng = np.random.default_rng(len(seg) + d)
+    if values == "normal":
+        data = rng.normal(size=(len(seg), d)).astype(np.float32)
+    else:
+        data = rng.integers(-4, 5, (len(seg), d)).astype(np.float32)
+    want = _pallas_segment_sum(data, seg, s)
+    lay = ss.segment_layout(seg, s, "cpu", tile_items=k)
+    plain = ops.segment_sum_sorted(torch.as_tensor(data), lay).numpy()
+    model, _ = _tile_model_sum(data, lay)
+    for got in (plain, model):
+        if values == "normal":
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+        else:
+            np.testing.assert_array_equal(got, want)
 
 
 def test_segment_sum_sorted_rejects_a_layout_of_other_rows():
