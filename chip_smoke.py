@@ -58,8 +58,23 @@ Phases (any failure exits non-zero, and no result line is printed):
    Llama-3.2-3B in fp32 (TF32 off), batch 1, prompt 300, 4 decode steps —
    prefill and decode logits at 2e-3, greedy tokens equal wherever the
    top-2 margin exceeds that.
+8. The paper's comparison set through the registry, launch counts zeroed
+   just before and read just after: ``hdrf`` and ``greedy`` on brain_like at
+   scale 1.0, k = 32 (steps/s, µs per edge), each bit-equal to its numpy
+   oracle; ``hash``, ``2ps-l`` (bit-equal to the numpy oracles of both
+   phases), ``2ps`` (the same clustering phase) and
+   ``adwise-restream`` with 2 passes at W = 256 (one ``window_score`` launch
+   per step of each pass, pass 2 included; RD(ADWISE) below RD(hash)) at
+   ``bench_total_latency.py``'s scale 0.08; every partition run through 30
+   pagerank supersteps on the card (``segment_sum``) and billed for
+   pagerank_300. Then non-lazy ``adwise-restream`` (W = 64) and ``2ps`` on
+   the card bit-identical to the CPU path at scale 0.005, and the device kernels and
+   busy time per edge of each single-edge core (profiler, the difference of
+   two runs).
 
-Then one JSON line with every kernel's numbers, and, last, the
+The kernels' ``launches`` are those of phases 2, 6 and 8 (each path's
+counts zeroed just before it and read just after). Then one JSON line with
+every kernel's numbers, and, last, the
 ``{"ok": true, "device": ...}`` line. It imports nothing of JAX and nothing
 of the JAX package.
 """
@@ -344,7 +359,7 @@ def phase_kernels(edges, n):
         e = len(seg)
         bms, by = bound(e * d * 4 + (n + 1) * 4 + n * d * 4, e * d)
         per_call = ss_kernels_per_call(lambda: ops.segment_sum_sorted(data, lay))
-        check(per_call == 1, f"segment_sum {tag}: one device kernel per call (profiler)")
+        check(per_call == 1, f"segment_sum {tag}: one device kernel per call (profiler; counted {per_call})")
         log(f"kernel segment_sum {tag} E={e} D={d} S={n} longest_run={longest} "
             f"tiles={lay.num_tiles} crossing_segments={lay.cross.shape[0]}: "
             f"max_abs_err={err} ms={ms:.5f} (before the redesign: {SS_WAS_MS[d]}) "
@@ -384,7 +399,7 @@ def phase_kernels(edges, n):
     torch.cuda.synchronize()
     check(torch.allclose(got, want, rtol=2e-3, atol=2e-3), "segment_sum f16 within 2e-3")
     per_call = ss_kernels_per_call(lambda: ops.segment_sum_sorted(data, lay16))
-    check(per_call == 1, "segment_sum f16: one device kernel per call (profiler)")
+    check(per_call == 1, f"segment_sum f16: one device kernel per call (profiler; counted {per_call})")
     log(f"kernel segment_sum f16 E={e} D={d} S={s}: max_abs_err={(got - want).abs().max().item()} "
         f"kernels_per_call={per_call}")
     return rows_out
@@ -593,6 +608,164 @@ def phase_profile(k):
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"profile kernel {e.key[:90]}: {e.count / steps:.2f} per step, "
             f"{e.self_device_time_total / steps:.3f} us per step")
+
+
+# ----------------------------------------------------------------------------
+# Phase 8: the paper's comparison set
+# ----------------------------------------------------------------------------
+
+# The window of bench_total_latency.py's adwise-restream rows at W = 256
+# (benchmarks/common.py: window_init = W // 4), and its default scale.
+RESTREAM_CFG = dict(passes=2, window_max=256, window_init=64)
+BENCH_SCALE = 0.08
+
+
+def profile_per_edge(run, m_short: int, m_long: int) -> tuple[float, float]:
+    """(device kernels, device busy µs) per edge of ``run(m)`` on the card,
+    from two profiled runs at m_short and m_long edges: the difference
+    cancels the set-up, the capture and the warm-up, and leaves what the
+    replayed graphs launch per edge."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import device_kernels
+
+    got = []
+    for m in (m_short, m_long):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run(m)
+            torch.cuda.synchronize()
+        kern = device_kernels(prof)
+        got.append((sum(e.count for e in kern), sum(e.self_device_time_total for e in kern)))
+    dm = m_long - m_short
+    return (got[1][0] - got[0][0]) / dm, (got[1][1] - got[0][1]) / dm
+
+
+def bill(name, res, edges, n, k, graph):
+    """RD, 30 pagerank supersteps on the card (one segment_sum launch each)
+    and the pagerank_300 bill, as bench_total_latency.py forms its rows."""
+    import numpy as np
+
+    from repro_torch.engine import (
+        PAPER_CLUSTER, build_partitioned_graph, pagerank, partition_latency, process_latency,
+    )
+    from repro_torch.graph import partition_balance, replica_sets_from_assignment, replication_degree
+
+    check((res.assign >= 0).all() and (res.assign < k).all() and res.stats.get("unassigned", 0) == 0,
+          f"{name} ({graph}): every edge assigned")
+    rd = replication_degree(replica_sets_from_assignment(edges, res.assign, n, k))
+    g = build_partitioned_graph(edges, res.assign, n, k, device="cuda")
+    pr, _ = pagerank(g, iters=30)
+    check(pr.shape == (n,) and np.isfinite(pr).all(), f"{name} ({graph}): pagerank finite")
+    t_part = partition_latency(res.stats, len(edges), k)
+    t_proc = process_latency(g, 300, 1, PAPER_CLUSTER)["t_total_s"]
+    check(np.isfinite(t_part + t_proc) and t_part + t_proc > 0, f"{name} ({graph}): total latency finite")
+    return dict(strategy=name, graph=graph, rd=rd, imbalance=partition_balance(res.assign, k),
+                wall_s=res.stats["wall_time_s"], t_partition_s=t_part, t_process_s=t_proc)
+
+
+def phase_comparison(edges_full, n_full, k):
+    """HDRF and Greedy at full scale; 2PS-L, 2PS and adwise-restream at the
+    benchmark's scale — through the registry on the card, each against the
+    port's CPU oracle where one finishes in seconds, billed for
+    pagerank_300."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import registry, restream
+    from repro_torch.graph import make_graph
+    from repro_torch.kernels import ops
+
+    rows = []
+    ops.reset_launch_counts()
+    # Single-edge cores at full preset size.
+    for name in ("hdrf", "greedy"):
+        res = registry.run_partitioner(name, edges_full, n_full, k, device="cuda")
+        torch.cuda.synchronize()
+        st = res.stats
+        loop_s = st["wall_time_s"] - st["setup_s"]
+        t0 = time.perf_counter()
+        oracle = registry.run_partitioner(name, edges_full, n_full, k, device="cpu", scan=False)
+        t_oracle = time.perf_counter() - t0
+        check(np.array_equal(res.assign, oracle.assign),
+              f"{name}: the card's assignment equals the numpy oracle bit for bit (brain_like 1.0)")
+        row = bill(name, res, edges_full, n_full, k, "brain_like 1.0")
+        row.update(steps=st["steps_run"], us_per_edge=loop_s / st["steps_run"] * 1e6,
+                   steps_per_s=st["steps_run"] / loop_s, setup_s=st["setup_s"], oracle_s=t_oracle)
+        rows.append(row)
+
+    # The restreaming set at the benchmark's scale (a depth cut).
+    edges, n = make_graph("brain_like", seed=0, scale=BENCH_SCALE)
+    graph = f"brain_like {BENCH_SCALE}"
+    res = registry.run_partitioner("hash", edges, n, k, device="cuda")
+    rows.append(bill("hash", res, edges, n, k, graph))
+    hash_rd = rows[-1]["rd"]
+    res = registry.run_partitioner("2ps-l", edges, n, k, device="cuda")
+    t0 = time.perf_counter()
+    oracle = registry.run_partitioner("2ps-l", edges, n, k, device="cpu", scan=False)
+    t_oracle = time.perf_counter() - t0
+    check(np.array_equal(res.assign, oracle.assign),
+          f"2ps-l: the card's assignment equals the numpy oracles of both phases bit for bit ({graph})")
+    rows.append(dict(bill("2ps-l", res, edges, n, k, graph), oracle_s=t_oracle,
+                     phase1_s=res.stats["phase1_wall_s"], n_clusters=res.stats["n_clusters"]))
+    # 2ps shares 2ps-l's phase 1 (the clustering just held to its numpy
+    # oracle through 2ps-l's assignment).
+    res = registry.run_partitioner("2ps", edges, n, k, device="cuda")
+    check(res.stats["n_clusters"] == oracle.stats["n_clusters"], "2ps: the oracle's clusters")
+    rows.append(dict(bill("2ps", res, edges, n, k, graph), phase1_s=res.stats["phase1_wall_s"],
+                     n_clusters=res.stats["n_clusters"]))
+    before = ops.launch_counts()["window_score"]
+    res = registry.run_partitioner("adwise-restream", edges, n, k, device="cuda", **RESTREAM_CFG)
+    ws = ops.launch_counts()["window_score"] - before
+    st = res.stats
+    check(ws == sum(st["pass_steps"]) and st["pass_steps"][1] > 0,
+          "adwise-restream: one window_score launch per step of each pass, pass 2 included")
+    check(st["pass_rd"][0] < hash_rd, "RD(ADWISE) below RD(hash) at the benchmark's scale")
+    rows.append(dict(bill("adwise-restream[2p]", res, edges, n, k, graph),
+                     pass_rd=st["pass_rd"], pass_wall_s=st["pass_wall_s"],
+                     pass_steps=st["pass_steps"], window_score_launches=ws,
+                     h2d_bytes=st["h2d_bytes"]))
+    counts = ops.launch_counts()
+    check(counts["segment_sum"] == 30 * len(rows), "comparison set: 30 segment_sum launches per bill")
+
+    # Card against the CPU path where both finish in seconds: non-lazy, so
+    # the order-dependent Θ sum does not enter (warm passes, residency and
+    # the revocation table included).
+    small, n_small = make_graph("brain_like", seed=0, scale=0.005)
+    small_restream = dict(passes=2, window_max=64, window_init=16, lazy=False)
+    for name, cfg in (("adwise-restream", small_restream), ("2ps", dict(lazy=False))):
+        a = registry.run_partitioner(name, small, n_small, k, device="cuda", **cfg)
+        b = registry.run_partitioner(name, small, n_small, k, device="cpu", **cfg)
+        check(np.array_equal(a.assign, b.assign) and a.stats["score_rows"] == b.stats["score_rows"],
+              f"{name} (non-lazy, brain_like 0.005): cuda and cpu bit-identical")
+
+    # Device kernels and busy time per edge, by profiler (differences of two
+    # runs, so only the replayed graphs count).
+    prof_edges, n_prof = make_graph("brain_like", seed=0, scale=0.02)
+    per_edge = {}
+    for name in ("hdrf", "greedy", "2ps-l"):
+        per_edge[name] = profile_per_edge(
+            lambda m, name=name: registry.run_partitioner(name, prof_edges[:m], n_prof, k, device="cuda"),
+            128, 512)
+    per_edge["cluster"] = profile_per_edge(
+        lambda m: restream.streaming_vertex_clustering(prof_edges[:m], n_prof, k, device="cuda"),
+        128, 512)
+
+    log("graph,workload,strategy,L,partition_s,process_s,total_s,RD")
+    for r in rows:
+        log(f"{r['graph']},pagerank_300,{r['strategy']},,{r['t_partition_s']:.3f},"
+            f"{r['t_process_s']:.3f},{r['t_partition_s'] + r['t_process_s']:.3f},{r['rd']:.3f}")
+    for r in rows:
+        extra = " ".join(f"{key}={r[key]}" for key in (
+            "steps", "us_per_edge", "steps_per_s", "setup_s", "oracle_s", "phase1_s", "n_clusters",
+            "pass_rd", "pass_wall_s", "pass_steps", "window_score_launches", "h2d_bytes") if key in r)
+        log(f"comparison {r['strategy']} ({r['graph']}): RD={r['rd']:.4f} imbalance={r['imbalance']:.4f} "
+            f"wall_s={r['wall_s']:.3f} {extra}")
+    for name, (kern, busy) in per_edge.items():
+        what = "cluster step + 2ps-l step" if name == "2ps-l" else "step"
+        log(f"comparison profile {name}: kernels_per_edge={kern:.1f} device_busy_us_per_edge={busy:.2f} "
+            f"(one {what} per edge; profiled, graph replays)")
+    return counts
 
 
 # ----------------------------------------------------------------------------
@@ -924,6 +1097,7 @@ def main() -> int:
         t0 = time.perf_counter()
         phase_profile(k=32)
         log(f"phase 4 (profile of the step): {time.perf_counter() - t0:.1f}s")
+
         t0 = time.perf_counter()
         kernel_rows["flash_attention"] = phase_flash()
         log(f"phase 5 (flash_attention vs plain): {time.perf_counter() - t0:.1f}s")
@@ -935,6 +1109,12 @@ def main() -> int:
         t0 = time.perf_counter()
         phase_lm_parity()
         log(f"phase 7 (LM cuda vs cpu): {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        cmp_counts = phase_comparison(edges, n, k=32)
+        log(f"phase 8 (comparison set): {time.perf_counter() - t0:.1f}s launches={cmp_counts}")
+        for name in ("window_score", "segment_sum"):
+            check(cmp_counts[name] > 0, f"{name} launched on the comparison set's path")
+            counts[name] += cmp_counts[name]
         sources = {"window_score": ws_mod, "segment_sum": ss_mod, "flash_attention": fa_mod}
         kernels = []
         for name, row in kernel_rows.items():

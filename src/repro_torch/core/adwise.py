@@ -79,6 +79,32 @@ class Carry(NamedTuple):
     def clone(self) -> "Carry":
         return Carry(*(t.clone() for t in self))
 
+    @classmethod
+    def warm_start(
+        cls,
+        cfg: AdwiseConfig,
+        num_vertices: int,
+        budget: float,
+        *,
+        replicas: np.ndarray,  # (V, K) bool — replica table of the prior pass
+        deg: np.ndarray,  # (V,) int — streamed degrees of the prior pass
+        sizes: np.ndarray,  # (K,) int — partition loads of the prior pass
+        device: torch.device,
+    ) -> "Carry":
+        """Carry warm-started from a previous pass's tables (re-streaming).
+
+        λ restarts at ``cfg.lam_init`` and re-anneals over the new pass, and
+        the window controller starts fresh; the replica table, degree table
+        (``max_deg = max(max(deg), 1)``) and partition loads carry over.
+        """
+        base = _init_carry(cfg, num_vertices, budget, device)
+        base.replicas[:num_vertices] = torch.as_tensor(np.asarray(replicas, bool))
+        base.deg[:num_vertices] = torch.as_tensor(np.asarray(deg).astype(np.int32))
+        return base._replace(
+            max_deg=base.deg.max().clamp_min(1),
+            sizes=torch.as_tensor(np.asarray(sizes).astype(np.int32), device=device),
+        )
+
 
 class StepOut(NamedTuple):
     """Per-step outputs, one row per step, written at the device-side
@@ -149,7 +175,7 @@ def _make_step(
     allowed: torch.Tensor,  # (K,) bool
     cap: torch.Tensor,  # () int32 (BIG when disabled)
     has_budget: bool,
-    prev_assign: Optional[torch.Tensor],  # (m_pad,) int32, -1 = none; None = cold pass
+    prev_assign: torch.Tensor,  # (m_pad,) int32 prior placements, -1 = none
     update_deg: bool,  # False on warm-started passes (degrees already final)
 ):
     """Build the in-place step ``step(carry, out) -> None``.
@@ -166,6 +192,7 @@ def _make_step(
     key_cand = slot_ids + w_max  # class 1: stale candidates (cached score >= Θ)
     key_sec = slot_ids + 2 * w_max  # class 2: stale secondary edges
     ones_w = torch.ones((w_max,), dtype=_I32, device=dev)
+    neg_ones_w = -ones_w
     no_trigger = torch.zeros((), dtype=torch.bool, device=dev)
     w_lo = max(1, b)
     use_cs = cfg.use_clustering
@@ -195,12 +222,11 @@ def _make_step(
         else:
             max_deg = carry.max_deg
         sizes = carry.sizes  # becomes the net loads, then the new loads, in place
-        if prev_assign is not None:
-            # Buffered re-streaming revocation: release the prior placement
-            # of an edge as it enters the window.
-            pa = prev_assign[src_c]
-            dec = fill & (pa >= 0)
-            sizes.index_add_(0, torch.where(dec, pa, 0), -dec.to(_I32))
+        # Buffered re-streaming revocation: release the prior placement of
+        # an edge as it enters the window (all -1 on a cold pass).
+        pa = prev_assign[src_c]
+        dec = fill & (pa >= 0)
+        sizes.index_add_(0, torch.where(dec, pa, 0), torch.where(dec, neg_ones_w, 0))
         cursor = carry.cursor + take
         n_valid = carry.n_valid + take
         u = win_uv[:, 0]
@@ -355,13 +381,20 @@ def partition_stream(
     allowed: Optional[np.ndarray] = None,
     n_chunks: int = 8,
     cost_per_score: Optional[float] = None,
+    warm: Optional[WarmState] = None,
+    residency=None,
     device=None,
 ) -> PartitionResult:
     """Partition an edge stream with ADWISE.
 
     Thin caller of :class:`repro_torch.core.driver.ScanDriver` over one
     resident stream, as in the JAX package. ``device`` defaults to ``cuda``
-    (see :func:`repro_torch.compat.resolve_device`).
+    (see :func:`repro_torch.compat.resolve_device`). ``warm`` resumes from a
+    previous pass's tables (degrees are then not re-counted, and each edge's
+    ``warm.prev_assign`` placement, when given, is revoked as it re-enters
+    the window); ``residency`` (a
+    :class:`~repro_torch.core.driver.StreamResidency`) shares one device
+    stream across re-streaming passes over the same edges.
 
     Returns a PartitionResult with ``assign`` (int32[m]) and the JAX
     package's stats keys.
@@ -375,10 +408,12 @@ def partition_stream(
     source = ResidentSource(
         np.ascontiguousarray(edges, np.int32).reshape(1, m, 2),
         np.array([m], np.int64),
+        residency=residency,
     )
     drv = ScanDriver(
         source, cfg, num_vertices,
         allowed=None if allowed is None else np.asarray(allowed, bool)[None],
+        warm=None if warm is None else [warm],
         cost_per_score=cost_per_score,
         device=device,
     )

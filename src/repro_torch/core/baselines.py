@@ -1,33 +1,69 @@
 """Single-edge streaming baselines the paper compares ADWISE against.
 
-Copied from the JAX package's ``core/baselines.py`` (the numpy parts):
+Port of the JAX package's ``core/baselines.py``:
 
 * Hashing — edge hash (PowerGraph/GraphX default);
 * Grid    — 2D grid-constrained hashing (GraphBuilder);
-* DBH     — Degree-Based Hashing (Xie et al., NIPS'14).
+* DBH     — Degree-Based Hashing (Xie et al., NIPS'14);
+* HDRF    — High-Degree Replicated First (Petroni et al., CIKM'15);
+* Greedy  — PowerGraph's replica-intersection heuristic (OSDI'12).
 
-These are stateless hashes over the whole stream, computed on the host; the
-same edges and seed give bit-identical assignments in both packages. HDRF and
-Greedy (and their numpy oracles) are the next slice (ROADMAP.md, port
-queue 1, item 7).
+Hash, grid and DBH are stateless hashes over the whole stream, computed on
+the host. HDRF and Greedy keep a vertex cache; their per-edge numpy loops
+(:class:`HdrfState`, :class:`GreedyState`) are copied as the parity oracles,
+and :class:`HdrfCore` / :class:`GreedyCore` run the same integer-quantized
+math as in-place step-cores on :class:`repro_torch.core.driver.ScanDriver`
+(32 steps per CUDA graph on the card, a plain loop on the CPU). The same
+edges and seed give bit-identical assignments in both packages.
+
+HDRF's tie noise is the JAX package's counter-based uint32 hash of (stream
+row, partition, seed). The step evaluates it in int64 with every product
+kept below 2^63: the seed and partition terms are folded on the host with
+Python ints, the multiply by 0x846CA68B (>= 2^31) is split into 16-bit
+halves, and every stage is masked to 32 bits (:func:`tie_hash_torch`).
 """
 from __future__ import annotations
 
+import dataclasses
 import time
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
+import torch
 
-from repro_torch.core.types import PartitionResult
+from repro_torch.core.driver import StepCore
+from repro_torch.core.types import PartitionResult, WarmState
 
 __all__ = [
+    "hdrf_partition",
     "dbh_partition",
+    "greedy_partition",
     "hash_partition",
     "grid_partition",
+    "HdrfState",
+    "GreedyState",
+    "HdrfCore",
+    "GreedyCore",
+    "hdrf_partition_scan",
+    "greedy_partition_scan",
     "hash_assign",
     "grid_assign",
     "dbh_assign",
+    "tie_break_hash",
+    "tie_hash_torch",
 ]
+
+# Quantization of the HDRF scoring (shared by the numpy oracle and the
+# step-core): θ and balance fractions in 1/64 steps, λ as round(λ·64).
+QB = 64
+TIE_BITS = 10  # tie-noise bits packed under the quantized score
+_TIE_MASK = (1 << TIE_BITS) - 1
+_DEG_CLAMP = 1 << 22  # keeps 64·C_rep_q·2^TIE_BITS + λ_q·bal_q·2^TIE_BITS < 2^31
+_LAM_Q_MAX = 4096  # λ ≤ 64 — far above the useful HDRF range
+_U32 = np.uint64(0xFFFFFFFF)
+_M32 = 0xFFFFFFFF
+_I32_MAX = int(np.iinfo(np.int32).max)
+_I32_MIN = int(np.iinfo(np.int32).min)
 
 
 def _hash_vec(x: np.ndarray, k: int, salt: int = 0x9E3779B9) -> np.ndarray:
@@ -38,6 +74,60 @@ def _hash_vec(x: np.ndarray, k: int, salt: int = 0x9E3779B9) -> np.ndarray:
     h ^= h >> np.uint64(29)
     return (h % np.uint64(k)).astype(np.int32)
 
+
+
+def _lam_q(lam: float) -> int:
+    return int(np.clip(round(float(lam) * QB), 0, _LAM_Q_MAX))
+
+
+def _eps_q(eps: float) -> int:
+    return max(int(round(float(eps))), 1)
+
+
+def tie_break_hash(rows: np.ndarray, k: int, seed: int) -> np.ndarray:
+    """Counter-based HDRF tie noise: uint32 hash of (row, partition, seed).
+
+    Stateless in the stream position, so every chunk geometry draws the
+    same noise. Returns int64 (len(rows), k) in [0, 2^TIE_BITS).
+    """
+    r = (np.asarray(rows, np.uint64) & _U32)[:, None]
+    p = np.arange(k, dtype=np.uint64)[None, :]
+    s = np.uint64(int(seed) & 0xFFFFFFFF)
+    h = (r * np.uint64(0x9E3779B9)) & _U32
+    h = h ^ ((p * np.uint64(0x85EBCA6B)) & _U32)
+    h = h ^ ((s * np.uint64(0xC2B2AE35)) & _U32)
+    h ^= h >> np.uint64(16)
+    h = (h * np.uint64(0x7FEB352D)) & _U32
+    h ^= h >> np.uint64(15)
+    h = (h * np.uint64(0x846CA68B)) & _U32
+    h ^= h >> np.uint64(16)
+    return (h & np.uint64(_TIE_MASK)).astype(np.int64)
+
+
+def _tie_terms(k: int, seed: int, device) -> torch.Tensor:
+    """(k,) int64: the partition and seed terms of the tie hash, folded on
+    the host with Python ints."""
+    s_term = (int(seed) & _M32) * 0xC2B2AE35 & _M32
+    return torch.tensor(
+        [((p * 0x85EBCA6B) & _M32) ^ s_term for p in range(k)],
+        dtype=torch.int64, device=device,
+    )
+
+
+def tie_hash_torch(rows: torch.Tensor, terms: torch.Tensor) -> torch.Tensor:
+    """Device twin of :func:`tie_break_hash`: (R, k) int64 tie noise for
+    int ``rows`` in [0, 2^31) against ``terms = _tie_terms(k, seed)``.
+
+    uint32 arithmetic in int64: operands stay below 2^32 and every product
+    below 2^63 (the multiply by 0x846CA68B is split into 16-bit halves)."""
+    r = rows.to(torch.int64).view(-1, 1)
+    h = ((r * 0x9E3779B9) & _M32) ^ terms
+    h = h ^ (h >> 16)
+    h = (h * 0x7FEB352D) & _M32
+    h = h ^ (h >> 15)
+    h = (h * 0xA68B + (((h * 0x846C) & 0xFFFF) << 16)) & _M32
+    h = h ^ (h >> 16)
+    return h & _TIE_MASK
 
 
 def _local_to_global(allowed: np.ndarray) -> np.ndarray:
@@ -133,3 +223,451 @@ def dbh_partition(
         assign = l2g[dbh_assign(edges, degrees, len(l2g), seed=seed)]
     return PartitionResult(assign, dict(k=k, wall_time_s=time.perf_counter() - t0, name="dbh"))
 
+
+
+# ----------------------------------------------------------------------------
+# Sequential cores: numpy oracles (stateful; chunk-resumable)
+# ----------------------------------------------------------------------------
+
+
+class HdrfState:
+    """HDRF vertex cache + loads, resumable across chunks (parity oracle).
+
+    Integer-quantized scoring with counter-based tie noise keyed on the
+    running ``edges_seen`` row id — the assignment stream is invariant to
+    chunk geometry and bit-identical to the :class:`HdrfCore` scan.
+    """
+
+    def __init__(self, num_vertices: int, k: int, lam: float = 1.1,
+                 eps: float = 1.0, seed: int = 0,
+                 allowed: Optional[np.ndarray] = None):
+        self.k = k
+        self.lam_q = _lam_q(lam)
+        self.eps_q = _eps_q(eps)
+        self.seed = int(seed)
+        self.deg = np.zeros(num_vertices, dtype=np.int64)
+        self.replicas = np.zeros((num_vertices, k), dtype=bool)
+        self.sizes = np.zeros(k, dtype=np.int64)
+        self.allowed = (
+            np.ones(k, bool) if allowed is None else np.asarray(allowed, bool)
+        )
+        assert self.allowed.shape == (k,) and self.allowed.any()
+        self.edges_seen = 0
+
+    def assign_chunk(self, edges: np.ndarray) -> np.ndarray:
+        """Place a chunk of the stream; state advances in stream order."""
+        k, lam_q, eps_q = self.k, self.lam_q, self.eps_q
+        deg, replicas, sizes = self.deg, self.replicas, self.sizes
+        allowed = self.allowed
+        aidx = np.flatnonzero(allowed)
+        c = len(edges)
+        assign = np.empty(c, dtype=np.int32)
+        ties = tie_break_hash(
+            np.arange(self.edges_seen, self.edges_seen + c), k, self.seed
+        )
+        for i in range(c):
+            u, v = int(edges[i, 0]), int(edges[i, 1])
+            deg[u] += 1
+            deg[v] += 1
+            du = min(int(deg[u]), _DEG_CLAMP)
+            dv = min(int(deg[v]), _DEG_CLAMP)
+            a = du + dv
+            tq_u = ((2 * a - du) * QB) // a
+            tq_v = ((2 * a - dv) * QB) // a
+            sal = sizes[aidx]
+            mx, mn = int(sal.max()), int(sal.min())
+            gap = np.clip(mx - sizes, 0, _DEG_CLAMP)
+            bal_q = (gap * QB) // (eps_q + min(mx - mn, _DEG_CLAMP))
+            rep_q = replicas[u] * tq_u + replicas[v] * tq_v
+            score_q = QB * rep_q.astype(np.int64) + lam_q * bal_q
+            combined = np.where(allowed, (score_q << TIE_BITS) + ties[i], -1)
+            p = int(np.argmax(combined))
+            assign[i] = p
+            sizes[p] += 1
+            replicas[u, p] = True
+            replicas[v, p] = True
+        self.edges_seen += c
+        return assign
+
+
+class GreedyState:
+    """PowerGraph Greedy vertex cache + loads, resumable across chunks."""
+
+    def __init__(self, num_vertices: int, k: int,
+                 allowed: Optional[np.ndarray] = None):
+        self.k = k
+        self.replicas = np.zeros((num_vertices, k), dtype=bool)
+        self.sizes = np.zeros(k, dtype=np.int64)
+        self.allowed = (
+            np.ones(k, bool) if allowed is None else np.asarray(allowed, bool)
+        )
+        assert self.allowed.shape == (k,) and self.allowed.any()
+        self.edges_seen = 0
+
+    def assign_chunk(self, edges: np.ndarray) -> np.ndarray:
+        replicas, sizes = self.replicas, self.sizes
+        allowed = self.allowed
+        c = len(edges)
+        assign = np.empty(c, dtype=np.int32)
+        for i in range(c):
+            u, v = int(edges[i, 0]), int(edges[i, 1])
+            ru, rv = replicas[u], replicas[v]
+            inter = ru & rv
+            # Replicas only ever grow inside `allowed`, so every candidate
+            # set below is already a subset of the mask.
+            if inter.any():
+                cand = inter
+            elif ru.any() and rv.any():
+                cand = ru | rv
+            elif ru.any():
+                cand = ru
+            elif rv.any():
+                cand = rv
+            else:
+                cand = allowed
+            masked = np.where(cand, sizes, np.iinfo(np.int64).max)
+            p = int(np.argmin(masked))
+            assign[i] = p
+            sizes[p] += 1
+            replicas[u, p] = True
+            replicas[v, p] = True
+        self.edges_seen += c
+        return assign
+
+
+def hdrf_partition(
+    edges: np.ndarray,
+    num_vertices: int,
+    k: int,
+    lam: float = 1.1,
+    eps: float = 1.0,
+    seed: int = 0,
+    allowed: Optional[np.ndarray] = None,
+) -> PartitionResult:
+    """HDRF single-edge streaming (Petroni et al.) — numpy oracle.
+
+    score(e=(u,v), p) = C_rep + lam * C_bal with
+      C_rep = g(u,p) + g(v,p),   g(x,p) = 1{p in R_x} * (1 + (1 - theta_x))
+      theta_u = deg(u) / (deg(u) + deg(v))
+      C_bal = (maxsize - size_p) / (eps + maxsize - minsize)
+    quantized to 1/64 steps. Partial degrees are updated as the stream is
+    consumed. lam=1.1 is the authors' recommended default.
+    """
+    t0 = time.perf_counter()
+    state = HdrfState(num_vertices, k, lam=lam, eps=eps, seed=seed,
+                      allowed=allowed)
+    assign = state.assign_chunk(edges)
+    return PartitionResult(
+        assign,
+        dict(k=k, wall_time_s=time.perf_counter() - t0, name="hdrf",
+             score_count=len(edges) * k),
+    )
+
+
+def greedy_partition(
+    edges: np.ndarray, num_vertices: int, k: int, seed: int = 0,
+    allowed: Optional[np.ndarray] = None,
+) -> PartitionResult:
+    """PowerGraph Greedy (Gonzalez et al., OSDI'12) placement rules.
+
+    1. If R_u and R_v intersect: least-loaded partition in the intersection.
+    2. Else if both non-empty: least-loaded partition in R_u | R_v.
+    3. Else if one non-empty: least-loaded partition in it.
+    4. Else: least-loaded allowed partition overall.
+    """
+    t0 = time.perf_counter()
+    state = GreedyState(num_vertices, k, allowed=allowed)
+    assign = state.assign_chunk(edges)
+    return PartitionResult(
+        assign, dict(k=k, wall_time_s=time.perf_counter() - t0, name="greedy")
+    )
+
+
+# ----------------------------------------------------------------------------
+# Step-cores: the same math as in-place steps on the scan driver
+# ----------------------------------------------------------------------------
+
+
+def _clone(carry):
+    return type(carry)(*(t.clone() for t in carry))
+
+
+class HdrfCarry(NamedTuple):
+    deg: torch.Tensor  # (V+1,) int32 — row V is a scatter dump
+    replicas: torch.Tensor  # (V+1, K) bool
+    sizes: torch.Tensor  # (K,) int32
+    cursor: torch.Tensor  # () int32
+    assigned: torch.Tensor  # () int32
+
+    clone = _clone
+
+
+class GreedyCarry(NamedTuple):
+    replicas: torch.Tensor  # (V+1, K) bool
+    sizes: torch.Tensor  # (K,) int32
+    cursor: torch.Tensor  # () int32
+    assigned: torch.Tensor  # () int32
+
+    clone = _clone
+
+
+def _zeros_i32(device, *shape):
+    return torch.zeros(shape, dtype=torch.int32, device=device)
+
+
+def _warm_tables(num_vertices, k, warm, device):
+    """(V+1, K) replicas and (V+1,) degrees of a WarmState, dump row 0."""
+    rep = torch.zeros((num_vertices + 1, k), dtype=torch.bool, device=device)
+    rep[:num_vertices] = torch.as_tensor(np.asarray(warm.replicas, bool))
+    deg = _zeros_i32(device, num_vertices + 1)
+    deg[:num_vertices] = torch.as_tensor(np.asarray(warm.deg).astype(np.int32))
+    sizes = torch.as_tensor(np.asarray(warm.sizes).astype(np.int32), device=device)
+    return rep, deg, sizes
+
+
+def _edge_at(stream, m_real, cursor, v_dummy):
+    """The step's edge: (1,) live flag and int32 live, its endpoints (the
+    dump row V when the stream is exhausted) and the (1,) stream row."""
+    cur = cursor.view(1)
+    live = cur < m_real
+    live_i = live.to(torch.int32)
+    row = stream.index_select(0, cur % stream.shape[0])  # (1, 2); % = the ring index
+    u = torch.where(live, row[:, 0], v_dummy)
+    v = torch.where(live, row[:, 1], v_dummy)
+    return cur, live, live_i, u, v
+
+
+def _emit(out, cur, live, live_i, p, carry) -> None:
+    """Write the step's StepOut row at ``out.t`` and advance the counters."""
+    row = out.t
+    out.sidx.index_copy_(0, row, torch.where(live, cur, -1).view(1, 1))
+    out.p.index_copy_(0, row, torch.where(live, p, 0).view(1, 1))
+    out.w_cap.index_fill_(0, row, 1)
+    out.t.add_(1)
+    carry.cursor.view(1).add_(live_i)
+    carry.assigned.view(1).add_(live_i)
+
+
+def _balance_q(sizes, allowed, eps_q):
+    """(K,) int32 quantized HDRF balance term over the allowed loads."""
+    mx = torch.where(allowed, sizes, _I32_MIN).amax()
+    mn = torch.where(allowed, sizes, _I32_MAX).amin()
+    gap = (mx - sizes).clamp(0, _DEG_CLAMP)
+    return (gap * QB) // (eps_q + (mx - mn).clamp_max(_DEG_CLAMP))
+
+
+def _theta_q(du, dv):
+    """Quantized (2 - θ)·64 of both endpoints, from clamped degrees."""
+    a = (du + dv).clamp_min(1)
+    return ((2 * a - du) * QB) // a, ((2 * a - dv) * QB) // a
+
+
+def _place(replicas, sizes, u, v, p, live, live_i) -> None:
+    """Record the edge on partition p: both replicas and the load. Not live,
+    u = v = the dump row, which is written with False and never read."""
+    replicas.index_put_((torch.cat([u, v]), p.expand(2)), live.expand(2))
+    sizes.index_add_(0, p, live_i)
+
+
+@dataclasses.dataclass(frozen=True)
+class HdrfCore(StepCore):
+    """HDRF as a chunk-resumable step-core: one edge per scan step.
+
+    Bit-identical to :class:`HdrfState` — integer-quantized scoring, tie
+    noise from the counter-based hash of (cursor, partition, seed). The step
+    updates ``deg`` before it scores, adding twice on a self-loop.
+    """
+
+    num_vertices: int
+    k: int
+    lam: float = 1.1
+    eps: float = 1.0
+    seed: int = dataclasses.field(default=0, compare=False)
+
+    name = "hdrf"
+
+    def init_carry(self, budget: float, device: torch.device) -> HdrfCarry:
+        v1 = self.num_vertices + 1
+        return HdrfCarry(
+            deg=_zeros_i32(device, v1),
+            replicas=torch.zeros((v1, self.k), dtype=torch.bool, device=device),
+            sizes=_zeros_i32(device, self.k),
+            cursor=_zeros_i32(device),
+            assigned=_zeros_i32(device),
+        )
+
+    def warm_carry(self, budget: float, warm: WarmState, device: torch.device) -> HdrfCarry:
+        rep, deg, sizes = _warm_tables(self.num_vertices, self.k, warm, device)
+        return self.init_carry(budget, device)._replace(deg=deg, replicas=rep, sizes=sizes)
+
+    def counters(self, carry) -> dict:
+        return dict(
+            score_rows=np.asarray([carry.assigned.item()], np.int64),
+            final_w=np.ones((1,), np.int64),
+            lam=np.full((1,), self.lam, np.float32),
+            cost_per_score=np.zeros((1,), np.float32),
+        )
+
+    def make_step(self, stream, m_real, allowed, cap, prev_assign):
+        v_dummy = self.num_vertices
+        lam_q, eps_q = _lam_q(self.lam), _eps_q(self.eps)
+        terms = _tie_terms(self.k, self.seed, stream.device)
+
+        def step(carry: HdrfCarry, out) -> None:
+            cur, live, live_i, u, v = _edge_at(stream, m_real, carry.cursor, v_dummy)
+            deg = carry.deg
+            deg.index_add_(0, u, live_i)
+            deg.index_add_(0, v, live_i)
+            du = deg.index_select(0, u).clamp_max(_DEG_CLAMP)
+            dv = deg.index_select(0, v).clamp_max(_DEG_CLAMP)
+            tq_u, tq_v = _theta_q(du, dv)
+            rep = carry.replicas
+            rep_q = rep.index_select(0, u) * tq_u + rep.index_select(0, v) * tq_v
+            score_q = QB * rep_q + lam_q * _balance_q(carry.sizes, allowed, eps_q)
+            tie = tie_hash_torch(cur, terms)
+            combined = torch.where(allowed, (score_q << TIE_BITS) + tie, -1)
+            p = combined.argmax(1).to(torch.int32)  # first maximum
+            _place(rep, carry.sizes, u, v, p, live, live_i)
+            _emit(out, cur, live, live_i, p, carry)
+
+        return step
+
+
+@dataclasses.dataclass(frozen=True)
+class GreedyCore(StepCore):
+    """PowerGraph Greedy as a step-core: one edge per scan step.
+
+    All-integer (argmin over masked loads, first-occurrence ties) — exactly
+    the :class:`GreedyState` loop, its candidate set the same four-way
+    nested choice.
+    """
+
+    num_vertices: int
+    k: int
+
+    name = "greedy"
+
+    def init_carry(self, budget: float, device: torch.device) -> GreedyCarry:
+        return GreedyCarry(
+            replicas=torch.zeros((self.num_vertices + 1, self.k), dtype=torch.bool,
+                                 device=device),
+            sizes=_zeros_i32(device, self.k),
+            cursor=_zeros_i32(device),
+            assigned=_zeros_i32(device),
+        )
+
+    def warm_carry(self, budget: float, warm: WarmState, device: torch.device) -> GreedyCarry:
+        rep, _, sizes = _warm_tables(self.num_vertices, self.k, warm, device)
+        return self.init_carry(budget, device)._replace(replicas=rep, sizes=sizes)
+
+    def counters(self, carry) -> dict:
+        return dict(
+            score_rows=np.asarray([carry.assigned.item()], np.int64),
+            final_w=np.ones((1,), np.int64),
+            lam=np.zeros((1,), np.float32),
+            cost_per_score=np.zeros((1,), np.float32),
+        )
+
+    def make_step(self, stream, m_real, allowed, cap, prev_assign):
+        v_dummy = self.num_vertices
+
+        def step(carry: GreedyCarry, out) -> None:
+            cur, live, live_i, u, v = _edge_at(stream, m_real, carry.cursor, v_dummy)
+            ru = carry.replicas.index_select(0, u)  # (1, K)
+            rv = carry.replicas.index_select(0, v)
+            inter = ru & rv
+            has_u, has_v = ru.any(1, keepdim=True), rv.any(1, keepdim=True)
+            cand = torch.where(
+                inter.any(1, keepdim=True),
+                inter,
+                torch.where(
+                    has_u & has_v,
+                    ru | rv,
+                    torch.where(has_u, ru, torch.where(has_v, rv, allowed)),
+                ),
+            )
+            p = torch.where(cand, carry.sizes, _I32_MAX).argmin(1).to(torch.int32)  # first minimum
+            _place(carry.replicas, carry.sizes, u, v, p, live, live_i)
+            _emit(out, cur, live, live_i, p, carry)
+
+        return step
+
+
+def _scan_partition(
+    core,
+    edges: np.ndarray,
+    *,
+    allowed: Optional[np.ndarray] = None,
+    warm: Optional[WarmState] = None,
+    n_chunks: int = 8,
+    device=None,
+) -> PartitionResult:
+    """Run a single-instance step-core over a resident stream."""
+    from repro_torch.core.driver import ResidentSource, ScanDriver
+
+    m = int(len(edges))
+    if m == 0:
+        return PartitionResult(np.zeros((0,), np.int32), dict(k=core.k, unassigned=0))
+    source = ResidentSource(
+        np.ascontiguousarray(edges, np.int32).reshape(1, m, 2),
+        np.array([m], np.int64),
+    )
+    drv = ScanDriver(
+        source, core,
+        allowed=None if allowed is None else np.asarray(allowed, bool)[None],
+        warm=None if warm is None else [warm],
+        device=device,
+    )
+    res = drv.run(n_chunks=n_chunks)
+    sidx, pout = res.sidx[0], res.p[0]
+    assign = np.full((m,), -1, np.int32)
+    live = sidx >= 0
+    assign[sidx[live]] = pout[live]
+    unassigned = int((assign < 0).sum())
+    if unassigned or int(res.assigned[0]) != m:
+        raise RuntimeError(f"{core.name} scan left {unassigned} of {m} edges unassigned")
+    return PartitionResult(assign, dict(drv.stats_base(res, 0), unassigned=0))
+
+
+def _check_backend(backend: str) -> None:
+    """The JAX package's backends all run one instance (z = 1) as the same
+    program; the port takes the names and rejects anything else."""
+    if backend not in ("auto", "vmap", "shard_map"):
+        raise ValueError(
+            f"backend must be 'auto', 'vmap' or 'shard_map', got {backend!r}"
+        )
+
+
+def hdrf_partition_scan(
+    edges: np.ndarray,
+    num_vertices: int,
+    k: int,
+    lam: float = 1.1,
+    eps: float = 1.0,
+    seed: int = 0,
+    allowed: Optional[np.ndarray] = None,
+    backend: str = "vmap",
+    device=None,
+) -> PartitionResult:
+    """HDRF via the :class:`HdrfCore` step-core — bit-identical to
+    :func:`hdrf_partition` (the numpy oracle)."""
+    _check_backend(backend)
+    core = HdrfCore(num_vertices=int(num_vertices), k=int(k),
+                    lam=float(lam), eps=float(eps), seed=int(seed))
+    return _scan_partition(core, edges, allowed=allowed, device=device)
+
+
+def greedy_partition_scan(
+    edges: np.ndarray,
+    num_vertices: int,
+    k: int,
+    seed: int = 0,
+    allowed: Optional[np.ndarray] = None,
+    backend: str = "vmap",
+    device=None,
+) -> PartitionResult:
+    """Greedy via the :class:`GreedyCore` step-core — bit-identical to
+    :func:`greedy_partition` (the numpy oracle)."""
+    _check_backend(backend)
+    core = GreedyCore(num_vertices=int(num_vertices), k=int(k))
+    return _scan_partition(core, edges, allowed=allowed, device=device)

@@ -19,24 +19,39 @@ The host syncs once per scan call, to read
 ``assigned`` for the drain, as the JAX driver does; on a latency budget
 without a pinned ``cost_per_score`` it also syncs to read the wall clock.
 
-File-ring sources, z > 1 (spotlight) and warm starts are later slices
-(ROADMAP.md, port queue 1).
+Every resident pass ships a ``(per,)`` int32 prior-assignment table beside
+the stream, all -1 on a cold pass, and the step always runs the revocation
+gather over it, as the JAX driver does, so ``h2d_rows``/``h2d_bytes`` are the
+JAX package's: ``per·8 + per·4`` bytes, or ``per·4`` alone when a
+:class:`StreamResidency` already holds the stream on the device. A
+``warm=`` driver builds its carry from ``StepCore.warm_carry`` and never
+calls ``init_carry``.
+
+File-ring sources and z > 1 (spotlight) are later slices (ROADMAP.md, port
+queue 1, items 10 and 8).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, NamedTuple, Optional
+from typing import Any, Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import compat
 from repro_torch.core.adwise import Carry, StepOut, _init_carry, _make_step
-from repro_torch.core.types import AdwiseConfig
+from repro_torch.core.types import AdwiseConfig, WarmState
 from repro_torch.kernels import ops
 
-__all__ = ["StepCore", "AdwiseCore", "ResidentSource", "ScanDriver", "DriveResult"]
+__all__ = [
+    "StepCore",
+    "AdwiseCore",
+    "ResidentSource",
+    "StreamResidency",
+    "ScanDriver",
+    "DriveResult",
+]
 
 # Steps captured in one CUDA graph; a scan call replays it chunk_steps // 32
 # times, then a one-step graph for the remainder.
@@ -76,6 +91,9 @@ class StepCore:
 
     def init_carry(self, budget: float, device: torch.device) -> Any:
         raise NotImplementedError
+
+    def warm_carry(self, budget: float, warm: WarmState, device: torch.device) -> Any:
+        raise NotImplementedError(f"{self.name} does not support warm starts")
 
     def cap_value(self, m: int, n_allowed: int) -> int:
         return int(np.iinfo(np.int32).max)
@@ -134,6 +152,12 @@ class AdwiseCore(StepCore):
     def init_carry(self, budget: float, device: torch.device) -> Carry:
         return _init_carry(self.cfg, self.num_vertices, budget, device)
 
+    def warm_carry(self, budget: float, warm: WarmState, device: torch.device) -> Carry:
+        return Carry.warm_start(
+            self.cfg, self.num_vertices, budget, device=device,
+            replicas=warm.replicas, deg=warm.deg, sizes=warm.sizes,
+        )
+
     def set_cost(self, carry: Any, cost_per_score: float) -> None:
         carry.cost_per_score.fill_(cost_per_score)
 
@@ -155,16 +179,46 @@ class AdwiseCore(StepCore):
         )
 
 
+class StreamResidency:
+    """Cross-pass device residency for resident sources.
+
+    A re-streaming caller creates one holder and passes it to every pass:
+    pass p publishes its uploaded device stream here and pass p+1 reuses it,
+    shipping only its new prev table. Residency is keyed by the stream's
+    shape, as in the JAX package. Caller contract: every pass streams the
+    SAME edges — only the shape is cheap to verify, so a holder is never
+    shared across different streams.
+    """
+
+    __slots__ = ("_by_shape",)
+
+    def __init__(self) -> None:
+        self._by_shape: dict[Tuple[int, ...], torch.Tensor] = {}
+
+    def publish(self, streams: torch.Tensor, shape: Tuple[int, ...]) -> None:
+        self._by_shape[tuple(shape)] = streams
+
+    def lookup(self, shape: Tuple[int, ...]) -> Optional[torch.Tensor]:
+        return self._by_shape.get(tuple(shape))
+
+
 class ResidentSource:
     """Whole stream resident on the device: ONE upload for the entire run.
 
     ``streams`` is (z, per, 2) int32 with z = 1 in this slice; ``m_per[0]``
-    is the real stream length.
+    is the real stream length. ``residency`` lets re-streaming passes over
+    the same stream reuse the previous pass's device stream.
     """
 
     resident = True
 
-    def __init__(self, streams: np.ndarray, m_per: np.ndarray) -> None:
+    def __init__(
+        self,
+        streams: np.ndarray,
+        m_per: np.ndarray,
+        *,
+        residency: Optional[StreamResidency] = None,
+    ) -> None:
         streams = np.ascontiguousarray(streams, np.int32)
         if streams.ndim != 3 or streams.shape[2] != 2:
             raise ValueError(f"streams must be (z, per, 2), got {streams.shape}")
@@ -178,6 +232,7 @@ class ResidentSource:
         if self.m_per.shape != (self.z,) or (self.m_per > self.per).any():
             raise ValueError(f"m_per {self.m_per} does not fit streams {streams.shape}")
         self.streams = streams
+        self.residency = residency
 
     @property
     def upload_rows(self) -> int:
@@ -218,6 +273,7 @@ class ScanDriver:
         num_vertices: Optional[int] = None,
         *,
         allowed: Optional[np.ndarray] = None,  # (z, k) bool
+        warm: Optional[Sequence[WarmState]] = None,  # one per instance
         cost_per_score: Optional[float] = None,
         device=None,
     ) -> None:
@@ -226,7 +282,8 @@ class ScanDriver:
             if num_vertices is None:
                 raise ValueError("an AdwiseConfig core needs num_vertices")
             self.cfg: Optional[AdwiseConfig] = core
-            core = AdwiseCore(cfg=core, num_vertices=num_vertices)
+            core = AdwiseCore(cfg=core, num_vertices=num_vertices,
+                              update_deg=warm is None)
         else:
             self.cfg = getattr(core, "cfg", None)
         self.source = source
@@ -245,7 +302,24 @@ class ScanDriver:
         self.has_budget = bool(core.has_budget)
         budget = (self.cfg.latency_budget or 0.0) if self.has_budget and self.cfg else 0.0
         dev = self.device
-        self.carry = core.init_carry(budget, dev)
+        self.warm = warm is not None
+        # The prior-assignment table every resident pass ships: -1 = none.
+        self._prev_np = np.full((source.per,), -1, np.int32)
+        if warm is None:
+            self.carry = core.init_carry(budget, dev)
+        else:
+            if len(warm) != self.z:
+                raise ValueError(f"need one WarmState per instance, got {len(warm)}")
+            pa = warm[0].prev_assign
+            if pa is not None:
+                pa = np.asarray(pa, np.int32)
+                if pa.shape != (int(self.m_per[0]),):
+                    raise ValueError(
+                        f"prev_assign must align with the stream: {pa.shape} vs "
+                        f"({int(self.m_per[0])},)"
+                    )
+                self._prev_np[: len(pa)] = pa
+            self.carry = core.warm_carry(budget, warm[0], dev)
         self.fixed_cost = cost_per_score is not None
         if cost_per_score is not None:
             core.set_cost(self.carry, cost_per_score)
@@ -270,10 +344,21 @@ class ScanDriver:
         n_chunks = -(-steps_total // chunk_steps)
 
         t0 = time.perf_counter()
-        stream = torch.as_tensor(src.streams[0], device=dev)
-        h2d_rows = src.upload_rows
-        h2d_bytes = src.upload_rows * 8  # the stream; a cold pass ships no prev table
-        step = core.make_step(stream, self._m_real, self._allowed, self._cap, None)
+        residency = src.residency
+        stream = residency.lookup(src.streams.shape) if residency is not None else None
+        if stream is not None:
+            # The previous pass left the stream on the device: only the new
+            # prev table ships.
+            h2d_rows = 0
+            h2d_bytes = self._prev_np.size * 4
+        else:
+            stream = torch.as_tensor(src.streams[0], device=dev)
+            h2d_rows = src.upload_rows
+            h2d_bytes = src.upload_rows * 8 + self._prev_np.size * 4
+        if residency is not None:
+            residency.publish(stream, src.streams.shape)
+        prev = torch.as_tensor(self._prev_np, device=dev)
+        step = core.make_step(stream, self._m_real, self._allowed, self._cap, prev)
         carry = self.carry
         out = StepOut.empty(chunk_steps, b, dev)
         if dev.type == "cuda":
@@ -340,7 +425,7 @@ class ScanDriver:
             final_w=int(res.final_w[instance]),
             lam_final=float(res.lam[instance]),
             assigned=int(res.assigned[instance]),
-            warm=False,
+            warm=self.warm,
             r_sel=res.r_sel,
             modeled_cost_per_score=float(res.cost_per_score[instance]),
             scan_calls=res.scan_calls,

@@ -5,16 +5,18 @@ Every strategy is registered under the JAX package's uniform signature:
     fn(edges, num_vertices, k, seed=0, **cfg) -> PartitionResult
 
 with the same errors: an unknown ``**cfg`` key raises ``TypeError``, an
-unknown name raises ``KeyError`` listing the available names. This slice
-registers ``adwise`` (the torch scan; ``oracle=True`` runs the copied
-sequential Algorithm-1 reference) and the stateless ``hash``, ``dbh`` and
-``grid``. HDRF, Greedy, 2PS(-L) and ``adwise-restream`` are the next slices
-(ROADMAP.md, port queue 1).
+unknown name raises ``KeyError`` listing the available names. The nine
+strategies are the JAX package's: ``adwise`` (the torch scan;
+``oracle=True`` runs the copied sequential Algorithm-1 reference), the
+stateless ``hash``, ``dbh`` and ``grid``, the step-cores ``hdrf`` and
+``greedy`` (``scan=False`` runs their numpy oracles), and the multi-pass
+``adwise-restream``, ``2ps`` and ``2ps-l`` (``core/restream.py``, which
+registers them on import).
 
 ``device=`` (``"cuda"`` by default, see
 :func:`repro_torch.compat.resolve_device`) is resolved for every strategy,
 so asking for a missing card raises whichever strategy is named; the
-stateless hashes then compute on the host.
+stateless hashes and the numpy oracles then compute on the host.
 """
 from __future__ import annotations
 
@@ -110,9 +112,33 @@ def _adwise(
     )
 
 
+@register("hdrf")
+def _hdrf(edges, num_vertices, k, seed=0, *, device=None, scan=True, **cfg) -> PartitionResult:
+    """HDRF (Petroni et al.). Runs as the :class:`~repro_torch.core.baselines.
+    HdrfCore` step-core by default; ``scan=False`` runs the per-edge numpy
+    oracle (bit-identical — kept as the parity reference)."""
+    if scan:
+        return baselines.hdrf_partition_scan(
+            edges, num_vertices, k, seed=seed, device=device, **cfg
+        )
+    return baselines.hdrf_partition(edges, num_vertices, k, seed=seed, **cfg)
+
+
 @register("dbh")
 def _dbh(edges, num_vertices, k, seed=0, *, device=None, **cfg) -> PartitionResult:
     return baselines.dbh_partition(edges, num_vertices, k, seed=seed, **cfg)
+
+
+@register("greedy")
+def _greedy(edges, num_vertices, k, seed=0, *, device=None, scan=True, **cfg) -> PartitionResult:
+    """PowerGraph Greedy. Runs as the :class:`~repro_torch.core.baselines.
+    GreedyCore` step-core by default; ``scan=False`` runs the per-edge numpy
+    oracle (bit-identical parity reference)."""
+    if scan:
+        return baselines.greedy_partition_scan(
+            edges, num_vertices, k, seed=seed, device=device, **cfg
+        )
+    return baselines.greedy_partition(edges, num_vertices, k, seed=seed, **cfg)
 
 
 @register("hash")
@@ -123,3 +149,8 @@ def _hash(edges, num_vertices, k, seed=0, *, device=None, **cfg) -> PartitionRes
 @register("grid")
 def _grid(edges, num_vertices, k, seed=0, *, device=None, **cfg) -> PartitionResult:
     return baselines.grid_partition(edges, num_vertices, k, seed=seed, **cfg)
+
+
+# Multi-pass strategies register themselves on import (one-file entries).
+# Imported last: restream.py itself imports `register` from this module.
+from repro_torch.core import restream as _restream  # noqa: E402,F401

@@ -23,7 +23,7 @@ here as ``segment_sum_plain``; ``kernels.ops`` sends CPU tensors to it.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, NamedTuple
+from typing import Dict, List, NamedTuple
 
 import numpy as np
 import torch
@@ -125,12 +125,17 @@ class SegmentLayout(NamedTuple):
     counters: (M,) int32 — arrivals per crossing segment, 0 between calls.
     slots: width D -> (2, T, D) fp32 — the tiles' tail and head partials;
       the buffer of a width is made at the first call at that width.
+    stream: the stream of the first eager launch on the layout, once there
+      is one (a list of at most one ``torch.cuda.Stream``).
     num_segments, tile_items: S and the tile size, on the host.
 
     The counters and slots make the layout the kernel's scratch: calls on
     one layout must run one after another on one stream, as the engine's
-    do. Calls from two streams or threads at once, or a launch cut short
-    (which leaves a counter non-zero), give wrong sums without an error.
+    do. An eager call on another stream than the first raises. A call
+    captured into a CUDA graph runs on whichever stream replays the graph,
+    so the check does not apply to capture; replays of graphs over one
+    layout, and a launch cut short (which leaves a counter non-zero), stay
+    the caller's to keep apart.
     """
 
     seg_ids: torch.Tensor
@@ -139,6 +144,7 @@ class SegmentLayout(NamedTuple):
     cross: torch.Tensor
     counters: torch.Tensor
     slots: Dict[int, torch.Tensor]
+    stream: List[torch.cuda.Stream]
     num_segments: int
     tile_items: int
 
@@ -202,7 +208,7 @@ def segment_layout(
     return SegmentLayout(
         seg_ids=put(seg_ids), offsets=put(offs), tiles=put(tiles), cross=put(cross),
         counters=torch.zeros(len(cross), dtype=torch.int32, device=device), slots={},
-        num_segments=int(num_segments), tile_items=int(tile_items),
+        stream=[], num_segments=int(num_segments), tile_items=int(tile_items),
     )
 
 
@@ -244,8 +250,19 @@ def segment_sum(data: torch.Tensor, layout: SegmentLayout) -> torch.Tensor:
     if slots is None:
         slots = layout.slots[d] = torch.empty(
             (2, layout.num_tiles, d), dtype=torch.float32, device=dev)
+    capturing = torch.cuda.is_current_stream_capturing()
+    current = torch.cuda.current_stream(dev)
+    if not capturing:
+        if not layout.stream:
+            layout.stream.append(current)
+        elif layout.stream[0] != current:
+            raise RuntimeError(
+                "segment_sum: the layout is the kernel's scratch and was first "
+                f"used on {layout.stream[0]}; this call is on {current}. Build "
+                "one layout per stream."
+            )
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        stream = current.cuda_stream
         err = _launcher()(
             data.data_ptr(), _DTYPES[data.dtype], e, d, layout.offsets.data_ptr(),
             layout.tiles.data_ptr(), layout.num_tiles, layout.cross.data_ptr(),
@@ -253,7 +270,7 @@ def segment_sum(data: torch.Tensor, layout: SegmentLayout) -> torch.Tensor:
         )
     if err != 0:
         raise RuntimeError(f"segment_sum: kernel launch failed (cudaError {err})")
-    if torch.cuda.is_current_stream_capturing():
+    if capturing:
         CAPTURED += 1
     else:
         LAUNCHES += 1

@@ -11,8 +11,7 @@ latency), printing the same lines as the JAX package's
 
 What this slice does not port exits with a message that names its
 ROADMAP.md item, and never falls through to something else: ``--z``/
-``--parallel`` > 1 (spotlight), a graph file path (out-of-core), and the
-strategies still to be ported.
+``--parallel`` > 1 (spotlight) and a graph file path (out-of-core).
 """
 from __future__ import annotations
 
@@ -40,15 +39,8 @@ from repro_torch.graph import (
     unassigned_count,
 )
 
-# Strategies of the JAX package this slice has not ported, with their
-# ROADMAP.md item (port queue 1).
-_NOT_PORTED = {
-    "hdrf": "item 7 (HDRF/Greedy step-cores)",
-    "greedy": "item 7 (HDRF/Greedy step-cores)",
-    "adwise-restream": "item 9 (re-streaming)",
-    "2ps": "item 9 (re-streaming)",
-    "2ps-l": "item 9 (re-streaming)",
-}
+# Strategies that take AdwiseConfig-style knobs from the CLI.
+_ADWISE_LIKE = ("adwise", "adwise-restream", "2ps")
 
 
 def _unported(what: str, item: str) -> SystemExit:
@@ -72,6 +64,11 @@ def main(argv=None):
     ap.add_argument("--window-max", type=int, default=256)
     ap.add_argument("--no-cs", action="store_true", help="disable clustering score")
     ap.add_argument("--oracle", action="store_true", help="sequential reference impl")
+    ap.add_argument("--passes", type=int, default=2,
+                    help="re-streaming passes (adwise-restream)")
+    ap.add_argument("--eps", type=float, default=None,
+                    help="adwise-restream early stop: stop once a pass improves "
+                         "RD by less than this (default: run every pass)")
     ap.add_argument("--workload", default="pagerank",
                     choices=["pagerank", "coloring", "wcc", "triangles", "none"])
     ap.add_argument("--iters", type=int, default=100)
@@ -86,8 +83,6 @@ def main(argv=None):
         if os.path.exists(args.graph):
             raise _unported("partitioning a graph file", "item 10 (out-of-core)")
         ap.error(f"unknown graph preset {args.graph!r}; presets: {', '.join(GRAPH_PRESETS)}")
-    if args.strategy in _NOT_PORTED:
-        raise _unported(f"strategy {args.strategy!r}", _NOT_PORTED[args.strategy])
     if args.strategy not in available_strategies():
         ap.error(f"unknown strategy {args.strategy!r}; "
                  f"available: {', '.join(available_strategies())}")
@@ -95,9 +90,15 @@ def main(argv=None):
     edges, n = make_graph(args.graph, seed=args.seed, scale=args.scale)
     print(f"graph={args.graph} |V|={n} |E|={len(edges)} k={args.k}")
     cfg = {}
-    if args.strategy == "adwise":
+    if args.strategy in _ADWISE_LIKE:
         cfg = dict(window_max=args.window_max, latency_budget=args.budget,
-                   use_clustering=not args.no_cs, oracle=args.oracle)
+                   use_clustering=not args.no_cs)
+    if args.strategy == "adwise":
+        cfg["oracle"] = args.oracle
+    elif args.strategy == "adwise-restream":
+        cfg["passes"] = args.passes
+        if args.eps is not None:
+            cfg["eps"] = args.eps
     res = run_partitioner(args.strategy, edges, n, args.k, seed=args.seed,
                           device=args.device, **cfg)
     n_unassigned = unassigned_count(res.assign)

@@ -65,7 +65,7 @@ def _pair(kw, allowed=None):
     tstep = _make_step(
         tcfg, n, r_sel, torch.as_tensor(edges), torch.tensor(m, dtype=torch.int32),
         torch.as_tensor(allowed), torch.tensor(cap, dtype=torch.int32),
-        has_budget, None, True,
+        has_budget, torch.full((m,), -1, dtype=torch.int32), True,
     )
     carry = jax_init_carry(jcfg, n, jcfg.latency_budget or 0.0)
     carry = carry._replace(cost_per_score=jnp.float32(3e-7))

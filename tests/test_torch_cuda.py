@@ -1,5 +1,6 @@
 """The port on the card: each CUDA kernel against its plain torch version,
-the CUDA-graph scan driver against the plain CPU loop, and the dense LM on
+the CUDA-graph scan driver against the plain CPU loop (ADWISE, the HDRF,
+Greedy, 2PS-L and clustering step-cores, warm passes), and the dense LM on
 the card against its CPU path.
 
 Every test here needs a CUDA device; without one it skips. This file
@@ -13,7 +14,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.core import AdwiseConfig, driver, partition_stream
+from repro_torch.core import AdwiseConfig, driver, partition_stream, registry, restream
 from repro_torch.engine import build_partitioned_graph, pagerank
 from repro_torch.graph import make_graph
 from repro_torch.kernels import flash_attention as fa
@@ -236,6 +237,28 @@ def test_segment_sum_kernel_widths_alternate_on_one_layout(cuda):
         assert int(lay.counters.abs().sum()) == 0
 
 
+def test_segment_sum_layout_refuses_a_second_stream(cuda):
+    # The layout is the kernel's scratch: an eager call on another stream
+    # than its first raises, and the first stream's calls go on unharmed.
+    seg, lay = _runs_layout(SS_RUNS["hub"] * 3, cuda)
+    x = torch.ones((len(seg), 1), device=cuda)
+    want = ops.segment_sum_sorted(x, lay)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        with pytest.raises(RuntimeError, match="first used on"):
+            ops.segment_sum_sorted(x, lay)
+    torch.cuda.current_stream().wait_stream(side)
+    assert torch.equal(ops.segment_sum_sorted(x, lay), want)
+    assert int(lay.counters.abs().sum()) == 0
+    # A fresh layout may live on the side stream.
+    with torch.cuda.stream(side):
+        other = segment_layout(seg, lay.num_segments, cuda)
+        got = ops.segment_sum_sorted(x, other)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("d", [1, 5, 256, 300])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
 def test_segment_sum_is_one_kernel_per_call(cuda, d, dtype):
@@ -282,6 +305,70 @@ def test_graph_replayed_scan_equals_cpu_loop(cuda, steps_per_graph, monkeypatch)
     np.testing.assert_array_equal(gpu.stats["w_trace"], cpu.stats["w_trace"])
     assert gpu.stats["score_rows"] == cpu.stats["score_rows"]
     assert launches == gpu.stats["steps_run"] + gpu.stats["warmup_steps"]
+
+
+@pytest.mark.parametrize("steps_per_graph", [1, 7, 32])
+@pytest.mark.parametrize("name,cfg", [
+    ("hdrf", dict(seed=3)),
+    ("hdrf", dict(seed=2**32 - 1, lam=1.5, allowed=np.array([1, 0, 1, 1, 0, 1], bool))),
+    ("greedy", {}),
+    ("greedy", dict(allowed=np.array([0, 1, 1, 0, 1, 1], bool))),
+    ("2ps-l", {}),
+    ("2ps-l", dict(cap_slack=1.3, allowed=np.array([1, 1, 0, 1, 0, 1], bool))),
+])
+def test_single_edge_cores_captured_equal_cpu(cuda, name, cfg, steps_per_graph, monkeypatch):
+    # The captured step-cores on the card against the same code's CPU loop,
+    # and against their numpy oracles (2PS-L's clustering phase included).
+    monkeypatch.setattr(driver, "STEPS_PER_GRAPH", steps_per_graph)
+    edges, n = make_graph("tiny_clustered", seed=1, scale=0.2)
+    edges = np.concatenate([edges, edges[:7], np.stack([edges[:9, 0]] * 2, 1)])  # dups, loops
+    gpu = registry.run_partitioner(name, edges, n, 6, device=cuda, **cfg)
+    cpu = registry.run_partitioner(name, edges, n, 6, device="cpu", **cfg)
+    oracle = registry.run_partitioner(name, edges, n, 6, device="cpu", scan=False, **cfg)
+    np.testing.assert_array_equal(gpu.assign, cpu.assign)
+    np.testing.assert_array_equal(gpu.assign, oracle.assign)
+    for key in ("score_rows", "h2d_rows", "h2d_bytes", "warm", "scan_calls"):
+        assert gpu.stats[key] == cpu.stats[key], key
+
+
+@pytest.mark.parametrize("steps_per_graph", [1, 32])
+def test_clustering_captured_equals_numpy_oracle(cuda, steps_per_graph, monkeypatch):
+    monkeypatch.setattr(driver, "STEPS_PER_GRAPH", steps_per_graph)
+    edges, n = make_graph("tiny_social", seed=2, scale=0.5)
+    for slack in (1.25, 0.2):
+        got = restream.streaming_vertex_clustering(edges, n, 8, cluster_slack=slack, device=cuda)
+        want = restream.streaming_vertex_clustering_np(edges, n, 8, cluster_slack=slack)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+    deg = restream._degrees(edges, n)
+    state = restream.VertexClusteringState(n, 8, len(edges), deg, chunk_edges=333, device=cuda)
+    for i in range(0, len(edges), 333):
+        state.update(edges[i:i + 333])
+    for a, b in zip(state.finalize(), restream.streaming_vertex_clustering_np(edges, n, 8)):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("name,cfg", [
+    ("adwise-restream", dict(passes=3, window_max=32, lazy=False)),
+    ("adwise-restream", dict(passes=2, base="greedy", window_max=16, lazy=False)),
+    ("2ps", dict(lazy=False)),
+])
+def test_warm_passes_captured_equal_cpu(cuda, name, cfg):
+    # Warm-started ADWISE passes (revocation through the prev table, a shared
+    # StreamResidency) on the card against the CPU loop; non-lazy, so the
+    # order-dependent Θ sum does not enter.
+    edges, n = make_graph("tiny_clustered", seed=1, scale=0.2)
+    before = ops.launch_counts()["window_score"]
+    gpu = registry.run_partitioner(name, edges, n, 4, device=cuda, **cfg)
+    launches = ops.launch_counts()["window_score"] - before
+    cpu = registry.run_partitioner(name, edges, n, 4, device="cpu", **cfg)
+    np.testing.assert_array_equal(gpu.assign, cpu.assign)
+    for key in ("score_rows", "h2d_rows", "h2d_bytes", "warm"):
+        assert gpu.stats[key] == cpu.stats[key], key
+    if name == "adwise-restream":
+        assert gpu.stats["pass_rd"] == cpu.stats["pass_rd"]
+        adwise_passes = gpu.stats["pass_steps"][0 if cfg.get("base", "adwise") == "adwise" else 1:]
+        assert launches == sum(adwise_passes) and gpu.stats["pass_steps"][-1] > 0
 
 
 def test_pagerank_on_the_card_matches_cpu(cuda):

@@ -155,8 +155,6 @@ def test_launch_prints_the_jax_lines(capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--strategy", "hdrf"], "item 7"),
-    (["--strategy", "2ps"], "item 9"),
     (["--z", "4"], "item 8"),
     (["--graph", __file__], "item 10"),
 ])
@@ -165,6 +163,24 @@ def test_launch_names_the_roadmap_item_for_unported_paths(argv, item):
 
     with pytest.raises(SystemExit, match=f"ROADMAP.md, port queue 1, {item}"):
         port_main(argv + ["--device", "cpu"])
+
+
+@pytest.mark.parametrize("strategy", ["hdrf", "greedy", "adwise-restream", "2ps", "2ps-l"])
+def test_launch_runs_the_comparison_set_like_jax(strategy, capsys):
+    from repro.launch.partition import main as jax_main
+    from repro_torch.launch.partition import main as port_main
+
+    argv = ["--graph", "tiny_clustered", "--scale", "0.1", "--k", "4", "--window-max", "16",
+            "--strategy", strategy, "--workload", "none"]
+    jax_main(argv)
+    jax_lines = capsys.readouterr().out.splitlines()
+    port_out = port_main(argv + ["--device", "cpu"])
+    port_lines = capsys.readouterr().out.splitlines()
+    assert jax_lines[0] == port_lines[0]
+    jp, pp = _fields(jax_lines[1]), _fields(port_lines[1])
+    for key in ("partitioner", "RD", "imbalance", "unassigned"):
+        assert pp[key] == jp[key], key
+    assert port_out["strategy"] == strategy and port_out["unassigned"] == 0
 
 
 @pytest.mark.parametrize("workload", ["coloring", "wcc", "triangles", "none"])

@@ -61,6 +61,7 @@ def test_every_module_imports_with_jax_and_repro_blocked():
 ROOT = SRC.parent
 CHIP_SCRIPTS = [
     "chip_smoke.py", "tools/time_flash_attention.py", "tools/time_segment_sum.py",
+    "tools/time_partition.py",
 ]
 
 
