@@ -72,7 +72,26 @@ Phases (any failure exits non-zero, and no result line is printed):
    busy time per edge of each single-edge core (profiler, the difference of
    two runs).
 
-The kernels' ``launches`` are those of phases 2, 6 and 8 (each path's
+9. Spotlight and tracing: (a) ``adwise`` on brain_like at scale 1.0 with
+   z = 8 instances on disjoint blocks of 4 of the k = 32 partitions
+   (spread k/z), W = 256, one batched step for all instances — one
+   ``window_score`` launch per step — then 30 pagerank supersteps on its
+   partition (launch counts zeroed just before and read just after), its
+   RD beside phase 2's z = 1 RD, ``hdrf`` and ``dbh`` at the same z and
+   spread, and the profiler's kernels and busy µs per step at z = 8
+   (phase 4 has z = 1); (b) ``benchmarks/bench_spotlight.py``'s sweep (scale 0.12, z = 8,
+   spreads 32/16/8/4, dbh/hdrf/adwise at W = 128), every edge inside its
+   instance's spread; (c) batched against the loop backend bit for bit on
+   the card for adwise, hdrf, greedy, 2ps, 2ps-l and adwise-restream (scale
+   0.02, z = 4, spread 8), and a skewed batch of two length buckets
+   against z = 1 runs; (d) the batched card against the batched CPU path
+   (scale 0.005, non-lazy where the phase-3 rule asks); (e) a traced
+   ``adwise-restream`` run at scale 0.08 equal to phase 8's untraced run,
+   its Chrome trace export (``build/chip_smoke/trace.json``)
+   validated, one scan span per scan call, two pass lanes, 30 superstep
+   spans.
+
+The kernels' ``launches`` are those of phases 2, 6, 8 and 9 (each path's
 counts zeroed just before it and read just after). Then one JSON line with
 every kernel's numbers, and, last, the
 ``{"ok": true, "device": ...}`` line. It imports nothing of JAX and nothing
@@ -308,6 +327,42 @@ def phase_kernels(edges, n):
                 bit_equal=bit_equal, launch_floor_ms=floor,
             )
 
+    # The batched row op at the spotlight path's shape: z = 8 instances,
+    # each a window of its own eighth of the brain_like stream over its own
+    # 40,001-row table, in one launch — bit-equal to the batched plain
+    # version and to eight z = 1 launches.
+    z = 8
+    per = -(-len(edges) // z)
+    parts = [ws_table_inputs(w, k, n, 7 + i, uv=edges[i * per + 1000:i * per + 1000 + w])
+             for i in range(z)]
+    tb = [T(np.stack(x)) for x in zip(*parts)]
+    mdz = T(np.full(z, 40, np.int32))
+    rows_z = T(np.stack([np.roll(rows_np, i) for i in range(z)]))
+    got = ops.window_score_rows_batched(*tb, mdz, rows_z)
+    want = ref.window_score_rows_batched_ref(*tb, mdz, rows_z)
+    singles = torch.stack([ops.window_score_rows(*(x[i] for x in tb), mdz[i], rows_z[i])
+                           for i in range(z)])
+    torch.cuda.synchronize()
+    bit_equal = torch.equal(got.view(torch.int32), want.view(torch.int32))
+    check(bit_equal, "window_score rows z=8: bit-equal to the batched plain version")
+    check(torch.equal(got.view(torch.int32), singles.view(torch.int32)),
+          "window_score rows z=8: bit-equal to eight z = 1 launches")
+    ms_z = cuda_ms(lambda: ops.window_score_rows_batched(*tb, mdz, rows_z), iters=200)
+    plain_z = cuda_ms(lambda: ref.window_score_rows_batched_ref(*tb, mdz, rows_z), iters=50)
+    floor_z = cuda_ms(lambda: ws_mod.launch_floor(r * z), iters=200)
+    b = o = 0
+    for i in range(z):
+        bi, oi = ws_work(parts[i][0], parts[i][1], np.roll(rows_np, i), k, True)
+        b, o = b + bi, o + oi
+    bms_z, by_z = bound(b, o)
+    log(f"kernel window_score rows z={z} x R={r} W={w} K={k} (brain_like windows, tables "
+        f"{z} x {n + 1} rows): max_abs_err={(got - want).abs().max().item()} bit_equal={bit_equal} "
+        f"ms={ms_z:.5f} (z=1: {rows_out['window_score']['ms']:.5f}) launch_floor_ms={floor_z:.5f} "
+        f"plain_ms={plain_z:.5f} bound_ms={bms_z:.3g} ({by_z})")
+    rows_out["window_score"].update(batched_z8_ms=ms_z, batched_z8_plain_ms=plain_z,
+                                    batched_z8_bound_ms=bms_z)
+    del tb, got, want, singles
+
     # segment_sum at the main path's message layout (E = 2m, S = V).
     dst = np.concatenate([edges[:, 1], edges[:, 0]])
     seg = np.sort(dst, kind="stable").astype(np.int32)
@@ -535,7 +590,7 @@ def phase_main_path(edges, n, k, window_max):
         check(np.isfinite(row["t_total_s"]) and row["t_total_s"] > 0, f"{name}: total latency finite")
         log(f"brain_like,pagerank_300,{name},,{row['t_partition_s']:.3f},"
             f"{row['t_process_s']:.3f},{row['t_total_s']:.3f},{row['replication_degree']:.3f}")
-    return counts
+    return counts, rd
 
 
 # ----------------------------------------------------------------------------
@@ -717,6 +772,7 @@ def phase_comparison(edges_full, n_full, k):
     before = ops.launch_counts()["window_score"]
     res = registry.run_partitioner("adwise-restream", edges, n, k, device="cuda", **RESTREAM_CFG)
     ws = ops.launch_counts()["window_score"] - before
+    restream_res = res
     st = res.stats
     check(ws == sum(st["pass_steps"]) and st["pass_steps"][1] > 0,
           "adwise-restream: one window_score launch per step of each pass, pass 2 included")
@@ -765,7 +821,226 @@ def phase_comparison(edges_full, n_full, k):
         what = "cluster step + 2ps-l step" if name == "2ps-l" else "step"
         log(f"comparison profile {name}: kernels_per_edge={kern:.1f} device_busy_us_per_edge={busy:.2f} "
             f"(one {what} per edge; profiled, graph replays)")
+    return counts, restream_res
+
+
+# ----------------------------------------------------------------------------
+# Phase 9: spotlight (z instances in one batched step) and tracing
+# ----------------------------------------------------------------------------
+
+SPOT_Z, SPOT_SPREAD = 8, 4  # k/z: disjoint blocks, the paper's recommendation
+
+
+def spread_ok(assign, m, k, z, spread):
+    """Every edge's partition lies in its instance's spread mask."""
+    import numpy as np
+
+    from repro_torch.core import spread_mask
+    from repro_torch.graph import EdgeStream
+
+    bounds = EdgeStream.split_bounds(m, z)
+    return all(
+        np.isin(assign[bounds[i]:bounds[i + 1]], np.flatnonzero(spread_mask(k, z, i, spread))).all()
+        for i in range(z)
+    )
+
+
+def phase_spotlight(edges, n, k, window_max, rd_z1):
+    """(a) the spotlight path at full width: ADWISE with z = 8 instances on
+    blocks of 4 partitions, one batched step each, then pagerank on its
+    partition (the path whose launches are counted); hdrf and dbh at the
+    same z and spread. ``rd_z1`` is phase 2's RD at z = 1. Returns the
+    launch counts of (a)'s ADWISE path."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import AdwiseConfig, spotlight_partition
+    from repro_torch.engine import build_partitioned_graph, pagerank
+    from repro_torch.graph import make_graph, replica_sets_from_assignment, replication_degree
+    from repro_torch.kernels import device_kernels, ops
+
+    m = len(edges)
+    z, spread = SPOT_Z, SPOT_SPREAD
+    cfg = AdwiseConfig(k=k, window_max=window_max)
+    ops.reset_launch_counts()
+    res = spotlight_partition(edges, n, k, z=z, spread=spread, strategy="adwise", cfg=cfg,
+                              device="cuda")
+    torch.cuda.synchronize()
+    ws = ops.launch_counts()["window_score"]
+    st = res.stats
+    check((res.assign >= 0).all() and (res.assign < k).all(), "spotlight adwise: every edge assigned")
+    check(spread_ok(res.assign, m, k, z, spread), "spotlight adwise: every edge inside its instance's spread")
+    check(st["backend"] == "vmap" and st["n_buckets"] == 1, "spotlight adwise: one batched scan")
+    check(ws == st["steps_run"] + st["warmup_steps"],
+          f"spotlight adwise: one window_score launch per batched step ({ws} launches, "
+          f"{st['steps_run']} + {st['warmup_steps']} steps)")
+    rd = replication_degree(replica_sets_from_assignment(edges, res.assign, n, k))
+    loop_s = st["wall_time_s"] - st["setup_s"]
+    g = build_partitioned_graph(edges, res.assign, n, k, device="cuda")
+    pr, _ = pagerank(g, iters=30)
+    counts = ops.launch_counts()
+    check(np.isfinite(pr).all() and counts["segment_sum"] == 30,
+          "spotlight adwise: pagerank finite, 30 segment_sum launches")
+    log(f"spotlight adwise z={z} spread={spread} (brain_like 1.0, m={m}, k={k}, W={window_max}): "
+        f"RD={rd:.4f} (z=1, phase 2: {rd_z1:.4f}) wall_s={st['wall_time_s']:.3f} "
+        f"setup_s={st['setup_s']:.3f} steps={st['steps_run']} "
+        f"us_per_step={loop_s / st['steps_run'] * 1e6:.2f} scan_calls={st['scan_calls']} "
+        f"window_score_launches={ws} h2d_bytes={st['h2d_bytes']}")
+    for name in ("hdrf", "dbh"):
+        r = spotlight_partition(edges, n, k, z=z, spread=spread, strategy=name, device="cuda")
+        check(spread_ok(r.assign, m, k, z, spread), f"spotlight {name}: every edge inside its spread")
+        rdn = replication_degree(replica_sets_from_assignment(edges, r.assign, n, k))
+        extra = ""
+        if "steps_run" in r.stats:
+            ls = r.stats["wall_time_s"] - r.stats["setup_s"]
+            extra = (f" steps={r.stats['steps_run']} "
+                     f"us_per_step={ls / r.stats['steps_run'] * 1e6:.2f}")
+        log(f"spotlight {name} z={z} spread={spread}: RD={rdn:.4f} "
+            f"wall_s={r.stats['wall_time_s']:.3f}{extra}")
+
+    # Kernels and busy µs per batched step (profiler) at z = 8, 400 edges per
+    # instance: the step shapes of phase 4's z = 1 profile (W = 256, K = 32).
+    small, n_small = make_graph("brain_like", seed=0, scale=0.02)
+    sub = small[: 400 * z]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        r = spotlight_partition(sub, n_small, k, z=z, spread=spread, strategy="adwise",
+                                cfg=cfg, device="cuda")
+        torch.cuda.synchronize()
+    kern = device_kernels(prof)
+    steps = r.stats["steps_run"] + r.stats["warmup_steps"]
+    if kern:
+        log(f"spotlight profile z={z}: m={len(sub)} steps={steps} "
+            f"kernels_per_step={sum(e.count for e in kern) / steps:.1f} "
+            f"device_busy_us_per_step={sum(e.self_device_time_total for e in kern) / steps:.2f}")
+        for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
+            log(f"spotlight profile kernel {e.key[:90]}: {e.count / steps:.2f} per step, "
+                f"{e.self_device_time_total / steps:.3f} us per step")
     return counts
+
+
+def phase_spotlight_sweep(k):
+    """(b) benchmarks/bench_spotlight.py's sweep on the card."""
+    from repro_torch.core import AdwiseConfig, spotlight_partition
+    from repro_torch.graph import make_graph, replica_sets_from_assignment, replication_degree
+
+    edges, n = make_graph("brain_like", seed=0, scale=0.12)
+    z = SPOT_Z
+    log(f"spotlight sweep brain_like 0.12 (m={len(edges)}), k={k}, z={z}")
+    log("strategy,spread,RD,improvement_vs_full,wall_s")
+    for strategy in ("dbh", "hdrf", "adwise"):
+        full_rd = None
+        for spread in (k, k // 2, k // 4, k // z):
+            cfg = AdwiseConfig(k=k, window_max=128) if strategy == "adwise" else None
+            res = spotlight_partition(edges, n, k, z=z, spread=spread, strategy=strategy,
+                                      cfg=cfg, device="cuda")
+            check(spread_ok(res.assign, len(edges), k, z, spread),
+                  f"sweep {strategy} spread {spread}: every edge inside its spread")
+            rd = replication_degree(replica_sets_from_assignment(edges, res.assign, n, k))
+            full_rd = full_rd or rd
+            log(f"{strategy},{spread},{rd:.4f},{100 * (1 - rd / full_rd):.1f}%,"
+                f"{res.stats['wall_time_s']:.3f}")
+
+
+def phase_spotlight_parity(k):
+    """(c) the card's batched scan against its loop backend, bit for bit,
+    with a skewed batch of two length buckets; (d) the batched card
+    against the batched CPU path."""
+    import numpy as np
+
+    from repro_torch.core import AdwiseConfig, partition_stream, spotlight_partition
+    from repro_torch.core.adwise import partition_stream_batched
+    from repro_torch.graph import make_graph
+
+    cases = [
+        ("adwise", dict(cfg=AdwiseConfig(k=k, window_max=64))),
+        ("hdrf", {}), ("greedy", {}), ("2ps", {}), ("2ps-l", {}),
+        ("adwise-restream", dict(strategy_cfg=dict(passes=2, window_max=64, window_init=16))),
+    ]
+    edges, n = make_graph("brain_like", seed=0, scale=0.02)
+    for name, kw in cases:
+        a = spotlight_partition(edges, n, k, z=4, spread=8, strategy=name, device="cuda", **kw)
+        b = spotlight_partition(edges, n, k, z=4, spread=8, strategy=name, device="cuda",
+                                backend="loop", **kw)
+        check(np.array_equal(a.assign, b.assign),
+              f"spotlight {name} (brain_like 0.02, z=4): batched equals loop on the card")
+        log(f"spotlight parity {name}: batched wall_s={a.stats['wall_time_s']:.3f} "
+            f"loop max-instance wall_s={b.stats['wall_time_s']:.3f} "
+            f"loop serial wall_s={b.stats['wall_time_serial_s']:.3f}")
+    # Two length buckets: 3 instances of 300 edges, one of 3,000.
+    ms = [300, 300, 3000, 300]
+    streams = np.zeros((4, max(ms), 2), np.int32)
+    valid = np.zeros((4, max(ms)), bool)
+    start = 0
+    for i, mi in enumerate(ms):
+        streams[i, :mi] = edges[start:start + mi]
+        valid[i, :mi] = True
+        start += mi
+    cfg = AdwiseConfig(k=k, window_max=64)
+    got = partition_stream_batched(streams, valid, n, cfg, device="cuda")
+    check(got[0].stats["n_buckets"] == 2, "skewed batch: two length buckets")
+    for i, mi in enumerate(ms):
+        one = partition_stream(streams[i, :mi], n, cfg, device="cuda")
+        check(np.array_equal(one.assign, got[i].assign),
+              f"skewed batch instance {i} ({mi} edges): equals its z = 1 run on the card")
+
+    small, n_small = make_graph("brain_like", seed=0, scale=0.005)
+    nonlazy = dict(window_max=64, window_init=16, lazy=False)
+    cases = [
+        ("adwise", dict(cfg=AdwiseConfig(k=k, window_max=64))),
+        ("hdrf", {}), ("greedy", {}), ("2ps", dict(strategy_cfg=dict(lazy=False))),
+        ("2ps-l", {}), ("adwise-restream", dict(strategy_cfg=dict(nonlazy, passes=2))),
+    ]
+    for name, kw in cases:
+        a = spotlight_partition(small, n_small, k, z=4, spread=8, strategy=name, device="cuda", **kw)
+        b = spotlight_partition(small, n_small, k, z=4, spread=8, strategy=name, device="cpu", **kw)
+        check(np.array_equal(a.assign, b.assign),
+              f"spotlight {name} (brain_like 0.005, z=4): the batched card equals the batched CPU")
+
+
+def phase_tracing(k, untraced):
+    """(e) a traced adwise-restream run at the benchmark's scale, against
+    phase 8's untraced run of the same configuration (``untraced``); its
+    export validated; pagerank's supersteps on the same tracer."""
+    import json
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import restream
+    from repro_torch.engine import build_partitioned_graph, pagerank
+    from repro_torch.graph import make_graph
+    from repro_torch.obs import Tracer, validate_chrome_trace
+
+    edges, n = make_graph("brain_like", seed=0, scale=BENCH_SCALE)
+    cfg = dict(RESTREAM_CFG)
+    tr = Tracer()
+    res = restream.restream_partition(edges, n, k, trace=tr, device="cuda", **cfg)
+    torch.cuda.synchronize()
+    check(np.array_equal(res.assign, untraced.assign),
+          "traced adwise-restream equals the untraced run (phase 8) bit for bit")
+    g = build_partitioned_graph(edges, res.assign, n, k, device="cuda")
+    pagerank(g, iters=30, trace=tr)
+    out_dir = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "trace.json")
+    n_events = tr.export(path)
+    with open(path) as f:
+        problems = validate_chrome_trace(json.load(f))
+    check(problems == [], f"trace export validates ({problems[:3]})")
+    summ = tr.summary()
+    cats = summ.categories
+    check(cats["scan"]["count"] == sum(res.stats["pass_scan_calls"]),
+          "trace: one scan span per scan call")
+    lanes = sorted(t for t in summ.tracks if t.startswith("restream-pass-"))
+    check(lanes == ["restream-pass-1", "restream-pass-2"], f"trace: two restream-pass lanes ({lanes})")
+    check(cats["engine"]["count"] == 30, "trace: 30 superstep spans")
+    compiled = sum(bool(s.attrs.get("compiled")) for s in tr.spans if s.name == "scan-call")
+    log(f"tracing adwise-restream[2p] (brain_like {BENCH_SCALE}): traced wall_s="
+        f"{res.stats['wall_time_s']:.3f} untraced wall_s={untraced.stats['wall_time_s']:.3f} "
+        f"events={n_events} scan_spans={cats['scan']['count']} capture_spans={compiled} "
+        f"pass_spans={cats['pass']['count']} superstep_spans={cats['engine']['count']} "
+        f"(export {os.path.relpath(path, HERE)})")
 
 
 # ----------------------------------------------------------------------------
@@ -1087,7 +1362,7 @@ def main() -> int:
         kernel_rows = phase_kernels(edges, n)
         log(f"phase 1 (kernels vs plain): {time.perf_counter() - t0:.1f}s")
         t0 = time.perf_counter()
-        counts = phase_main_path(edges, n, k=32, window_max=256)
+        counts, rd_z1 = phase_main_path(edges, n, k=32, window_max=256)
         log(f"phase 2 (main path): {time.perf_counter() - t0:.1f}s launches={counts}")
         for name in ("window_score", "segment_sum"):
             check(counts[name] > 0, f"{name} launched on the main path")
@@ -1110,11 +1385,24 @@ def main() -> int:
         phase_lm_parity()
         log(f"phase 7 (LM cuda vs cpu): {time.perf_counter() - t0:.1f}s")
         t0 = time.perf_counter()
-        cmp_counts = phase_comparison(edges, n, k=32)
+        cmp_counts, restream_res = phase_comparison(edges, n, k=32)
         log(f"phase 8 (comparison set): {time.perf_counter() - t0:.1f}s launches={cmp_counts}")
         for name in ("window_score", "segment_sum"):
             check(cmp_counts[name] > 0, f"{name} launched on the comparison set's path")
             counts[name] += cmp_counts[name]
+        t0 = time.perf_counter()
+        spot_counts = phase_spotlight(edges, n, k=32, window_max=256, rd_z1=rd_z1)
+        t_a = time.perf_counter() - t0
+        phase_spotlight_sweep(k=32)
+        t_b = time.perf_counter() - t0 - t_a
+        phase_spotlight_parity(k=32)
+        t_cd = time.perf_counter() - t0 - t_a - t_b
+        phase_tracing(k=32, untraced=restream_res)
+        log(f"phase 9 (spotlight and tracing): {time.perf_counter() - t0:.1f}s "
+            f"(a {t_a:.1f}s, b {t_b:.1f}s, c+d {t_cd:.1f}s) launches={spot_counts}")
+        for name in ("window_score", "segment_sum"):
+            check(spot_counts[name] > 0, f"{name} launched on the spotlight path")
+            counts[name] += spot_counts[name]
         sources = {"window_score": ws_mod, "segment_sum": ss_mod, "flash_attention": fa_mod}
         kernels = []
         for name, row in kernel_rows.items():
@@ -1124,7 +1412,9 @@ def main() -> int:
                 max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
                 bound_ms=row["bound_ms"], bound_by=row["bound_by"],
                 library_ms=row["library_ms"], shape=row["shape"],
-                **{key: row[key] for key in ("body", "launch_floor_ms", "kernels_per_call")
+                **{key: row[key] for key in ("body", "launch_floor_ms", "kernels_per_call",
+                                             "batched_z8_ms", "batched_z8_plain_ms",
+                                             "batched_z8_bound_ms")
                    if key in row},
             ))
         log(f"checks passed: {len(CHECKS)}; total {time.perf_counter() - t_start:.1f}s")

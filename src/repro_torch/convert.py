@@ -50,7 +50,9 @@ _DTYPES = {
 
 def carry_from_numpy(fields: Dict[str, np.ndarray], device=None) -> Carry:
     """A port :class:`~repro_torch.core.adwise.Carry` on ``device`` from the
-    JAX ``Carry``'s fields (one instance, no batch axis) as numpy arrays."""
+    JAX ``Carry``'s fields (one instance, no batch axis) as numpy arrays.
+    The step advances a stack of instances: pass
+    ``stack_instances([carry])`` for a batch of one."""
     dev = compat.resolve_device(device)
     missing = set(Carry._fields) - set(fields)
     if missing:

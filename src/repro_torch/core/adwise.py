@@ -4,19 +4,34 @@ Port of the JAX package's ``core/adwise.py``. One loop iteration of the
 paper's Algorithm 1 (refill the window → rescore the stale rows → masked
 argmax over window × partitions → assign → adapt λ and the window) is one
 *step* on a fixed-shape carry. The JAX package scans a pure step with
-``lax.scan``; here the step updates the carry **in place** and writes its
-:class:`StepOut` row at a device-side step counter, so it issues no host
-sync and reads no tensor's value on the host. That makes it capturable: on
-the card the driver (:mod:`repro_torch.core.driver`) records a few steps in a
+``lax.scan`` and ``vmap``s it over a leading instance axis; here the step
+updates the carry **in place** and writes its :class:`StepOut` row at a
+device-side step counter, so it issues no host sync and reads no tensor's
+value on the host. That makes it capturable: on the card the driver
+(:mod:`repro_torch.core.driver`) records a few steps in a
 ``torch.cuda.CUDAGraph`` and replays it; on the CPU the same step runs in a
 plain loop.
 
-The lazily rescored rows (R + CS) go through the hand-written
-``window_score`` kernel (``kernels.ops.window_score_rows``) — the JAX step
-inlines that math. Everything else keeps the JAX step's operation order,
-so on the CPU every carry field is bit-equal to the JAX step's, except Θ,
-whose fp32 sum over the window may differ from XLA's summation order in the
-last bit (``tests/test_torch_adwise.py`` holds both).
+Every carry field carries a leading instance axis ``z``: one step advances
+all z instances (spotlight's parallel partitioner instances, §III-D) at
+once, with the same kernels as one instance — the (z, V+1, K) replica
+tables are scattered through their flattened ``(z·(V+1))`` row index
+``inst·(V+1) + v``, which keeps each instance's dump row V, and the sorts,
+reductions and the top-b argmax run along the instance rows. A single
+instance is the z = 1 case of the same step (:func:`partition_stream`), as
+in the JAX package; at z = 1 the offsets are zero and are not added.
+
+The lazily rescored rows (R + CS) of all instances go through one launch of
+the hand-written ``window_score`` kernel
+(``kernels.ops.window_score_rows_batched``) — the JAX step inlines that
+math. Everything else keeps the JAX step's operation order, so on the CPU
+every carry field is bit-equal to the JAX step's, except Θ: its sum over
+the window is taken in fp64 and rounded once to fp32, where the JAX step
+sums in fp32 in XLA's order (``tests/test_torch_adwise.py`` holds both to
+the W·2⁻²⁴ bound of an fp32 sum). The fp64 sum is exact at the step's
+values (0, or at least 1/(2W) and below 8, for W ≤ 4096: every partial sum
+fits in 53 bits), so Θ does not depend on the order of the adds — the same
+for every z, on either device, however the reduction is split.
 
 Two scatter dumps keep the shapes static, as in the JAX step: row V of the
 vertex tables, and row W (``window_max``) of the three lazy-traversal caches
@@ -25,7 +40,7 @@ carry, and :mod:`repro_torch.convert` adds / strips it).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -34,7 +49,17 @@ from repro_torch.core import scoring
 from repro_torch.core.types import AdwiseConfig, PartitionResult, WarmState
 from repro_torch.kernels import ops
 
-__all__ = ["partition_stream", "Carry", "StepOut", "WarmState"]
+__all__ = [
+    "partition_stream",
+    "partition_stream_batched",
+    "Carry",
+    "StepOut",
+    "WarmState",
+    "stack_instances",
+    "take_instance",
+    "instance_offsets",
+    "at_rows",
+]
 
 NEG_INF = scoring.NEG_INF
 _BIG_I32 = 2**31 - 1
@@ -43,6 +68,9 @@ _F32 = torch.float32
 
 
 class Carry(NamedTuple):
+    """One instance's carry (the shapes below); the step and the driver hold
+    z of them stacked on a leading instance axis (:func:`stack_instances`)."""
+
     # Vertex cache.
     replicas: torch.Tensor  # (V+1, K) bool — row V is a scatter dump
     rep_version: torch.Tensor  # (V+1,) int32
@@ -107,24 +135,48 @@ class Carry(NamedTuple):
 
 
 class StepOut(NamedTuple):
-    """Per-step outputs, one row per step, written at the device-side
-    counter ``t`` ((1,) int64) that each step advances."""
+    """Per-step outputs of z instances, one row per step, written at the
+    device-side counter ``t`` ((1,) int64) that each step advances."""
 
-    sidx: torch.Tensor  # (T, b) int32 — stream index assigned (-1 = none)
-    p: torch.Tensor  # (T, b) int32
-    w_cap: torch.Tensor  # (T,) int32
-    g_chosen: torch.Tensor  # (T,) f32 — best score of the step
+    sidx: torch.Tensor  # (T, z, b) int32 — stream index assigned (-1 = none)
+    p: torch.Tensor  # (T, z, b) int32
+    w_cap: torch.Tensor  # (T, z) int32
+    g_chosen: torch.Tensor  # (T, z) f32 — best score of the step
     t: torch.Tensor  # (1,) int64 — next row to write
 
     @classmethod
-    def empty(cls, n_steps: int, b: int, device: torch.device) -> "StepOut":
+    def empty(cls, n_steps: int, z: int, b: int, device: torch.device) -> "StepOut":
         return cls(
-            sidx=torch.full((n_steps, b), -1, dtype=_I32, device=device),
-            p=torch.zeros((n_steps, b), dtype=_I32, device=device),
-            w_cap=torch.zeros((n_steps,), dtype=_I32, device=device),
-            g_chosen=torch.zeros((n_steps,), dtype=_F32, device=device),
+            sidx=torch.full((n_steps, z, b), -1, dtype=_I32, device=device),
+            p=torch.zeros((n_steps, z, b), dtype=_I32, device=device),
+            w_cap=torch.zeros((n_steps, z), dtype=_I32, device=device),
+            g_chosen=torch.zeros((n_steps, z), dtype=_F32, device=device),
             t=torch.zeros((1,), dtype=torch.int64, device=device),
         )
+
+
+def stack_instances(carries: Sequence[NamedTuple]) -> NamedTuple:
+    """z per-instance carries (any NamedTuple of tensors) as one carry with
+    a leading instance axis; every field is a fresh tensor."""
+    first = carries[0]
+    return type(first)(*(torch.stack(xs) for xs in zip(*carries)))
+
+
+def take_instance(carry: NamedTuple, i: int) -> NamedTuple:
+    """Instance ``i`` of a stacked carry (views, no copy)."""
+    return type(carry)(*(t[i] for t in carry))
+
+
+def instance_offsets(z: int, n: int, device, dtype=torch.int32) -> Optional[torch.Tensor]:
+    """(z,) offsets ``i·n`` that turn row r of instance i's n-row table into
+    row ``i·n + r`` of the tables flattened over the instance axis; None at
+    z = 1, where there is nothing to add."""
+    return None if z == 1 else torch.arange(z, dtype=dtype, device=device) * n
+
+
+def at_rows(rows: torch.Tensor, off: Optional[torch.Tensor]) -> torch.Tensor:
+    """``rows`` (leading instance axis) as rows of the flattened tables."""
+    return rows if off is None else rows + off.view((-1,) + (1,) * (rows.dim() - 1))
 
 
 def _init_carry(
@@ -170,148 +222,173 @@ def _make_step(
     cfg: AdwiseConfig,
     num_vertices: int,
     r_sel: int,
-    stream: torch.Tensor,  # (m_pad, 2) int32
-    m_real: torch.Tensor,  # () int32
-    allowed: torch.Tensor,  # (K,) bool
-    cap: torch.Tensor,  # () int32 (BIG when disabled)
+    stream: torch.Tensor,  # (z, m_pad, 2) int32
+    m_real: torch.Tensor,  # (z,) int32
+    allowed: torch.Tensor,  # (z, K) bool
+    cap: torch.Tensor,  # (z,) int32 (BIG when disabled)
     has_budget: bool,
-    prev_assign: torch.Tensor,  # (m_pad,) int32 prior placements, -1 = none
+    prev_assign: torch.Tensor,  # (z, m_pad) int32 prior placements, -1 = none
     update_deg: bool,  # False on warm-started passes (degrees already final)
 ):
-    """Build the in-place step ``step(carry, out) -> None``.
+    """Build the in-place step ``step(carry, out) -> None`` over z instances.
 
     Every tensor the step reads besides the carry is bound here, once, so
     the addresses a captured CUDA graph records stay valid for the run.
     """
     w_max, k, b = cfg.window_max, cfg.k, cfg.assign_batch
-    v_dummy = num_vertices
-    m_pad = stream.shape[0]
+    z, m_pad = stream.shape[0], stream.shape[1]
+    v1 = num_vertices + 1
     dev = stream.device
     slot_ids = torch.arange(w_max, dtype=_I32, device=dev)
     key_fill = slot_ids  # priority class 0: fresh window entries
     key_cand = slot_ids + w_max  # class 1: stale candidates (cached score >= Θ)
     key_sec = slot_ids + 2 * w_max  # class 2: stale secondary edges
-    ones_w = torch.ones((w_max,), dtype=_I32, device=dev)
-    neg_ones_w = -ones_w
-    no_trigger = torch.zeros((), dtype=torch.bool, device=dev)
+    ones_w = torch.ones((z * w_max,), dtype=_I32, device=dev)
+    neg_ones_w = -ones_w.view(z, w_max)
+    no_trigger = torch.zeros((z,), dtype=torch.bool, device=dev)
     w_lo = max(1, b)
     use_cs = cfg.use_clustering
+    stream_rows = stream.reshape(z * m_pad, 2)
+    prev_rows = prev_assign.reshape(z * m_pad)
+    s_off = instance_offsets(z, m_pad, dev)  # stream rows
+    v_off = instance_offsets(z, v1, dev)  # vertex-table rows
+    k_off = instance_offsets(z, k, dev)  # partition loads
+    w_off = instance_offsets(z, w_max + 1, dev, torch.int64)  # lazy-cache slots
+    # Each instance's dump row V of the flattened vertex tables.
+    v_dump = num_vertices if v_off is None else (v_off + num_vertices)[:, None]
 
     def step(carry: Carry, out: StepOut) -> None:
+        deg_rows = carry.deg.view(z * v1)
+        sizes_rows = carry.sizes.view(z * k)  # becomes the net loads, then the new loads
+        rv_rows = carry.rep_version.view(z * v1)
+        rep_rows = carry.replicas.view(z * v1, k)
         # ---- 1) Refill invalid slots up to the logical window size w. ----
         need = (carry.w_cap - carry.n_valid).clamp(0, w_max)
         avail = (m_real - carry.cursor).clamp_min(0)
-        take = torch.minimum(need, avail)
+        take = torch.minimum(need, avail)[:, None]
         inv = ~carry.win_valid
-        rank = torch.cumsum(inv, 0, dtype=_I32) - 1
+        rank = torch.cumsum(inv, 1, dtype=_I32) - 1
         fill = inv & (rank < take)
-        src = carry.cursor + rank
-        src_c = src % m_pad  # floor mod, as JAX's `%`
-        fill_uv = stream[src_c]
-        win_uv = torch.where(fill[:, None], fill_uv, carry.win_uv)
+        src = carry.cursor[:, None] + rank
+        src_c = at_rows(src % m_pad, s_off)  # floor mod, as JAX's `%`
+        fill_uv = stream_rows.index_select(0, src_c.view(-1)).view(z, w_max, 2)
+        win_uv = torch.where(fill[..., None], fill_uv, carry.win_uv)
         win_sidx = torch.where(fill, src, carry.win_sidx)
         win_valid = carry.win_valid | fill
-        deg = carry.deg
         if update_deg:
-            u_f = torch.where(fill, fill_uv[:, 0], v_dummy)
-            v_f = torch.where(fill, fill_uv[:, 1], v_dummy)
-            deg.index_add_(0, u_f, ones_w)
-            deg.index_add_(0, v_f, ones_w)
-            seen = torch.where(fill, torch.maximum(deg[u_f], deg[v_f]), 0)
-            max_deg = torch.maximum(carry.max_deg, seen.max())
+            fill_g = at_rows(fill_uv, v_off)
+            u_f = torch.where(fill, fill_g[..., 0], v_dump).view(-1)
+            v_f = torch.where(fill, fill_g[..., 1], v_dump).view(-1)
+            deg_rows.index_add_(0, u_f, ones_w)
+            deg_rows.index_add_(0, v_f, ones_w)
+            seen = torch.where(
+                fill, torch.maximum(deg_rows[u_f], deg_rows[v_f]).view(z, w_max), 0
+            )
+            max_deg = torch.maximum(carry.max_deg, seen.amax(1))
         else:
             max_deg = carry.max_deg
-        sizes = carry.sizes  # becomes the net loads, then the new loads, in place
         # Buffered re-streaming revocation: release the prior placement of
         # an edge as it enters the window (all -1 on a cold pass).
-        pa = prev_assign[src_c]
+        pa = prev_rows.index_select(0, src_c.view(-1)).view(z, w_max)
         dec = fill & (pa >= 0)
-        sizes.index_add_(0, torch.where(dec, pa, 0), torch.where(dec, neg_ones_w, 0))
-        cursor = carry.cursor + take
-        n_valid = carry.n_valid + take
-        u = win_uv[:, 0]
-        v = win_uv[:, 1]
+        sizes_rows.index_add_(
+            0, at_rows(torch.where(dec, pa, 0), k_off).view(-1),
+            torch.where(dec, neg_ones_w, 0).view(-1),
+        )
+        sizes = carry.sizes
+        cursor = carry.cursor + take[:, 0]
+        n_valid = carry.n_valid + take[:, 0]
+        u = win_uv[..., 0]
+        v = win_uv[..., 1]
+        win_g = at_rows(win_uv, v_off)
+        u_g = win_g[..., 0]  # rows of the flattened vertex tables
+        v_g = win_g[..., 1]
 
         # ---- 2) Lazy traversal: pick <= r_sel stale slots to rescore. ----
-        ver_u = carry.rep_version[u]
-        ver_v = carry.rep_version[v]
-        rcs_cache = carry.cached_rcs[:w_max]
+        ver_u = rv_rows[u_g]
+        ver_v = rv_rows[v_g]
+        rcs_cache = carry.cached_rcs[:, :w_max]
         if cfg.lazy:
             stale = win_valid & (
-                (ver_u != carry.cached_ver_u[:w_max])
-                | (ver_v != carry.cached_ver_v[:w_max])
+                (ver_u != carry.cached_ver_u[:, :w_max])
+                | (ver_v != carry.cached_ver_v[:, :w_max])
                 | fill
             )
         else:
             stale = win_valid
-        cand = rcs_cache.amax(1) >= carry.theta
+        cand = rcs_cache.amax(2) >= carry.theta[:, None]
         key = torch.where(
             stale,
             torch.where(fill, key_fill, torch.where(cand, key_cand, key_sec)),
             _BIG_I32,
         )
-        key_sorted, order = torch.sort(key, stable=True)
-        sel_live = key_sorted[:r_sel] < _BIG_I32
-        sel_idx = torch.where(sel_live, order[:r_sel], w_max)  # dump slot w_max
+        key_sorted, order = torch.sort(key, dim=1, stable=True)
+        sel_live = key_sorted[:, :r_sel] < _BIG_I32
+        sel_idx = torch.where(sel_live, order[:, :r_sel], w_max)  # dump slot w_max
         sel_c = sel_idx.clamp(max=w_max - 1)
 
         # ---- 3) Fresh R (+ CS) for the selected rows: the kernel. ----
-        rcs_rows = ops.window_score_rows(
-            win_uv, win_valid, carry.replicas, deg, max_deg, sel_c, use_cs=use_cs,
+        rcs_rows = ops.window_score_rows_batched(
+            win_uv, win_valid, carry.replicas, carry.deg, max_deg, sel_c, use_cs=use_cs,
         )
-        carry.cached_rcs.index_copy_(0, sel_idx, rcs_rows)
-        carry.cached_ver_u.index_copy_(0, sel_idx, ver_u[sel_c])
-        carry.cached_ver_v.index_copy_(0, sel_idx, ver_v[sel_c])
-        n_scored = sel_live.sum(dtype=_I32)
+        sel_rows = at_rows(sel_idx, w_off).view(-1)
+        carry.cached_rcs.view(z * (w_max + 1), k).index_copy_(
+            0, sel_rows, rcs_rows.view(z * r_sel, k))
+        carry.cached_ver_u.view(-1).index_copy_(0, sel_rows, ver_u.gather(1, sel_c).view(-1))
+        carry.cached_ver_v.view(-1).index_copy_(0, sel_rows, ver_v.gather(1, sel_c).view(-1))
+        n_scored = sel_live.sum(1, dtype=_I32)
 
         # ---- 4) Score matrix g = cached RCS + λ·B, masked. ----
         bal = scoring.balance_score(sizes, allowed, cfg.eps)
-        ok_p = allowed & (sizes < cap)
-        g = rcs_cache + carry.lam * bal[None, :]
-        g = torch.where(win_valid[:, None] & ok_p[None, :], g, NEG_INF)
+        ok_p = allowed & (sizes < cap[:, None])
+        g = rcs_cache + carry.lam[:, None, None] * bal[:, None, :]
+        g = torch.where(win_valid[..., None] & ok_p[:, None, :], g, NEG_INF)
         # Candidate threshold Θ = g_avg + ε in RCS units (the λ·B term is
-        # common to a column). The one order-dependent fp32 sum of the step.
-        rcs_max = rcs_cache.amax(1)
-        nv = win_valid.sum(dtype=_F32).clamp_min(1.0)
-        theta = torch.where(win_valid, rcs_max, 0.0).sum() / nv + cfg.eps
+        # common to a column); the sum is exact in fp64 (module docstring).
+        rcs_max = rcs_cache.amax(2)
+        nv = win_valid.sum(1, dtype=_F32).clamp_min(1.0)
+        theta = (
+            torch.where(win_valid, rcs_max, 0.0).sum(1, dtype=torch.float64).to(_F32) / nv
+            + cfg.eps
+        )
 
         # ---- 5) Assign the top-b vertex-disjoint window edges. ----
-        g_flat = g.reshape(-1)
+        g_flat = g.reshape(z, w_max * k)
         g_m = g_flat
-        ch = torch.zeros((w_max,), dtype=torch.bool, device=dev)
-        ch_p = torch.zeros((w_max,), dtype=_I32, device=dev)
-        g_sum = torch.zeros((1,), dtype=_F32, device=dev)
+        ch = torch.zeros((z, w_max), dtype=torch.bool, device=dev)
+        ch_p = torch.zeros((z, w_max), dtype=_I32, device=dev)
+        g_sum = torch.zeros((z, 1), dtype=_F32, device=dev)
         out_s, out_p = [], []
         for i in range(b):
-            flat = g_m.argmax().view(1)  # first maximum in (slot, p) order
+            flat = g_m.argmax(1, keepdim=True)  # first maximum in (slot, p) order
             slot = flat // k
             p = (flat % k).to(_I32)
-            ok = g_m.index_select(0, flat) > NEG_INF / 2
-            out_s.append(torch.where(ok, win_sidx.index_select(0, slot), -1))
+            ok = g_m.gather(1, flat) > NEG_INF / 2
+            out_s.append(torch.where(ok, win_sidx.gather(1, slot), -1))
             out_p.append(torch.where(ok, p, 0))
             hit = (slot_ids == slot) & ok
             ch = ch | hit
             ch_p = torch.where(hit, p, ch_p)
-            g_sum = g_sum + torch.where(ok, g_flat.index_select(0, flat), 0.0)
+            g_sum = g_sum + torch.where(ok, g_flat.gather(1, flat), 0.0)
             if i + 1 < b:
-                u_s, v_s = u.index_select(0, slot), v.index_select(0, slot)
+                u_s, v_s = u.gather(1, slot), v.gather(1, slot)
                 share = (u == u_s) | (u == v_s) | (v == u_s) | (v == v_s)
                 g_m = torch.where(
-                    (share & ok)[:, None], NEG_INF, g_m.view(w_max, k)
-                ).reshape(-1)
-        g_sum = g_sum.view(())
-        n_ch = ch.sum(dtype=_I32)
+                    (share & ok)[..., None], NEG_INF, g_m.view(z, w_max, k)
+                ).reshape(z, w_max * k)
+        g_sum = g_sum.view(z)
+        n_ch = ch.sum(1, dtype=_I32)
 
         # ---- 6) Apply assignments to the vertex cache / partition state. ----
-        sizes.index_add_(0, ch_p, ch.to(_I32))  # adds 0 where not chosen
-        u_c = torch.where(ch, u, v_dummy)
-        v_c = torch.where(ch, v, v_dummy)
-        old_u = carry.replicas[u_c, ch_p]
-        old_v = carry.replicas[v_c, ch_p]
-        carry.replicas.index_put_((u_c, ch_p), old_u | ch)
-        carry.replicas.index_put_((v_c, ch_p), old_v | ch)
-        carry.rep_version.index_add_(0, u_c, (ch & ~old_u).to(_I32))
-        carry.rep_version.index_add_(0, v_c, (ch & ~old_v).to(_I32))
+        sizes_rows.index_add_(0, at_rows(ch_p, k_off).view(-1), ch.to(_I32).view(-1))  # 0 where not chosen
+        u_c = torch.where(ch, u_g, v_dump)
+        v_c = torch.where(ch, v_g, v_dump)
+        old_u = rep_rows[u_c, ch_p]
+        old_v = rep_rows[v_c, ch_p]
+        rep_rows.index_put_((u_c, ch_p), old_u | ch)
+        rep_rows.index_put_((v_c, ch_p), old_v | ch)
+        rv_rows.index_add_(0, u_c.view(-1), (ch & ~old_u).to(_I32).view(-1))
+        rv_rows.index_add_(0, v_c.view(-1), (ch & ~old_v).to(_I32).view(-1))
         win_valid = win_valid & ~ch
         n_valid = n_valid - n_ch
         assigned = carry.assigned + n_ch
@@ -347,10 +424,10 @@ def _make_step(
 
         # ---- Outputs at the step counter, then commit the carry. ----
         row = out.t
-        out.sidx.index_copy_(0, row, torch.cat(out_s).view(1, b))
-        out.p.index_copy_(0, row, torch.cat(out_p).view(1, b))
-        out.w_cap.index_copy_(0, row, carry.w_cap.view(1))
-        out.g_chosen.index_copy_(0, row, g_sum.view(1))
+        out.sidx.index_copy_(0, row, torch.cat(out_s, 1).view(1, z, b))
+        out.p.index_copy_(0, row, torch.cat(out_p, 1).view(1, z, b))
+        out.w_cap.index_copy_(0, row, carry.w_cap.view(1, z))
+        out.g_chosen.index_copy_(0, row, g_sum.view(1, z))
         out.t.add_(1)
         carry.c.copy_(torch.where(trigger, 0, c))
         carry.sum_g.copy_(torch.where(trigger, 0.0, sum_g))
@@ -373,6 +450,27 @@ def _make_step(
     return step
 
 
+def _ceil_pow2(x: int) -> int:
+    """Smallest power of two >= max(x, 1) — the length-bucket key."""
+    return 1 << (max(int(x), 1) - 1).bit_length()
+
+
+def _assignment(res, j: int, m: int, what: str) -> tuple[np.ndarray, int]:
+    """Instance j's (m,) assignment from a DriveResult; raises unless every
+    edge was placed."""
+    sidx, pout = res.sidx[j], res.p[j]
+    assign = np.full((m,), -1, np.int32)
+    live = sidx >= 0
+    assign[sidx[live]] = pout[live]
+    unassigned = int((assign < 0).sum())
+    if unassigned or int(res.assigned[j]) != m:
+        raise RuntimeError(
+            f"{what} left {unassigned} of {m} edges unassigned (scan assigned "
+            f"counter: {int(res.assigned[j])}) — drain loop failed"
+        )
+    return assign, unassigned
+
+
 def partition_stream(
     edges: np.ndarray,
     num_vertices: int,
@@ -383,18 +481,22 @@ def partition_stream(
     cost_per_score: Optional[float] = None,
     warm: Optional[WarmState] = None,
     residency=None,
+    trace=None,
     device=None,
 ) -> PartitionResult:
     """Partition an edge stream with ADWISE.
 
     Thin caller of :class:`repro_torch.core.driver.ScanDriver` over one
-    resident stream, as in the JAX package. ``device`` defaults to ``cuda``
-    (see :func:`repro_torch.compat.resolve_device`). ``warm`` resumes from a
-    previous pass's tables (degrees are then not re-counted, and each edge's
-    ``warm.prev_assign`` placement, when given, is revoked as it re-enters
-    the window); ``residency`` (a
+    resident instance (z = 1), as in the JAX package. ``device`` defaults to
+    ``cuda`` (see :func:`repro_torch.compat.resolve_device`). ``warm``
+    resumes from a previous pass's tables (degrees are then not re-counted,
+    and each edge's ``warm.prev_assign`` placement, when given, is revoked
+    as it re-enters the window); ``residency`` (a
     :class:`~repro_torch.core.driver.StreamResidency`) shares one device
-    stream across re-streaming passes over the same edges.
+    stream across re-streaming passes over the same edges; ``trace`` (a
+    :class:`repro_torch.obs.Tracer`) records the driver's host-side
+    ``scan-call`` / ``materialize`` spans, and the stats gain a
+    ``trace_summary``.
 
     Returns a PartitionResult with ``assign`` (int32[m]) and the JAX
     package's stats keys.
@@ -415,22 +517,157 @@ def partition_stream(
         allowed=None if allowed is None else np.asarray(allowed, bool)[None],
         warm=None if warm is None else [warm],
         cost_per_score=cost_per_score,
+        trace=trace,
         device=device,
     )
     res = drv.run(n_chunks=n_chunks)
-    sidx, pout = res.sidx[0], res.p[0]
-    assign = np.full((m,), -1, np.int32)
-    live = sidx >= 0
-    assign[sidx[live]] = pout[live]
-    unassigned = int((assign < 0).sum())
-    if unassigned or int(res.assigned[0]) != m:
-        raise RuntimeError(
-            f"partition_stream left {unassigned} of {m} edges unassigned "
-            f"(scan assigned counter: {int(res.assigned[0])}) — drain loop failed"
-        )
+    assign, unassigned = _assignment(res, 0, m, "partition_stream")
     stats = dict(
         drv.stats_base(res, 0),
         w_trace=res.w_trace[0],
         unassigned=unassigned,
     )
+    if trace is not None and trace.enabled:
+        stats["trace_summary"] = trace.summary().as_dict()
     return PartitionResult(assign, stats)
+
+
+def partition_stream_batched(
+    streams: np.ndarray,
+    valid: np.ndarray,
+    num_vertices: int,
+    cfg: Optional[AdwiseConfig],
+    *,
+    core=None,
+    allowed: Optional[np.ndarray] = None,
+    backend: str = "auto",
+    n_chunks: int = 8,
+    cost_per_score: Optional[float] = None,
+    warm: Optional[Sequence[WarmState]] = None,
+    residency=None,
+    trace=None,
+    device=None,
+) -> list[PartitionResult]:
+    """Run ``z`` independent instance scans as ONE batched step.
+
+    The device-parallel spotlight entry point: every step advances all z
+    instances at once (one ``window_score`` launch for all of them), the
+    card's counterpart of the paper's z machines. Thin caller of
+    :class:`repro_torch.core.driver.ScanDriver` over a z-instance resident
+    source.
+
+    Args:
+      streams: (z, per, 2) int32 — per-instance padded edge chunks
+        (:meth:`repro_torch.graph.EdgeStream.split_padded` layout).
+      valid: (z, per) bool — per-row *prefix* mask; row i's real stream is
+        ``streams[i, :valid[i].sum()]``.
+      num_vertices: |V| (shared; instances keep independent vertex caches).
+      cfg: AdwiseConfig (shared by all instances); may be None when ``core``
+        is given.
+      core: optional step-core (``HdrfCore``, ``GreedyCore``, ``TpslCore``,
+        ...) batched over the instance axis through the same driver path as
+        ADWISE; per-instance state (HDRF's tie seeds ``seed + i``) comes
+        from the core's ``seed_instances`` hook.
+      allowed: optional (z, k) bool — per-instance spotlight spread masks.
+      backend: 'auto', 'vmap' or 'shard_map', as in the JAX package. On one
+        card all three run the one batched step and report ``('vmap', 0)``,
+        as the JAX package resolves them on one device.
+      n_chunks / cost_per_score / residency / trace / device: as in
+        :func:`partition_stream`.
+      warm: optional length-z sequence of per-instance :class:`WarmState`;
+        all instances must agree on whether ``prev_assign`` is given.
+
+    Returns a list of z :class:`PartitionResult`; entry i's ``assign`` covers
+    instance i's real stream in local order. With z == 1 and identical
+    inputs it is bit-identical to :func:`partition_stream`.
+
+    Length bucketing: instances are grouped by ``ceil_pow2(m_i)`` and each
+    bucket runs as its own batched scan padded to
+    ``min(ceil_pow2(max m_i in bucket), per)`` rows, so short instances do
+    not idle through the longest one's tail. Results come back in the
+    caller's instance order, and seed-deriving cores receive the *global*
+    instance ids, so assignments equal those of the unbucketed layout.
+    ``wall_time_s``, ``h2d_rows`` and ``h2d_bytes`` are summed over the
+    buckets (they run back to back) and shared by every instance.
+    """
+    from repro_torch.core.driver import ResidentSource, ScanDriver, resolve_backend
+
+    streams = np.ascontiguousarray(streams, np.int32)
+    valid = np.asarray(valid, bool)
+    if streams.ndim != 3 or streams.shape[2] != 2:
+        raise ValueError(f"streams must be (z, per, 2), got {streams.shape}")
+    z, per, _ = streams.shape
+    if valid.shape != (z, per):
+        raise ValueError(f"valid must be {(z, per)}, got {valid.shape}")
+    # The refill consumes each instance stream sequentially from slot 0, so
+    # validity must be a prefix per row.
+    if per > 1 and not (valid[:, :-1] >= valid[:, 1:]).all():
+        raise ValueError("valid must be a per-row prefix mask (padding only at the tail)")
+    if core is None and cfg is None:
+        raise ValueError("need a cfg or a step-core")
+    k = core.k if core is not None else cfg.k
+    resolve_backend(backend, z)  # validates the name
+    m_per = valid.sum(axis=1).astype(np.int64)
+    m_max = int(m_per.max()) if z else 0
+    if allowed is not None:
+        allowed = np.asarray(allowed, bool)
+        if allowed.shape != (z, k):
+            raise ValueError(f"allowed must be {(z, k)}, got {allowed.shape}")
+    if warm is not None:
+        warm = list(warm)
+        if len(warm) != z:
+            raise ValueError(f"need one WarmState per instance, got {len(warm)}")
+    if m_max == 0:
+        return [PartitionResult(np.zeros((0,), np.int32), dict(k=k, unassigned=0))
+                for _ in range(z)]
+
+    buckets: dict[int, list[int]] = {}
+    for i in range(z):
+        buckets.setdefault(_ceil_pow2(int(m_per[i])), []).append(i)
+    runs = []  # (global ids, driver, result, padded width) per bucket
+    total_wall, total_h2d_rows, total_h2d_bytes = 0.0, 0, 0
+    for key in sorted(buckets):
+        idx = np.asarray(buckets[key], np.int64)
+        width = min(key, per)
+        drv = ScanDriver(
+            ResidentSource(np.ascontiguousarray(streams[idx, :width]), m_per[idx],
+                           residency=residency),
+            core if core is not None else cfg,
+            num_vertices,
+            allowed=None if allowed is None else allowed[idx],
+            warm=None if warm is None else [warm[i] for i in idx],
+            cost_per_score=cost_per_score,
+            backend=backend,
+            trace=trace,
+            instance_ids=idx,
+            device=device,
+        )
+        res_b = drv.run(n_chunks=n_chunks)
+        total_wall += res_b.wall_time_s
+        total_h2d_rows += res_b.h2d_rows
+        total_h2d_bytes += res_b.h2d_bytes
+        runs.append((idx, drv, res_b, width))
+    tsum = trace.summary().as_dict() if trace is not None and trace.enabled else None
+    results: list[Optional[PartitionResult]] = [None] * z
+    for idx, drv, res_b, width in runs:
+        for j, i in enumerate(int(g) for g in idx):
+            assign, unassigned = _assignment(res_b, j, int(m_per[i]), f"batched instance {i}")
+            stats = dict(
+                drv.stats_base(res_b, j),
+                batched=True,
+                backend=res_b.backend,
+                n_shards=res_b.n_shards,
+                z=z,
+                instance=i,
+                wall_time_s=total_wall,
+                h2d_rows=total_h2d_rows,
+                h2d_bytes=total_h2d_bytes,
+                n_buckets=len(runs),
+                bucket_rows=width,
+                w_trace=res_b.w_trace[j],
+                unassigned=unassigned,
+            )
+            if tsum is not None:
+                stats["trace_summary"] = tsum
+            results[i] = PartitionResult(assign, stats)
+    return results  # type: ignore[return-value]

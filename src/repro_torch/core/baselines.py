@@ -13,14 +13,16 @@ the host. HDRF and Greedy keep a vertex cache; their per-edge numpy loops
 (:class:`HdrfState`, :class:`GreedyState`) are copied as the parity oracles,
 and :class:`HdrfCore` / :class:`GreedyCore` run the same integer-quantized
 math as in-place step-cores on :class:`repro_torch.core.driver.ScanDriver`
-(32 steps per CUDA graph on the card, a plain loop on the CPU). The same
-edges and seed give bit-identical assignments in both packages.
+(32 steps per CUDA graph on the card, a plain loop on the CPU), one edge
+per instance per step for z spotlight instances at once. The same edges and
+seed give bit-identical assignments in both packages.
 
 HDRF's tie noise is the JAX package's counter-based uint32 hash of (stream
 row, partition, seed). The step evaluates it in int64 with every product
 kept below 2^63: the seed and partition terms are folded on the host with
-Python ints, the multiply by 0x846CA68B (>= 2^31) is split into 16-bit
-halves, and every stage is masked to 32 bits (:func:`tie_hash_torch`).
+Python ints into a (K,) table per instance (seed ``seed + i`` for instance
+i), the multiply by 0x846CA68B (>= 2^31) is split into 16-bit halves, and
+every stage is masked to 32 bits (:func:`tie_hash_torch`).
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.adwise import at_rows, instance_offsets
 from repro_torch.core.driver import StepCore
 from repro_torch.core.types import PartitionResult, WarmState
 
@@ -116,7 +119,9 @@ def _tie_terms(k: int, seed: int, device) -> torch.Tensor:
 
 def tie_hash_torch(rows: torch.Tensor, terms: torch.Tensor) -> torch.Tensor:
     """Device twin of :func:`tie_break_hash`: (R, k) int64 tie noise for
-    int ``rows`` in [0, 2^31) against ``terms = _tie_terms(k, seed)``.
+    int ``rows`` in [0, 2^31) against ``terms = _tie_terms(k, seed)`` —
+    (k,) for one seed, or (R, k), row r's terms for row r's seed (the
+    batched step: one row and one seed per instance).
 
     uint32 arithmetic in int64: operands stay below 2^32 and every product
     below 2^63 (the multiply by 0x846CA68B is split into 16-bit halves)."""
@@ -396,6 +401,7 @@ class HdrfCarry(NamedTuple):
     deg: torch.Tensor  # (V+1,) int32 — row V is a scatter dump
     replicas: torch.Tensor  # (V+1, K) bool
     sizes: torch.Tensor  # (K,) int32
+    terms: torch.Tensor  # (K,) int64 — the tie hash's partition and seed terms
     cursor: torch.Tensor  # () int32
     assigned: torch.Tensor  # () int32
 
@@ -425,33 +431,36 @@ def _warm_tables(num_vertices, k, warm, device):
     return rep, deg, sizes
 
 
-def _edge_at(stream, m_real, cursor, v_dummy):
-    """The step's edge: (1,) live flag and int32 live, its endpoints (the
-    dump row V when the stream is exhausted) and the (1,) stream row."""
-    cur = cursor.view(1)
-    live = cur < m_real
+def _edge_at(stream, m_real, cursor, v_dummy, s_off):
+    """Each instance's edge of the step: (z,) live flag and int32 live, its
+    endpoints (the dump row V once the stream is exhausted) and the (z,)
+    stream row, from the (z, m_pad, 2) streams (``s_off``: their
+    :func:`~repro_torch.core.adwise.instance_offsets`)."""
+    m_pad = stream.shape[1]
+    live = cursor < m_real
     live_i = live.to(torch.int32)
-    row = stream.index_select(0, cur % stream.shape[0])  # (1, 2); % = the ring index
+    row = stream.view(-1, 2).index_select(0, at_rows(cursor % m_pad, s_off))  # % = the ring index
     u = torch.where(live, row[:, 0], v_dummy)
     v = torch.where(live, row[:, 1], v_dummy)
-    return cur, live, live_i, u, v
+    return cursor, live, live_i, u, v
 
 
 def _emit(out, cur, live, live_i, p, carry) -> None:
     """Write the step's StepOut row at ``out.t`` and advance the counters."""
     row = out.t
-    out.sidx.index_copy_(0, row, torch.where(live, cur, -1).view(1, 1))
-    out.p.index_copy_(0, row, torch.where(live, p, 0).view(1, 1))
+    z = cur.shape[0]
+    out.sidx.index_copy_(0, row, torch.where(live, cur, -1).view(1, z, 1))
+    out.p.index_copy_(0, row, torch.where(live, p, 0).view(1, z, 1))
     out.w_cap.index_fill_(0, row, 1)
     out.t.add_(1)
-    carry.cursor.view(1).add_(live_i)
-    carry.assigned.view(1).add_(live_i)
+    carry.cursor.add_(live_i)
+    carry.assigned.add_(live_i)
 
 
 def _balance_q(sizes, allowed, eps_q):
-    """(K,) int32 quantized HDRF balance term over the allowed loads."""
-    mx = torch.where(allowed, sizes, _I32_MIN).amax()
-    mn = torch.where(allowed, sizes, _I32_MAX).amin()
+    """(z, K) int32 quantized HDRF balance term over the allowed loads."""
+    mx = torch.where(allowed, sizes, _I32_MIN).amax(-1, keepdim=True)
+    mn = torch.where(allowed, sizes, _I32_MAX).amin(-1, keepdim=True)
     gap = (mx - sizes).clamp(0, _DEG_CLAMP)
     return (gap * QB) // (eps_q + (mx - mn).clamp_max(_DEG_CLAMP))
 
@@ -462,20 +471,26 @@ def _theta_q(du, dv):
     return ((2 * a - du) * QB) // a, ((2 * a - dv) * QB) // a
 
 
-def _place(replicas, sizes, u, v, p, live, live_i) -> None:
-    """Record the edge on partition p: both replicas and the load. Not live,
-    u = v = the dump row, which is written with False and never read."""
-    replicas.index_put_((torch.cat([u, v]), p.expand(2)), live.expand(2))
-    sizes.index_add_(0, p, live_i)
+def _place(replicas, sizes, ug, vg, p, live, live_i, k_off) -> None:
+    """Record each instance's edge on its partition p: both replicas (rows
+    ``ug``/``vg`` of the flattened (z·(V+1), K) table) and the load. Not
+    live, u = v = the dump row, which is written with False and never
+    read."""
+    z = p.shape[0]
+    replicas.index_put_((torch.stack([ug, vg]), p.expand(2, z)), live.expand(2, z))
+    sizes.view(-1).index_add_(0, at_rows(p, k_off), live_i)
 
 
 @dataclasses.dataclass(frozen=True)
 class HdrfCore(StepCore):
-    """HDRF as a chunk-resumable step-core: one edge per scan step.
+    """HDRF as a chunk-resumable step-core: one edge per instance per step.
 
     Bit-identical to :class:`HdrfState` — integer-quantized scoring, tie
     noise from the counter-based hash of (cursor, partition, seed). The step
-    updates ``deg`` before it scores, adding twice on a self-loop.
+    updates ``deg`` before it scores, adding twice on a self-loop. The tie
+    hash's seed and partition terms live in the carry as a (K,) int64 table
+    per instance; :meth:`seed_instances` gives instance i the seed
+    ``seed + ids[i]``.
     """
 
     num_vertices: int
@@ -492,6 +507,7 @@ class HdrfCore(StepCore):
             deg=_zeros_i32(device, v1),
             replicas=torch.zeros((v1, self.k), dtype=torch.bool, device=device),
             sizes=_zeros_i32(device, self.k),
+            terms=_tie_terms(self.k, self.seed, device),
             cursor=_zeros_i32(device),
             assigned=_zeros_i32(device),
         )
@@ -500,34 +516,37 @@ class HdrfCore(StepCore):
         rep, deg, sizes = _warm_tables(self.num_vertices, self.k, warm, device)
         return self.init_carry(budget, device)._replace(deg=deg, replicas=rep, sizes=sizes)
 
-    def counters(self, carry) -> dict:
-        return dict(
-            score_rows=np.asarray([carry.assigned.item()], np.int64),
-            final_w=np.ones((1,), np.int64),
-            lam=np.full((1,), self.lam, np.float32),
-            cost_per_score=np.zeros((1,), np.float32),
-        )
+    def seed_instances(self, carry: HdrfCarry, z: int, ids: np.ndarray) -> HdrfCarry:
+        # Keyed on the caller's global ids, not the batch position, so
+        # length-bucketed batches reproduce the unbucketed tie streams.
+        dev = carry.terms.device
+        terms = torch.stack([_tie_terms(self.k, self.seed + int(i), dev) for i in ids])
+        return carry._replace(terms=terms)
 
     def make_step(self, stream, m_real, allowed, cap, prev_assign):
-        v_dummy = self.num_vertices
+        v_dummy, k = self.num_vertices, self.k
+        v1 = v_dummy + 1
         lam_q, eps_q = _lam_q(self.lam), _eps_q(self.eps)
-        terms = _tie_terms(self.k, self.seed, stream.device)
+        z, dev = stream.shape[0], stream.device
+        s_off, v_off, k_off = (instance_offsets(z, n, dev) for n in (stream.shape[1], v1, k))
 
         def step(carry: HdrfCarry, out) -> None:
-            cur, live, live_i, u, v = _edge_at(stream, m_real, carry.cursor, v_dummy)
-            deg = carry.deg
-            deg.index_add_(0, u, live_i)
-            deg.index_add_(0, v, live_i)
-            du = deg.index_select(0, u).clamp_max(_DEG_CLAMP)
-            dv = deg.index_select(0, v).clamp_max(_DEG_CLAMP)
+            cur, live, live_i, u, v = _edge_at(stream, m_real, carry.cursor, v_dummy, s_off)
+            ug, vg = at_rows(u, v_off), at_rows(v, v_off)
+            deg = carry.deg.view(-1)
+            deg.index_add_(0, ug, live_i)
+            deg.index_add_(0, vg, live_i)
+            du = deg.index_select(0, ug).clamp_max(_DEG_CLAMP)
+            dv = deg.index_select(0, vg).clamp_max(_DEG_CLAMP)
             tq_u, tq_v = _theta_q(du, dv)
-            rep = carry.replicas
-            rep_q = rep.index_select(0, u) * tq_u + rep.index_select(0, v) * tq_v
+            rep = carry.replicas.view(-1, k)
+            rep_q = (rep.index_select(0, ug) * tq_u[:, None]
+                     + rep.index_select(0, vg) * tq_v[:, None])
             score_q = QB * rep_q + lam_q * _balance_q(carry.sizes, allowed, eps_q)
-            tie = tie_hash_torch(cur, terms)
+            tie = tie_hash_torch(cur, carry.terms)
             combined = torch.where(allowed, (score_q << TIE_BITS) + tie, -1)
             p = combined.argmax(1).to(torch.int32)  # first maximum
-            _place(rep, carry.sizes, u, v, p, live, live_i)
+            _place(rep, carry.sizes, ug, vg, p, live, live_i, k_off)
             _emit(out, cur, live, live_i, p, carry)
 
         return step
@@ -535,7 +554,7 @@ class HdrfCore(StepCore):
 
 @dataclasses.dataclass(frozen=True)
 class GreedyCore(StepCore):
-    """PowerGraph Greedy as a step-core: one edge per scan step.
+    """PowerGraph Greedy as a step-core: one edge per instance per step.
 
     All-integer (argmin over masked loads, first-occurrence ties) — exactly
     the :class:`GreedyState` loop, its candidate set the same four-way
@@ -560,21 +579,18 @@ class GreedyCore(StepCore):
         rep, _, sizes = _warm_tables(self.num_vertices, self.k, warm, device)
         return self.init_carry(budget, device)._replace(replicas=rep, sizes=sizes)
 
-    def counters(self, carry) -> dict:
-        return dict(
-            score_rows=np.asarray([carry.assigned.item()], np.int64),
-            final_w=np.ones((1,), np.int64),
-            lam=np.zeros((1,), np.float32),
-            cost_per_score=np.zeros((1,), np.float32),
-        )
-
     def make_step(self, stream, m_real, allowed, cap, prev_assign):
-        v_dummy = self.num_vertices
+        v_dummy, k = self.num_vertices, self.k
+        v1 = v_dummy + 1
+        z, dev = stream.shape[0], stream.device
+        s_off, v_off, k_off = (instance_offsets(z, n, dev) for n in (stream.shape[1], v1, k))
 
         def step(carry: GreedyCarry, out) -> None:
-            cur, live, live_i, u, v = _edge_at(stream, m_real, carry.cursor, v_dummy)
-            ru = carry.replicas.index_select(0, u)  # (1, K)
-            rv = carry.replicas.index_select(0, v)
+            cur, live, live_i, u, v = _edge_at(stream, m_real, carry.cursor, v_dummy, s_off)
+            ug, vg = at_rows(u, v_off), at_rows(v, v_off)
+            rep = carry.replicas.view(-1, k)
+            ru = rep.index_select(0, ug)  # (z, K)
+            rv = rep.index_select(0, vg)
             inter = ru & rv
             has_u, has_v = ru.any(1, keepdim=True), rv.any(1, keepdim=True)
             cand = torch.where(
@@ -587,7 +603,7 @@ class GreedyCore(StepCore):
                 ),
             )
             p = torch.where(cand, carry.sizes, _I32_MAX).argmin(1).to(torch.int32)  # first minimum
-            _place(carry.replicas, carry.sizes, u, v, p, live, live_i)
+            _place(rep, carry.sizes, ug, vg, p, live, live_i, k_off)
             _emit(out, cur, live, live_i, p, carry)
 
         return step
@@ -599,10 +615,13 @@ def _scan_partition(
     *,
     allowed: Optional[np.ndarray] = None,
     warm: Optional[WarmState] = None,
+    backend: str = "vmap",
     n_chunks: int = 8,
+    trace=None,
     device=None,
 ) -> PartitionResult:
     """Run a single-instance step-core over a resident stream."""
+    from repro_torch.core.adwise import _assignment
     from repro_torch.core.driver import ResidentSource, ScanDriver
 
     m = int(len(edges))
@@ -616,26 +635,16 @@ def _scan_partition(
         source, core,
         allowed=None if allowed is None else np.asarray(allowed, bool)[None],
         warm=None if warm is None else [warm],
+        backend=backend,
+        trace=trace,
         device=device,
     )
     res = drv.run(n_chunks=n_chunks)
-    sidx, pout = res.sidx[0], res.p[0]
-    assign = np.full((m,), -1, np.int32)
-    live = sidx >= 0
-    assign[sidx[live]] = pout[live]
-    unassigned = int((assign < 0).sum())
-    if unassigned or int(res.assigned[0]) != m:
-        raise RuntimeError(f"{core.name} scan left {unassigned} of {m} edges unassigned")
-    return PartitionResult(assign, dict(drv.stats_base(res, 0), unassigned=0))
-
-
-def _check_backend(backend: str) -> None:
-    """The JAX package's backends all run one instance (z = 1) as the same
-    program; the port takes the names and rejects anything else."""
-    if backend not in ("auto", "vmap", "shard_map"):
-        raise ValueError(
-            f"backend must be 'auto', 'vmap' or 'shard_map', got {backend!r}"
-        )
+    assign, _ = _assignment(res, 0, m, f"{core.name} scan")
+    stats = dict(drv.stats_base(res, 0), unassigned=0)
+    if trace is not None and trace.enabled:
+        stats["trace_summary"] = trace.summary().as_dict()
+    return PartitionResult(assign, stats)
 
 
 def hdrf_partition_scan(
@@ -651,10 +660,9 @@ def hdrf_partition_scan(
 ) -> PartitionResult:
     """HDRF via the :class:`HdrfCore` step-core — bit-identical to
     :func:`hdrf_partition` (the numpy oracle)."""
-    _check_backend(backend)
     core = HdrfCore(num_vertices=int(num_vertices), k=int(k),
                     lam=float(lam), eps=float(eps), seed=int(seed))
-    return _scan_partition(core, edges, allowed=allowed, device=device)
+    return _scan_partition(core, edges, allowed=allowed, backend=backend, device=device)
 
 
 def greedy_partition_scan(
@@ -668,6 +676,5 @@ def greedy_partition_scan(
 ) -> PartitionResult:
     """Greedy via the :class:`GreedyCore` step-core — bit-identical to
     :func:`greedy_partition` (the numpy oracle)."""
-    _check_backend(backend)
     core = GreedyCore(num_vertices=int(num_vertices), k=int(k))
-    return _scan_partition(core, edges, allowed=allowed, device=device)
+    return _scan_partition(core, edges, allowed=allowed, backend=backend, device=device)

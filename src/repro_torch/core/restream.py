@@ -1,7 +1,7 @@
 """Multi-pass re-streaming: restreamed ADWISE, 2PS and 2PS-L on torch.
 
-Port of the JAX package's ``core/restream.py`` at z = 1 over resident
-streams. Three strategies ride one warm-start mechanism
+Port of the JAX package's ``core/restream.py`` over resident streams.
+Three strategies ride one warm-start mechanism
 (:meth:`repro_torch.core.adwise.Carry.warm_start` and
 ``StepCore.warm_carry`` in the driver):
 
@@ -23,8 +23,15 @@ Phase 1's per-edge clustering step is :class:`ClusterCore`, an in-place
 step driven 32 steps per CUDA graph on the card, a plain loop on the CPU;
 :func:`streaming_vertex_clustering_np` is its numpy oracle. The cluster
 packing stays host numpy (its tie order is numpy's default ``argsort``).
-The batched (spotlight) variants are ROADMAP.md port queue 1, item 8, and
-tracing is item 11.
+
+The batched variants (:func:`restream_partition_batched`,
+:func:`two_phase_partition_batched`) run z spotlight instances: every
+ADWISE or 2PS-L pass is one batched scan over all of them
+(:func:`repro_torch.core.adwise.partition_stream_batched`), while phase 1
+and the warm-state hand-off between passes stay per instance, as in the
+JAX package. ``trace=`` (a :class:`repro_torch.obs.Tracer`) records one
+``pass``-category span per restream pass on its own lane
+(``restream-pass-<j>``) and threads through to the scan drivers.
 """
 from __future__ import annotations
 
@@ -38,12 +45,17 @@ import torch
 
 from repro_torch import compat
 from repro_torch.core import driver, registry
-from repro_torch.core.adwise import StepOut, partition_stream
+from repro_torch.core.adwise import (
+    StepOut,
+    at_rows,
+    instance_offsets,
+    partition_stream,
+    partition_stream_batched,
+)
 from repro_torch.core.baselines import (
     QB,
     _DEG_CLAMP,
     _balance_q,
-    _check_backend,
     _clone,
     _emit,
     _edge_at,
@@ -53,14 +65,17 @@ from repro_torch.core.baselines import (
     _theta_q,
     _zeros_i32,
 )
-from repro_torch.core.driver import StepCore, StreamResidency
+from repro_torch.core.driver import StepCore, StreamResidency, resolve_backend
 from repro_torch.core.types import AdwiseConfig, PartitionResult, WarmState
 from repro_torch.graph import metrics
+from repro_torch.obs import resolve_tracer
 
 __all__ = [
     "warm_from_assignment",
     "restream_partition",
+    "restream_partition_batched",
     "two_phase_partition",
+    "two_phase_partition_batched",
     "two_phase_linear_partition",
     "streaming_vertex_clustering",
     "streaming_vertex_clustering_np",
@@ -77,14 +92,6 @@ def _degrees(edges: np.ndarray, num_vertices: int) -> np.ndarray:
         deg += np.bincount(edges[:, 0], minlength=num_vertices)
         deg += np.bincount(edges[:, 1], minlength=num_vertices)
     return deg
-
-
-def _no_trace(trace) -> None:
-    if trace is not None:
-        raise NotImplementedError(
-            "repro_torch: trace= is not ported yet — ROADMAP.md, port queue 1, "
-            "item 11 (benchmarks and tracing)"
-        )
 
 
 def warm_from_assignment(
@@ -107,6 +114,18 @@ def _rd(edges: np.ndarray, assign: np.ndarray, num_vertices: int, k: int) -> flo
     return metrics.replication_degree(
         metrics.replica_sets_from_assignment(edges, assign, num_vertices, k)
     )
+
+
+def _steps(stats: dict) -> int:
+    # Steps run on the device, the warm-up before capture included (the
+    # port's own stat: one window_score launch each on an ADWISE pass).
+    return int(stats.get("steps_run", 0)) + int(stats.get("warmup_steps", 0))
+
+
+def _score_rows(stats: dict, k: int) -> int:
+    # Baselines report score_count = m·k but no score_rows; both count
+    # toward invested latency (partition_latency's §III-B metric).
+    return int(stats.get("score_rows", stats.get("score_count", 0) // max(k, 1)))
 
 
 def restream_partition(
@@ -136,62 +155,68 @@ def restream_partition(
       eps: stop re-streaming once a pass improves RD by less than ``eps``
         (None always runs ``passes``); ``stats['passes_run']`` says how many
         ran. Distinct from ``AdwiseConfig.eps``.
-      trace: not ported (raises when given; ROADMAP.md item 11).
+      trace: optional :class:`repro_torch.obs.Tracer` — one ``pass`` span per
+        pass (lane ``restream-pass-<j>``), threaded through to the scan
+        drivers; the stats gain ``trace_summary``.
       device: ``cuda`` by default (:func:`repro_torch.compat.resolve_device`).
       adwise_cfg: AdwiseConfig fields for the ADWISE passes.
     """
-    _no_trace(trace)
     if passes < 1:
         raise ValueError(f"passes must be >= 1, got {passes}")
+    tr = resolve_tracer(trace)
     device = compat.resolve_device(device)
     cfg = AdwiseConfig(k=k, seed=seed, **adwise_cfg)
     base_kw = {} if allowed is None else {"allowed": allowed}
     # Every ADWISE pass streams the same edges: share one device upload
     # across passes (later passes ship only their prev table).
     residency = StreamResidency()
+    t_p1 = time.perf_counter()
     if base == "adwise":
         res = partition_stream(
             edges, num_vertices, cfg, n_chunks=n_chunks, allowed=allowed,
-            residency=residency, device=device,
+            residency=residency, trace=trace, device=device,
         )
     else:
         res = registry.run_partitioner(
             base, edges, num_vertices, k, seed=seed, device=device, **base_kw
         )
 
-    def _steps(stats: dict) -> int:
-        # Steps run on the device, the warm-up before capture included (the
-        # port's own stat: one window_score launch each on an ADWISE pass).
-        return int(stats.get("steps_run", 0)) + int(stats.get("warmup_steps", 0))
-
-    def _score_rows(stats: dict) -> int:
-        # Baselines report score_count = m·k but no score_rows; both count
-        # toward invested latency (partition_latency's §III-B metric).
-        return int(stats.get("score_rows", stats.get("score_count", 0) // max(k, 1)))
-
     pass_rd: List[float] = [_rd(edges, res.assign, num_vertices, k)]
+    if tr.enabled:
+        tr.add_span(
+            "pass-1", "pass", t_p1, time.perf_counter(),
+            track="restream-pass-1", attrs=dict(base=base, rd=pass_rd[0]),
+        )
     pass_imbalance: List[float] = [metrics.partition_balance(res.assign, k)]
     pass_wall: List[float] = [float(res.stats.get("wall_time_s", 0.0))]
-    pass_score_rows: List[int] = [_score_rows(res.stats)]
+    pass_score_rows: List[int] = [_score_rows(res.stats, k)]
     pass_steps: List[int] = [_steps(res.stats)]
+    pass_scan_calls: List[int] = [int(res.stats.get("scan_calls", 0))]
     h2d_rows = int(res.stats.get("h2d_rows", 0))
     h2d_bytes = int(res.stats.get("h2d_bytes", 0))
     best_res, best_rd, best_pass = res, pass_rd[0], 1
     warm_wall = 0.0
 
-    for _ in range(1, passes):
+    for j in range(1, passes):
         t_w = time.perf_counter()
         warm = warm_from_assignment(edges, res.assign, num_vertices, k)
         warm_wall += time.perf_counter() - t_w
         res = partition_stream(
             edges, num_vertices, cfg, n_chunks=n_chunks, warm=warm,
-            allowed=allowed, residency=residency, device=device,
+            allowed=allowed, residency=residency, trace=trace, device=device,
         )
         pass_rd.append(_rd(edges, res.assign, num_vertices, k))
+        if tr.enabled:
+            tr.add_span(
+                f"pass-{j + 1}", "pass", t_w, time.perf_counter(),
+                track=f"restream-pass-{j + 1}",
+                attrs=dict(rd=pass_rd[-1], rd_delta=pass_rd[-2] - pass_rd[-1]),
+            )
         pass_imbalance.append(metrics.partition_balance(res.assign, k))
         pass_wall.append(float(res.stats.get("wall_time_s", 0.0)))
-        pass_score_rows.append(_score_rows(res.stats))
+        pass_score_rows.append(_score_rows(res.stats, k))
         pass_steps.append(_steps(res.stats))
+        pass_scan_calls.append(int(res.stats.get("scan_calls", 0)))
         h2d_rows += int(res.stats.get("h2d_rows", 0))
         h2d_bytes += int(res.stats.get("h2d_bytes", 0))
         if pass_rd[-1] <= best_rd:
@@ -218,6 +243,7 @@ def restream_partition(
         pass_wall_s=pass_wall,
         pass_score_rows=pass_score_rows,
         pass_steps=pass_steps,
+        pass_scan_calls=pass_scan_calls,
         score_rows=score_rows,
         score_count=score_rows * k,
         h2d_rows=h2d_rows,
@@ -226,7 +252,145 @@ def restream_partition(
         wall_time_s=float(sum(pass_wall)) + warm_wall,
         unassigned=metrics.unassigned_count(final.assign),
     )
+    if tr.enabled:
+        # final.stats carries its own pass's snapshot; refresh so the
+        # returned stats see every pass's spans.
+        stats["trace_summary"] = tr.summary().as_dict()
     return PartitionResult(final.assign, stats)
+
+
+def restream_partition_batched(
+    streams: np.ndarray,
+    valid: np.ndarray,
+    num_vertices: int,
+    k: int,
+    *,
+    allowed: Optional[np.ndarray] = None,
+    passes: int = 2,
+    base: str = "adwise",
+    keep_best: bool = True,
+    eps: Optional[float] = None,
+    seed: int = 0,
+    n_chunks: int = 8,
+    backend: str = "auto",
+    trace=None,
+    device=None,
+    **adwise_cfg,
+) -> List[PartitionResult]:
+    """n-pass re-streaming over ``z`` batched spotlight instances.
+
+    Every pass runs all z instance scans as one batched scan
+    (:func:`repro_torch.core.adwise.partition_stream_batched`); between
+    passes each instance derives its own :class:`WarmState` from its own
+    sub-stream assignment. Instances never communicate (the paper's
+    parallel loading model); ``keep_best`` picks each instance's best pass
+    independently, while ``eps`` stops once NO instance improves its
+    replication degree by >= eps (passes are batched, so all instances run
+    the same pass count).
+
+    Args mirror :func:`restream_partition` plus the batched layout of
+    :func:`partition_stream_batched` (``streams[z, per, 2]``,
+    ``valid[z, per]``, per-instance ``allowed[z, k]``) — except ``base``:
+    only ``'adwise'`` batches; a non-adwise pass 1 runs per-instance
+    baselines (``spotlight_partition(..., backend='loop')``).
+
+    Returns one PartitionResult per instance (local stream order).
+    """
+    if passes < 1:
+        raise ValueError(f"passes must be >= 1, got {passes}")
+    if base != "adwise":
+        raise ValueError(
+            f"restream_partition_batched only batches base='adwise' (got "
+            f"{base!r}): a non-adwise pass 1 runs per-instance baselines — "
+            "use spotlight_partition(..., backend='loop')"
+        )
+    tr = resolve_tracer(trace)
+    device = compat.resolve_device(device)
+    cfg = AdwiseConfig(k=k, seed=seed, **adwise_cfg)
+    z = int(streams.shape[0])
+    valid = np.asarray(valid, bool)
+    m_per = valid.sum(axis=1).astype(np.int64)
+    edges_i = [streams[i, : m_per[i]] for i in range(z)]
+    run = dict(allowed=allowed, backend=backend, n_chunks=n_chunks,
+               residency=StreamResidency(), trace=trace, device=device)
+
+    t0 = time.perf_counter()
+    results = partition_stream_batched(streams, valid, num_vertices, cfg, **run)
+    pass_rd = [[_rd(edges_i[i], results[i].assign, num_vertices, k)] for i in range(z)]
+    if tr.enabled:
+        tr.add_span(
+            "pass-1", "pass", t0, time.perf_counter(), track="restream-pass-1",
+            attrs=dict(base=base, z=z, rd_mean=float(np.mean([r[0] for r in pass_rd]))),
+        )
+    pass_score_rows = [[int(results[i].stats.get("score_rows", 0))] for i in range(z)]
+    pass_steps = [_steps(results[0].stats)]
+    pass_scan_calls = [int(results[0].stats.get("scan_calls", 0))]
+    # h2d counters are run-level (one batched scan per pass).
+    h2d_rows = int(results[0].stats.get("h2d_rows", 0))
+    h2d_bytes = int(results[0].stats.get("h2d_bytes", 0))
+    best = list(results)
+    best_rd = [pass_rd[i][0] for i in range(z)]
+    best_pass = [1] * z
+
+    for j in range(1, passes):
+        t_pass = time.perf_counter()
+        warms = [warm_from_assignment(edges_i[i], results[i].assign, num_vertices, k)
+                 for i in range(z)]
+        results = partition_stream_batched(streams, valid, num_vertices, cfg, warm=warms, **run)
+        h2d_rows += int(results[0].stats.get("h2d_rows", 0))
+        h2d_bytes += int(results[0].stats.get("h2d_bytes", 0))
+        pass_steps.append(_steps(results[0].stats))
+        pass_scan_calls.append(int(results[0].stats.get("scan_calls", 0)))
+        improved = 0.0
+        for i in range(z):
+            rd = _rd(edges_i[i], results[i].assign, num_vertices, k)
+            improved = max(improved, pass_rd[i][-1] - rd)
+            pass_rd[i].append(rd)
+            pass_score_rows[i].append(int(results[i].stats.get("score_rows", 0)))
+            if rd <= best_rd[i]:
+                best[i], best_rd[i], best_pass[i] = results[i], rd, len(pass_rd[i])
+        if tr.enabled:
+            tr.add_span(
+                f"pass-{j + 1}", "pass", t_pass, time.perf_counter(),
+                track=f"restream-pass-{j + 1}",
+                attrs=dict(z=z, rd_delta_max=improved,
+                           rd_mean=float(np.mean([r[-1] for r in pass_rd]))),
+            )
+        if eps is not None and improved < eps:
+            break
+
+    passes_run = len(pass_rd[0])
+    wall = time.perf_counter() - t0
+    finals = best if keep_best else results
+    tsum = tr.summary().as_dict() if tr.enabled else None
+    out = []
+    for i in range(z):
+        rows = int(sum(pass_score_rows[i]))
+        stats = dict(
+            finals[i].stats,
+            name="adwise-restream",
+            passes=passes,
+            passes_run=passes_run,
+            stream_reads=passes_run,
+            eps=eps,
+            best_pass=best_pass[i] if keep_best else passes_run,
+            pass_rd=pass_rd[i],
+            pass_score_rows=pass_score_rows[i],
+            pass_steps=pass_steps,
+            pass_scan_calls=pass_scan_calls,
+            score_rows=rows,
+            score_count=rows * k,
+            h2d_rows=h2d_rows,
+            h2d_bytes=h2d_bytes,
+            # All passes ran as batched scans; the accumulated batched wall
+            # is shared by every instance (parallel model).
+            wall_time_s=wall,
+            unassigned=metrics.unassigned_count(finals[i].assign),
+        )
+        if tsum is not None:
+            stats["trace_summary"] = tsum
+        out.append(PartitionResult(finals[i].assign, stats))
+    return out
 
 
 # ----------------------------------------------------------------------------
@@ -286,9 +450,11 @@ class ClusterCore(StepCore):
         n = self.num_vertices
         dummy_v = n + 2  # the last row of vols
         dummy_c = n  # the dump row of cl
+        # One instance: the chunk as a batch of one, its scalars as (1,).
+        stream1, m_real1 = stream[None], m_real.view(1)
 
         def step(carry: ClusterCarry, out) -> None:
-            _, lv, lvi, u, v = _edge_at(stream, m_real, carry.cursor, n)
+            _, lv, lvi, u, v = _edge_at(stream1, m_real1, carry.cursor.view(1), n, None)
             cl, vols, nxt = carry.cl, carry.vols, carry.nxt
             du = carry.deg.index_select(0, u)
             dv = carry.deg.index_select(0, v)
@@ -395,7 +561,7 @@ class VertexClusteringState:
                 self._chunk, self._rows, None,
                 torch.tensor(self.cap, dtype=torch.int32, device=dev), None,
             )
-            out = StepOut.empty(1, 1, dev)  # the step writes no output row
+            out = StepOut.empty(1, 1, 1, dev)  # the step writes no output row
             if dev.type == "cuda":
                 self._run = driver._GraphStepper(
                     step, self._carry, out, self._pad, driver.STEPS_PER_GRAPH)
@@ -566,6 +732,7 @@ def two_phase_partition(
     seed: int = 0,
     n_chunks: int = 8,
     allowed: Optional[np.ndarray] = None,
+    trace=None,
     device=None,
     **adwise_cfg,
 ) -> PartitionResult:
@@ -574,7 +741,8 @@ def two_phase_partition(
     Phase 2 runs the ADWISE scan warm-started with virtual replicas — each
     clustered vertex starts replicated on its cluster's partition — so the
     Eq. 5 replication term *is* the cluster-affinity score, and λ·B plus the
-    capacity cap keep the result balanced.
+    capacity cap keep the result balanced. ``trace`` threads through to the
+    phase-2 scan driver.
     """
     device = compat.resolve_device(device)
     adwise_cfg.setdefault("window_max", 32)
@@ -585,7 +753,7 @@ def two_phase_partition(
     t_phase1 = time.perf_counter() - t0
     res = partition_stream(
         edges, num_vertices, cfg, n_chunks=n_chunks, warm=warm, allowed=allowed,
-        device=device,
+        trace=trace, device=device,
     )
     stats = dict(
         res.stats,
@@ -726,30 +894,27 @@ class TpslCore(StepCore):
             assigned=_zeros_i32(device),
         )
 
-    def counters(self, carry) -> dict:
-        return dict(
-            score_rows=np.asarray([carry.assigned.item()], np.int64),
-            final_w=np.ones((1,), np.int64),
-            lam=np.full((1,), self.lam, np.float32),
-            cost_per_score=np.zeros((1,), np.float32),
-        )
-
     def make_step(self, stream, m_real, allowed, cap, prev_assign):
-        v_dummy = self.num_vertices
+        v_dummy, k = self.num_vertices, self.k
+        v1 = v_dummy + 1
         lam_q, eps_q = _lam_q(self.lam), _eps_q(self.eps)
-        parts = torch.arange(self.k, dtype=torch.int32, device=stream.device)
+        parts = torch.arange(k, dtype=torch.int32, device=stream.device)
+        z, dev = stream.shape[0], stream.device
+        s_off, v_off, k_off = (instance_offsets(z, n, dev) for n in (stream.shape[1], v1, k))
 
         def step(carry: TpslCarry, out) -> None:
-            cur, live, live_i, u, v = _edge_at(stream, m_real, carry.cursor, v_dummy)
+            cur, live, live_i, u, v = _edge_at(stream, m_real, carry.cursor, v_dummy, s_off)
+            ug, vg = at_rows(u, v_off), at_rows(v, v_off)
+            deg, vp = carry.deg.view(-1), carry.vp.view(-1)
             # Degrees were clamped when the carry was built.
-            tq_u, tq_v = _theta_q(carry.deg.index_select(0, u), carry.deg.index_select(0, v))
-            rep_q = ((parts == carry.vp.index_select(0, u)) * tq_u
-                     + (parts == carry.vp.index_select(0, v)) * tq_v)
+            tq_u, tq_v = _theta_q(deg.index_select(0, ug), deg.index_select(0, vg))
+            rep_q = ((parts == vp.index_select(0, ug)[:, None]) * tq_u[:, None]
+                     + (parts == vp.index_select(0, vg)[:, None]) * tq_v[:, None])
             sizes = carry.sizes
             score_q = QB * rep_q + lam_q * _balance_q(sizes, allowed, eps_q)
-            eligible = allowed & (sizes < cap)
-            p = torch.where(eligible, score_q, -1).argmax().view(1).to(torch.int32)
-            sizes.index_add_(0, p, live_i)
+            eligible = allowed & (sizes < cap[:, None])
+            p = torch.where(eligible, score_q, -1).argmax(1).to(torch.int32)
+            sizes.view(-1).index_add_(0, at_rows(p, k_off), live_i)
             _emit(out, cur, live, live_i, p, carry)
 
         return step
@@ -769,17 +934,18 @@ def two_phase_linear_partition(
     scan: bool = True,
     backend: str = "vmap",
     n_chunks: int = 8,
+    trace=None,
     device=None,
 ) -> PartitionResult:
     """2PS-L: streaming clustering, then the linear-time scoring pass.
 
     ``scan=True`` (default) runs phase 2 as the :class:`TpslCore` step-core
-    through the scan driver; ``scan=False`` runs the :class:`TpslState`
-    numpy oracle after the numpy clustering oracle — bit-identical by
-    construction. ``seed`` is accepted for registry uniformity; 2PS-L is
-    deterministic (no tie noise).
+    through the scan driver (``trace`` threads through to it);
+    ``scan=False`` runs the :class:`TpslState` numpy oracle after the numpy
+    clustering oracle — bit-identical by construction. ``seed`` is accepted
+    for registry uniformity; 2PS-L is deterministic (no tie noise).
     """
-    _check_backend(backend)
+    resolve_backend(backend, 1)
     device = compat.resolve_device(device)
     m = len(edges)
     if m == 0:
@@ -799,7 +965,8 @@ def two_phase_linear_partition(
     t_phase1 = time.perf_counter() - t0
     if scan:
         res = _scan_partition(
-            core, edges, allowed=allowed, warm=warm, n_chunks=n_chunks, device=device,
+            core, edges, allowed=allowed, warm=warm, backend=backend,
+            n_chunks=n_chunks, trace=trace, device=device,
         )
         assign, stats = res.assign, dict(res.stats)
     else:
@@ -824,6 +991,87 @@ def two_phase_linear_partition(
         unassigned=int((np.asarray(assign) < 0).sum()),
     )
     return PartitionResult(np.asarray(assign, np.int32), stats)
+
+
+def two_phase_partition_batched(
+    streams: np.ndarray,
+    valid: np.ndarray,
+    num_vertices: int,
+    k: int,
+    *,
+    variant: str = "2ps",
+    allowed: Optional[np.ndarray] = None,
+    cluster_slack: float = 1.25,
+    seed: int = 0,
+    n_chunks: int = 8,
+    backend: str = "auto",
+    lam: float = 1.1,
+    eps: float = 1.0,
+    cap_slack: float = 1.15,
+    trace=None,
+    device=None,
+    **adwise_cfg,
+) -> List[PartitionResult]:
+    """2PS / 2PS-L over ``z`` batched spotlight instances.
+
+    Phase 1 runs per instance (each instance clusters its own sub-stream
+    against its own ``allowed`` partition budget, through
+    :class:`VertexClusteringState` at z = 1); phase 2 runs ALL z instances
+    as one batched scan — the ADWISE scan for ``variant='2ps'``
+    (``adwise_cfg`` keys apply, window_max defaults to 32) or the
+    :class:`TpslCore` step-core for ``variant='2ps-l'`` (which takes
+    ``lam``/``eps``/``cap_slack`` instead). Bit-identical per instance to
+    the sequential :func:`two_phase_partition` /
+    :func:`two_phase_linear_partition` calls.
+    """
+    if variant not in ("2ps", "2ps-l"):
+        raise ValueError(f"unknown two-phase variant {variant!r}")
+    device = compat.resolve_device(device)
+    z = int(streams.shape[0])
+    valid = np.asarray(valid, bool)
+    m_per = valid.sum(axis=1).astype(np.int64)
+    t0 = time.perf_counter()
+    warms, n_clusters = [], []
+    for i in range(z):
+        a_i = None if allowed is None else np.asarray(allowed[i], bool)
+        w, nc = _phase1_warm(streams[i, : m_per[i]], num_vertices, k, a_i,
+                             cluster_slack, device)
+        warms.append(w)
+        n_clusters.append(nc)
+    t_phase1 = time.perf_counter() - t0
+    run = dict(allowed=allowed, warm=warms, backend=backend, n_chunks=n_chunks,
+               trace=trace, device=device)
+    if variant == "2ps":
+        adwise_cfg.setdefault("window_max", 32)
+        adwise_cfg.setdefault("window_init", max(1, min(8, adwise_cfg["window_max"])))
+        cfg = AdwiseConfig(k=k, seed=seed, **adwise_cfg)
+        results = partition_stream_batched(streams, valid, num_vertices, cfg, **run)
+    else:
+        if adwise_cfg:
+            raise TypeError(f"2ps-l: unknown config keys {sorted(adwise_cfg)}")
+        core = TpslCore(
+            num_vertices=int(num_vertices), k=int(k), lam=float(lam),
+            eps=float(eps), cap_slack=float(cap_slack),
+        )
+        results = partition_stream_batched(
+            streams, valid, num_vertices, None, core=core, **run)
+    wall = time.perf_counter() - t0
+    out = []
+    for i, res in enumerate(results):
+        stats = dict(
+            res.stats,
+            name=variant,
+            n_clusters=n_clusters[i],
+            cluster_slack=cluster_slack,
+            phase1_wall_s=t_phase1,
+            stream_reads=2,
+            # Phase 2 ran as one batched scan; the shared wall covers every
+            # instance (parallel loading model).
+            wall_time_s=wall,
+            unassigned=metrics.unassigned_count(res.assign),
+        )
+        out.append(PartitionResult(res.assign, stats))
+    return out
 
 
 # ----------------------------------------------------------------------------

@@ -6,6 +6,11 @@ multiply-add — so on the same inputs the results are bit-equal to the JAX
 functions (held by ``tests/test_torch_scoring.py``). Shapes:
 
   W = window capacity, K = number of partitions.
+
+:func:`balance_score` and :func:`lambda_update` reduce over the last axis,
+so they also take z instances' loads at once — ``sizes``/``allowed``
+(z, K) and ``lam``/``assigned``/``m_total`` (z,) — as the batched ADWISE
+step passes them.
 """
 from __future__ import annotations
 
@@ -27,8 +32,8 @@ _I32_MAX = 2**31 - 1
 
 def balance_score(sizes: torch.Tensor, allowed: torch.Tensor, eps: float) -> torch.Tensor:
     """Eq. 3: B(p) = (maxsize - |p|) / (maxsize - minsize + eps), masked to allowed."""
-    mx = torch.where(allowed, sizes, _I32_MIN).max()
-    mn = torch.where(allowed, sizes, _I32_MAX).min()
+    mx = torch.where(allowed, sizes, _I32_MIN).amax(-1, keepdim=True)
+    mn = torch.where(allowed, sizes, _I32_MAX).amin(-1, keepdim=True)
     return (mx - sizes).float() / ((mx - mn).float() + eps)
 
 
@@ -110,8 +115,8 @@ def lambda_update(
     ι = (maxsize − minsize)/maxsize over allowed partitions,
     tolerance(α) = max(0, 1 − α), α = assigned/m.
     """
-    mx = torch.where(allowed, sizes, 0).max().float()
-    mn = torch.where(allowed, sizes, _I32_MAX).min().float()
+    mx = torch.where(allowed, sizes, 0).amax(-1).float()
+    mn = torch.where(allowed, sizes, _I32_MAX).amin(-1).float()
     iota = torch.where(mx > 0, (mx - mn) / mx.clamp_min(1.0), 0.0)
     alpha = assigned.float() / m_total.float().clamp_min(1.0)
     tol = (1.0 - alpha).clamp_min(0.0)

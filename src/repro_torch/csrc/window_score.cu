@@ -18,6 +18,15 @@
 // replicas (V+1, K) and deg (V+1,) — at the window's vertex ids, so the
 // step gathers nothing before the call: rep_u[j] is replicas[u_j].
 //
+// The row op scores a batch of z independent instances (spotlight's
+// partitioner instances) in one launch: every input gains a leading
+// instance axis — uv (z, W, 2), valid (z, W), replicas (z, V+1, K), deg
+// (z, V+1), max_deg (z,), rows (z, R) — and out is (z, R, K). blockIdx.y
+// is the instance; a block offsets every pointer by its instance's stride
+// and then runs the single-instance body unchanged, so each instance's rows
+// are bit-equal to a launch over that instance alone. One instance is the
+// z = 1 case of the same launch; the full op is always z = 1.
+//
 // Bound: at the step's shapes (R = 32 rows of W = 256, K = 32) the function
 // needs ~20 KB (the window's ids, the selected and matched replica rows of
 // the 1.3 MB table, the output) and a few hundred thousand operations: well
@@ -25,10 +34,10 @@
 // plus one chain of dependent reads — the window's ids, then the replica
 // rows of the matched columns (L2-resident), then the epilogue.
 //
-// Design. One block per scored row, one thread per window column (W <= 1024
-// in one pass; longer windows loop). Each thread computes its column's
-// 2-bit match code; __ballot_sync gives each warp the matched columns of
-// its 32, and the warp walks only those set bits: lane p (32 partitions per
+// Design. One block per scored row and instance, one thread per window
+// column (W <= 1024 in one pass; longer windows loop). Each thread
+// computes its column's 2-bit match code; __ballot_sync gives each warp the
+// matched columns of its 32, and the warp walks only those set bits: lane p (32 partitions per
 // pass; more loop) reads replicas[v_j][p] / replicas[u_j][p] — one
 // coalesced 32-byte row segment per matched column — four columns at a time
 // so the loads are independent. Counts are int32 and the warps' partials
@@ -84,17 +93,28 @@ __global__ void window_score_kernel(
     const uint8_t* __restrict__ allowed,   // (K,) or null
     const float* __restrict__ lam,         // () or null
     const void* __restrict__ rows,         // (R,) int32 / int64, or null (full op: r -> r)
-    int rows_64, int n_tab, int W, int K, int use_cs,
+    int rows_64, int n_rows, int n_tab, int W, int K, int use_cs,
     float* __restrict__ out)               // (R, K)
 {
   extern __shared__ int snum[];  // (K,) clustering numerators
   __shared__ int s_den;
   __shared__ int s_bad;
 
+  // This block's instance: every pointer moves to its slice.
+  const size_t inst = blockIdx.y;
+  uv += inst * W * 2;
+  valid += inst * W;
+  rep_u += inst * n_tab * K;
+  rep_v += inst * n_tab * K;
+  deg_u += inst * n_tab;
+  deg_v += inst * n_tab;
+  max_deg += inst;
+  out += inst * n_rows * K;
+
   const int r = blockIdx.x;
   const long long i_raw = !rows ? r
-      : rows_64 ? static_cast<const int64_t*>(rows)[r]
-                : (long long)static_cast<const int32_t*>(rows)[r];
+      : rows_64 ? static_cast<const int64_t*>(rows)[inst * n_rows + r]
+                : (long long)static_cast<const int32_t*>(rows)[inst * n_rows + r];
   const int lane = threadIdx.x & 31;
   if (i_raw < 0 || i_raw >= W) {
     for (int p = threadIdx.x; p < K; p += blockDim.x)
@@ -180,19 +200,22 @@ __global__ void empty_kernel() {}
 
 }  // namespace
 
-// Full op when rows == nullptr (n_rows must equal W; bal/allowed/lam set;
-// n_tab = W); row op otherwise (bal/allowed/lam null; rep_u == rep_v is the
-// (n_tab, K) replica table and deg_u == deg_v the (n_tab,) degree table,
-// read at the window's vertex ids). rows_64: rows is int64, else int32. Launches on `stream` and
-// returns cudaGetLastError() (0 on success).
+// Full op when rows == nullptr (n_inst must be 1; n_rows must equal W;
+// bal/allowed/lam set; n_tab = W); row op otherwise (bal/allowed/lam null;
+// rep_u == rep_v is the (n_inst, n_tab, K) replica table and deg_u == deg_v
+// the (n_inst, n_tab) degree table, read at each instance's window vertex
+// ids; rows is (n_inst, n_rows)). rows_64: rows is int64, else int32.
+// Launches on `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int window_score_launch(
     const int32_t* uv, const uint8_t* valid, const uint8_t* rep_u,
     const uint8_t* rep_v, const int32_t* deg_u, const int32_t* deg_v,
     const int32_t* max_deg, const float* bal, const uint8_t* allowed,
-    const float* lam, const void* rows, int rows_64, int n_tab,
+    const float* lam, const void* rows, int rows_64, int n_inst, int n_tab,
     int n_rows, int W, int K, int use_cs, float* out, void* stream)
 {
-  if (n_rows <= 0 || W <= 0 || K <= 0 || n_tab <= 0) return (int)cudaErrorInvalidValue;
+  if (n_rows <= 0 || W <= 0 || K <= 0 || n_tab <= 0 || n_inst <= 0 || n_inst > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (!rows && n_inst != 1) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)K * sizeof(int);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -200,9 +223,9 @@ extern "C" int window_score_launch(
     if (e != cudaSuccess) return (int)e;
   }
   const int threads = W >= kMaxThreads ? kMaxThreads : (W + 31) / 32 * 32;
-  window_score_kernel<<<n_rows, threads, smem, (cudaStream_t)stream>>>(
+  window_score_kernel<<<dim3(n_rows, n_inst), threads, smem, (cudaStream_t)stream>>>(
       uv, valid, rep_u, rep_v, deg_u, deg_v, max_deg, bal, allowed, lam,
-      rows, rows_64, n_tab, W, K, use_cs, out);
+      rows, rows_64, n_rows, n_tab, W, K, use_cs, out);
   return (int)cudaGetLastError();
 }
 

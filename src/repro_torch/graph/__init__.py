@@ -1,4 +1,5 @@
-"""Graph substrate of the port: synthetic generators and quality metrics."""
+"""Graph substrate of the port: synthetic generators, quality metrics and
+the edge stream."""
 from repro_torch.graph.generate import (
     GRAPH_PRESETS,
     barabasi_albert,
@@ -15,8 +16,10 @@ from repro_torch.graph.metrics import (
     sync_volume,
     unassigned_count,
 )
+from repro_torch.graph.stream import EdgeStream
 
 __all__ = [
+    "EdgeStream",
     "barabasi_albert",
     "erdos_renyi",
     "rmat",

@@ -18,6 +18,7 @@ from repro_torch.kernels import window_score as _ws
 __all__ = [
     "window_score",
     "window_score_rows",
+    "window_score_rows_batched",
     "segment_sum_sorted",
     "flash_attention",
     "launch_counts",
@@ -74,6 +75,22 @@ def window_score_rows(
             win_uv, win_valid, replicas, deg, max_deg, rows, use_cs=use_cs,
         )
     return _ws.window_score_rows(
+        win_uv, win_valid, replicas, deg, max_deg, rows, use_cs=use_cs,
+    )
+
+
+def window_score_rows_batched(
+    win_uv, win_valid, replicas, deg, max_deg, rows, *, use_cs: bool = True,
+) -> torch.Tensor:
+    """(z, R, K) R + CS of each of z instances' window slots ``rows`` (z, R)
+    — the batched ADWISE step's rescoring, read from the (z, V+1, K) replica
+    and (z, V+1) degree tables; one kernel launch for all instances."""
+    dev = _device_of(win_uv, win_valid, replicas, deg, max_deg, rows)
+    if dev.type == "cpu":
+        return _ref.window_score_rows_batched_ref(
+            win_uv, win_valid, replicas, deg, max_deg, rows, use_cs=use_cs,
+        )
+    return _ws.window_score_rows_batched(
         win_uv, win_valid, replicas, deg, max_deg, rows, use_cs=use_cs,
     )
 

@@ -14,7 +14,8 @@ import torch
 NEG_INF = -1e30
 
 __all__ = [
-    "window_score_ref", "window_score_rows_ref", "segment_sum_ref",
+    "window_score_ref", "window_score_rows_ref", "window_score_rows_batched_ref",
+    "segment_sum_ref",
     "flash_attention_ref",
 ]
 
@@ -94,6 +95,44 @@ def window_score_rows_ref(
     g = _replication(rep_u, rep_v, deg[u], deg[v], max_deg)[rows]
     if use_cs:
         g = g + _clustering(u[rows], v[rows], rows, u, v, win_valid, rep_u, rep_v)
+    return g
+
+
+def window_score_rows_batched_ref(
+    win_uv: torch.Tensor,  # (z, W, 2) int32
+    win_valid: torch.Tensor,  # (z, W) bool
+    replicas: torch.Tensor,  # (z, V+1, K) bool — each instance's replica table
+    deg: torch.Tensor,  # (z, V+1) int32 — each instance's degree table
+    max_deg: torch.Tensor,  # (z,) int32
+    rows: torch.Tensor,  # (z, R) int32 / int64 — window slots to score, in [0, W)
+    *,
+    use_cs: bool = True,
+) -> torch.Tensor:
+    """:func:`window_score_rows_ref` for each of z independent instances:
+    (z, R, K), instance i's rows equal to the z = 1 call on instance i's
+    inputs, bit for bit (the elementwise terms are the same operations per
+    element, and the clustering numerators and denominators are sums of 0/1
+    terms, exact in any order)."""
+    z, w = win_uv.shape[:2]
+    u, v = win_uv[..., 0].long(), win_uv[..., 1].long()  # (z, W)
+    inst = torch.arange(z, device=u.device)[:, None]
+    rep_u, rep_v = replicas[inst, u], replicas[inst, v]  # (z, W, K)
+    denom = (2.0 * max_deg.clamp_min(1).float())[:, None]
+    psi_u = deg.gather(1, u).float() / denom
+    psi_v = deg.gather(1, v).float() / denom
+    r = rep_u.float() * (2.0 - psi_u)[..., None] + rep_v.float() * (2.0 - psi_v)[..., None]
+    rows = rows.long()
+    g = r.gather(1, rows[..., None].expand(-1, -1, r.shape[2]))
+    if use_cs:
+        u_i, v_i = u.gather(1, rows)[..., None], v.gather(1, rows)[..., None]
+        slots = torch.arange(w, device=u.device)
+        keep = win_valid[:, None, :] & (rows[..., None] != slots)  # (z, R, W)
+        a = ((u[:, None, :] == u_i) | (u[:, None, :] == v_i)) & keep
+        b = ((v[:, None, :] == u_i) | (v[:, None, :] == v_i)) & keep
+        af, bf = a.float(), b.float()
+        num = af @ rep_v.float() + bf @ rep_u.float()
+        den = af.sum(2) + bf.sum(2)
+        g = g + num / den.clamp_min(1.0)[..., None]
     return g
 
 

@@ -2,16 +2,27 @@
 
     PYTHONPATH=src python -m repro_torch.launch.partition --graph brain_like \
         --scale 1.0 --k 32 --device cuda
+    # spotlight: 8 instances, each on a block of 4 partitions, one batched scan
+    PYTHONPATH=src python -m repro_torch.launch.partition --graph brain_like \
+        --scale 1.0 --strategy adwise --k 32 --z 8 --spread 4 --trace trace.json
 
 Runs: a generator preset → stream partitioning (a strategy of
-``repro_torch.core.registry``) → vertex-cut engine build → workload → total
-latency report (partitioning wall-clock + modeled cluster processing
-latency), printing the same lines as the JAX package's
-``repro.launch.partition``. ``--device`` picks ``cuda`` (default) or ``cpu``.
+``repro_torch.core.registry``, optionally under spotlight parallel loading
+with ``--z N``: the z instances run as ONE batched scan for every registry
+strategy but grid, ``--backend loop`` runs them one after another) →
+vertex-cut engine build → workload → total latency report (partitioning
+wall-clock + modeled cluster processing latency), printing the same lines
+as the JAX package's ``repro.launch.partition``. ``--device`` picks
+``cuda`` (default) or ``cpu``.
 
-What this slice does not port exits with a message that names its
-ROADMAP.md item, and never falls through to something else: ``--z``/
-``--parallel`` > 1 (spotlight) and a graph file path (out-of-core).
+``--trace out.json`` records a span timeline with
+:class:`repro_torch.obs.Tracer` — one ``partition`` phase span and one
+``superstep`` span per engine superstep — and writes it as Chrome
+trace-event JSON (open it in https://ui.perfetto.dev). Tracing is
+host-side only: it adds no device synchronisation.
+
+A graph file path (out-of-core) is not ported yet and exits with a message
+that names its ROADMAP.md item, never falling through to something else.
 """
 from __future__ import annotations
 
@@ -20,7 +31,7 @@ import json
 import os
 import time
 
-from repro_torch.core import available_strategies, run_partitioner
+from repro_torch.core import AdwiseConfig, available_strategies, run_partitioner, spotlight_partition
 from repro_torch.engine import (
     PAPER_CLUSTER,
     build_partitioned_graph,
@@ -50,6 +61,50 @@ def _unported(what: str, item: str) -> SystemExit:
     )
 
 
+def _adwise_cfg_kwargs(args) -> dict:
+    return dict(window_max=args.window_max, latency_budget=args.budget,
+                use_clustering=not args.no_cs)
+
+
+def run_partition(edges, n, args, trace=None):
+    """Partition under one ``partition`` phase span (the registry and
+    spotlight routes record no finer spans here, as in the JAX launcher)."""
+    from repro_torch.obs import resolve_tracer
+
+    with resolve_tracer(trace).span("partition", cat="phase", strategy=args.strategy, k=args.k):
+        return _run_partition(edges, n, args)
+
+
+def _run_partition(edges, n, args):
+    if args.parallel > 1:
+        cfg = None
+        strategy_cfg = None
+        if args.strategy == "adwise":
+            cfg = AdwiseConfig(k=args.k, **_adwise_cfg_kwargs(args))
+        elif args.strategy in _ADWISE_LIKE:
+            strategy_cfg = _adwise_cfg_kwargs(args)
+            if args.strategy == "adwise-restream":
+                strategy_cfg["passes"] = args.passes
+                if args.eps is not None:
+                    strategy_cfg["eps"] = args.eps
+        return spotlight_partition(
+            edges, n, args.k, z=args.parallel, spread=args.spread,
+            strategy=args.strategy, cfg=cfg, seed=args.seed,
+            strategy_cfg=strategy_cfg, backend=args.backend, device=args.device,
+        )
+    cfg = {}
+    if args.strategy in _ADWISE_LIKE:
+        cfg = _adwise_cfg_kwargs(args)
+    if args.strategy == "adwise":
+        cfg["oracle"] = args.oracle
+    elif args.strategy == "adwise-restream":
+        cfg["passes"] = args.passes
+        if args.eps is not None:
+            cfg["eps"] = args.eps
+    return run_partitioner(args.strategy, edges, n, args.k, seed=args.seed,
+                           device=args.device, **cfg)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--graph", default="brain_like",
@@ -59,7 +114,13 @@ def main(argv=None):
                     help=f"one of {', '.join(available_strategies())}")
     ap.add_argument("--k", type=int, default=32)
     ap.add_argument("--parallel", "--z", type=int, default=1, dest="parallel",
-                    help="z partitioner instances (spotlight; not ported)")
+                    help="z partitioner instances (spotlight parallel loading)")
+    ap.add_argument("--spread", type=int, default=4)
+    ap.add_argument("--backend", default="auto",
+                    choices=["auto", "batched", "vmap", "shard_map", "loop"],
+                    help="spotlight execution: one batched scan for all z "
+                         "instances (auto — every registry strategy batches) "
+                         "or the sequential per-instance loop")
     ap.add_argument("--budget", type=float, default=None, help="latency preference L (s)")
     ap.add_argument("--window-max", type=int, default=256)
     ap.add_argument("--no-cs", action="store_true", help="disable clustering score")
@@ -75,10 +136,13 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--json", default=None)
+    ap.add_argument("--trace", default=None, metavar="OUT_JSON",
+                    help="record a span timeline of the run (repro_torch.obs) "
+                         "and write Chrome trace-event JSON here — open in "
+                         "https://ui.perfetto.dev. Host-side only: no added "
+                         "device syncs")
     args = ap.parse_args(argv)
 
-    if args.parallel > 1:
-        raise _unported("--z/--parallel > 1 (spotlight)", "item 8 (spotlight)")
     if args.graph not in GRAPH_PRESETS:
         if os.path.exists(args.graph):
             raise _unported("partitioning a graph file", "item 10 (out-of-core)")
@@ -87,20 +151,14 @@ def main(argv=None):
         ap.error(f"unknown strategy {args.strategy!r}; "
                  f"available: {', '.join(available_strategies())}")
 
+    tracer = None
+    if args.trace:
+        from repro_torch.obs import Tracer
+
+        tracer = Tracer()
     edges, n = make_graph(args.graph, seed=args.seed, scale=args.scale)
     print(f"graph={args.graph} |V|={n} |E|={len(edges)} k={args.k}")
-    cfg = {}
-    if args.strategy in _ADWISE_LIKE:
-        cfg = dict(window_max=args.window_max, latency_budget=args.budget,
-                   use_clustering=not args.no_cs)
-    if args.strategy == "adwise":
-        cfg["oracle"] = args.oracle
-    elif args.strategy == "adwise-restream":
-        cfg["passes"] = args.passes
-        if args.eps is not None:
-            cfg["eps"] = args.eps
-    res = run_partitioner(args.strategy, edges, n, args.k, seed=args.seed,
-                          device=args.device, **cfg)
+    res = run_partition(edges, n, args, trace=tracer)
     n_unassigned = unassigned_count(res.assign)
     rep = replica_sets_from_assignment(edges, res.assign, n, args.k, unassigned="drop")
     rd = replication_degree(rep)
@@ -112,20 +170,22 @@ def main(argv=None):
         graph=args.graph, strategy=args.strategy, k=args.k, device=args.device,
         replication_degree=rd, imbalance=imb, unassigned=n_unassigned,
         partition_latency_s=t_part,
-        stats={k: v for k, v in res.stats.items() if isinstance(v, (int, float, str))},
+        stats={k: v for k, v in res.stats.items()
+               if isinstance(v, (int, float, str))
+               or (isinstance(v, list) and all(isinstance(x, (int, float)) for x in v))},
     )
     if args.workload != "none":
         g = build_partitioned_graph(edges, res.assign, n, args.k, device=args.device)
         t0 = time.perf_counter()
         if args.workload == "pagerank":
-            _, info = pagerank(g, iters=min(args.iters, 30))
+            _, info = pagerank(g, iters=min(args.iters, 30), trace=tracer)
             info["supersteps"] = args.iters
         elif args.workload == "coloring":
-            _, info = coloring(g)
+            _, info = coloring(g, trace=tracer)
         elif args.workload == "wcc":
-            _, info = label_propagation(g)
+            _, info = label_propagation(g, trace=tracer)
         else:
-            _, info = triangle_count(g)
+            _, info = triangle_count(g, trace=tracer)
         t_proc_local = time.perf_counter() - t0
         model = process_latency(g, info["supersteps"], info["msg_width"], PAPER_CLUSTER)
         total = t_part + model["t_total_s"]
@@ -136,6 +196,16 @@ def main(argv=None):
             f"TOTAL latency (partition + modeled processing) = {total:.2f}s"
         )
         out.update(workload=args.workload, processing_model=model, total_latency_s=total)
+    if tracer is not None:
+        n_events = tracer.export(args.trace)
+        summ = tracer.summary()
+        cats = ", ".join(
+            f"{c}:{d['count']}x/{d['wall_s']:.3f}s"
+            for c, d in sorted(summ.categories.items())
+        )
+        print(f"trace: {n_events} events -> {args.trace} "
+              f"(wall={summ.wall_s:.3f}s; {cats})")
+        out["trace"] = dict(path=args.trace, **summ.as_dict())
     if args.json:
         with open(args.json, "w") as f:
             json.dump(out, f, indent=1)

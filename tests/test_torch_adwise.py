@@ -10,9 +10,13 @@ decisions; the whole-run tests in ``test_torch_adwise_runs.py`` hold the
 port against the jitted ``partition_stream``.)
 
 Every carry field and the step's outputs must be bit-equal, except Θ: it
-is the mean of up to W non-negative fp32 values, and torch and XLA sum in
-different orders, so Θ is held to the error bound of a W-term fp32 sum in
-any order, W·2⁻²⁴ relative.
+is the mean of up to W non-negative fp32 values, which XLA sums in fp32 and
+the port in fp64 (exact, then rounded once), so Θ is held to the error
+bound of a W-term fp32 sum in any order, W·2⁻²⁴ relative.
+
+The port's step advances a batch of instances; here the batch holds the
+one instance (z = 1), its carry stacked from the JAX package's and taken
+apart again after the step.
 """
 import jax
 import jax.numpy as jnp
@@ -24,7 +28,7 @@ from repro.core.adwise import _init_carry as jax_init_carry
 from repro.core.adwise import _make_step as jax_make_step
 from repro.core.types import AdwiseConfig as JaxConfig
 from repro_torch.convert import carry_from_numpy, carry_to_numpy
-from repro_torch.core.adwise import StepOut, _make_step
+from repro_torch.core.adwise import StepOut, _make_step, stack_instances, take_instance
 from repro_torch.core.types import AdwiseConfig
 from repro_torch.graph import make_graph
 
@@ -63,9 +67,9 @@ def _pair(kw, allowed=None):
         jnp.int32(cap), has_budget, jnp.full((m,), -1, jnp.int32), True,
     )
     tstep = _make_step(
-        tcfg, n, r_sel, torch.as_tensor(edges), torch.tensor(m, dtype=torch.int32),
-        torch.as_tensor(allowed), torch.tensor(cap, dtype=torch.int32),
-        has_budget, torch.full((m,), -1, dtype=torch.int32), True,
+        tcfg, n, r_sel, torch.as_tensor(edges)[None], torch.tensor([m], dtype=torch.int32),
+        torch.as_tensor(allowed)[None], torch.tensor([cap], dtype=torch.int32),
+        has_budget, torch.full((1, m), -1, dtype=torch.int32), True,
     )
     carry = jax_init_carry(jcfg, n, jcfg.latency_budget or 0.0)
     carry = carry._replace(cost_per_score=jnp.float32(3e-7))
@@ -74,6 +78,15 @@ def _pair(kw, allowed=None):
 
 def _fields(carry) -> dict:
     return {f: np.asarray(getattr(carry, f)) for f in carry._fields}
+
+
+def _batch(fields) -> tuple:
+    """The port's z = 1 batch of a JAX carry's fields."""
+    return stack_instances([carry_from_numpy(fields, CPU)])
+
+
+def _unbatch(port) -> dict:
+    return carry_to_numpy(take_instance(port, 0))
 
 
 @pytest.mark.parametrize("kw", CONFIGS, ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
@@ -87,10 +100,10 @@ def test_one_step_bit_equal_from_mid_stream_carry(kw):
         start = _fields(carry)
         with jax.disable_jit():
             carry, jout = jstep(carry, None)
-        port = carry_from_numpy(start, CPU)
-        out = StepOut.empty(1, b, CPU)
+        port = _batch(start)
+        out = StepOut.empty(1, 1, b, CPU)
         tstep(port, out)
-        got, want = carry_to_numpy(port), _fields(carry)
+        got, want = _unbatch(port), _fields(carry)
         for name in want:
             if name == "theta":
                 bound = kw["window_max"] * 2.0**-24 * abs(float(want[name]))
@@ -99,10 +112,10 @@ def test_one_step_bit_equal_from_mid_stream_carry(kw):
                 continue
             assert got[name].shape == want[name].shape, name
             np.testing.assert_array_equal(_bits(got[name]), _bits(want[name]), err_msg=name)
-        np.testing.assert_array_equal(out.sidx[0].numpy(), np.asarray(jout.sidx))
-        np.testing.assert_array_equal(out.p[0].numpy(), np.asarray(jout.p))
-        assert int(out.w_cap[0]) == int(jout.w_cap)
-        np.testing.assert_array_equal(_bits(out.g_chosen[0].numpy()), _bits(jout.g_chosen))
+        np.testing.assert_array_equal(out.sidx[0, 0].numpy(), np.asarray(jout.sidx))
+        np.testing.assert_array_equal(out.p[0, 0].numpy(), np.asarray(jout.p))
+        assert int(out.w_cap[0, 0]) == int(jout.w_cap)
+        np.testing.assert_array_equal(_bits(out.g_chosen[0, 0].numpy()), _bits(jout.g_chosen))
         assert int(out.t[0]) == 1
     assert theta_checked == STEPS
 
@@ -115,9 +128,9 @@ def test_one_step_with_allowed_mask_bit_equal():
     start = _fields(carry)
     with jax.disable_jit():
         carry, _ = jstep(carry, None)
-    port = carry_from_numpy(start, CPU)
-    tstep(port, StepOut.empty(1, 1, CPU))
-    got, want = carry_to_numpy(port), _fields(carry)
+    port = _batch(start)
+    tstep(port, StepOut.empty(1, 1, 1, CPU))
+    got, want = _unbatch(port), _fields(carry)
     for name in want:
         if name != "theta":
             np.testing.assert_array_equal(_bits(got[name]), _bits(want[name]), err_msg=name)
@@ -138,11 +151,11 @@ def test_carry_round_trip_through_convert():
 
 def test_step_writes_outputs_at_the_device_counter():
     _, tstep, carry = _pair(CONFIGS[0])
-    port = carry_from_numpy(_fields(carry), CPU)
-    out = StepOut.empty(5, 1, CPU)
+    port = _batch(_fields(carry))
+    out = StepOut.empty(5, 1, 1, CPU)
     for _ in range(5):
         tstep(port, out)
     assert int(out.t[0]) == 5
-    sidx = out.sidx[:, 0].numpy()
+    sidx = out.sidx[:, 0, 0].numpy()
     assert len(set(sidx)) == 5 and (sidx >= 0).all()  # one new edge a step
     assert int(port.assigned) == 5

@@ -1,7 +1,8 @@
 """The port on the card: each CUDA kernel against its plain torch version,
 the CUDA-graph scan driver against the plain CPU loop (ADWISE, the HDRF,
-Greedy, 2PS-L and clustering step-cores, warm passes), and the dense LM on
-the card against its CPU path.
+Greedy, 2PS-L and clustering step-cores, warm passes, z spotlight
+instances in one batched step, traced runs), and the dense LM on the card
+against its CPU path.
 
 Every test here needs a CUDA device; without one it skips. This file
 imports neither ``jax`` nor ``repro``, so it runs where only the port is
@@ -14,7 +15,12 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.core import AdwiseConfig, driver, partition_stream, registry, restream
+from repro_torch.core import (
+    AdwiseConfig, driver, partition_stream, registry, restream, spotlight_partition,
+)
+from repro_torch.core.adwise import partition_stream_batched
+from repro_torch.graph import EdgeStream
+from repro_torch.obs import Tracer, chrome_trace, validate_chrome_trace
 from repro_torch.engine import build_partitioned_graph, pagerank
 from repro_torch.graph import make_graph
 from repro_torch.kernels import flash_attention as fa
@@ -119,6 +125,46 @@ def test_window_score_rows_kernel_bit_equal_on_tables(cuda, w, k, hub):
             got = ops.window_score_rows(*(torch.as_tensor(x, device=cuda) for x in tables), 40,
                                         r.to(cuda), use_cs=use_cs)
             np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+def _ws_batch_inputs(z, w, k, v=200):
+    """z windows over z (v + 1)-row vertex tables, each its own draw;
+    instance 1 (when z > 1) is a hub window whose ids include the dump row."""
+    rng = np.random.default_rng(z * 13 + w + k)
+    uv = rng.integers(0, v + 1, (z, w, 2)).astype(np.int32)
+    if z > 1:
+        uv[1, :, 0] = 5
+        uv[1, rng.random(w) < 0.25, 1] = v
+    valid = rng.random((z, w)) < 0.85
+    replicas = rng.random((z, v + 1, k)) < 0.2
+    deg = rng.integers(1, 40, (z, v + 1)).astype(np.int32)
+    max_deg = rng.integers(1, 60, z).astype(np.int32)
+    return (uv, valid, replicas, deg), max_deg
+
+
+@pytest.mark.parametrize("z", [1, 3, 8])
+@pytest.mark.parametrize("k", [3, 32])
+@pytest.mark.parametrize("w", [7, 256])
+def test_window_score_batched_kernel_equals_single_launches(cuda, z, w, k):
+    """One launch for z instances: bit-equal per instance to z = 1 launches
+    and to the batched plain version, for int32 and int64 rows, with the
+    dump slot, a hub window and the tables' dump rows."""
+    (uv, valid, rep, deg), md = _ws_batch_inputs(z, w, k)
+    rng = np.random.default_rng(w + k + z)
+    rows = np.concatenate([np.tile([0, w - 1, w - 1], (z, 1)), rng.integers(0, w, (z, 29))], 1)
+    for dtype in (np.int32, np.int64):
+        r = rows.astype(dtype)
+        for use_cs in (True, False):
+            cpu = [torch.as_tensor(x) for x in (uv, valid, rep, deg, md, r)]
+            gpu = [x.to(cuda) for x in cpu]
+            before = ops.launch_counts()["window_score"]
+            got = ops.window_score_rows_batched(*gpu, use_cs=use_cs)
+            assert ops.launch_counts()["window_score"] - before == 1
+            want = ops.window_score_rows_batched(*cpu, use_cs=use_cs)
+            np.testing.assert_array_equal(_bits(got), _bits(want))
+            for i in range(z):
+                one = ops.window_score_rows(*(x[i] for x in gpu), use_cs=use_cs)
+                np.testing.assert_array_equal(_bits(got[i]), _bits(one))
 
 
 def test_window_score_kernel_rejects_bad_input(cuda):
@@ -369,6 +415,81 @@ def test_warm_passes_captured_equal_cpu(cuda, name, cfg):
         assert gpu.stats["pass_rd"] == cpu.stats["pass_rd"]
         adwise_passes = gpu.stats["pass_steps"][0 if cfg.get("base", "adwise") == "adwise" else 1:]
         assert launches == sum(adwise_passes) and gpu.stats["pass_steps"][-1] > 0
+
+
+SPOT = [
+    ("adwise", None), ("hdrf", None), ("greedy", None), ("2ps-l", None),
+    ("2ps", dict(window_max=16, window_init=4, lazy=False)),
+    ("adwise-restream", dict(passes=2, window_max=16, window_init=4, lazy=False)),
+]
+
+
+@pytest.mark.parametrize("strategy,cfg", SPOT, ids=[s for s, _ in SPOT])
+def test_spotlight_batched_captured_equals_cpu_and_loop(cuda, strategy, cfg):
+    """z = 4 instances in one captured batched step: equal to the CPU path
+    (non-lazy ADWISE, so Θ does not enter) and to the card's loop backend
+    (lazy ADWISE included), with one window_score launch per step."""
+    edges, n = make_graph("tiny_clustered", seed=1, scale=0.2)
+    acfg = AdwiseConfig(k=8, window_max=16, window_init=4, lazy=False) if strategy == "adwise" else None
+    kw = dict(strategy=strategy, cfg=acfg, strategy_cfg=cfg, seed=3)
+    before = ops.launch_counts()["window_score"]
+    gpu = spotlight_partition(edges, n, 8, 4, 2, device=cuda, **kw)
+    launches = ops.launch_counts()["window_score"] - before
+    cpu = spotlight_partition(edges, n, 8, 4, 2, device="cpu", **kw)
+    loop = spotlight_partition(edges, n, 8, 4, 2, device=cuda, backend="loop", **kw)
+    np.testing.assert_array_equal(gpu.assign, cpu.assign)
+    np.testing.assert_array_equal(gpu.assign, loop.assign)
+    if strategy in ("adwise", "2ps"):
+        assert launches == gpu.stats["steps_run"] + gpu.stats["warmup_steps"]
+    if strategy == "adwise":
+        lazy = dict(kw, cfg=AdwiseConfig(k=8, window_max=16, window_init=4))
+        a = spotlight_partition(edges, n, 8, 4, 2, device=cuda, **lazy)
+        b = spotlight_partition(edges, n, 8, 4, 2, device=cuda, backend="loop", **lazy)
+        np.testing.assert_array_equal(a.assign, b.assign)
+
+
+def test_lazy_adwise_card_equals_cpu(cuda):
+    """Θ's sum is exact in fp64, so lazy traversal — the one place the
+    order of a float sum entered the step — picks the same rows on both
+    devices, at z = 1 and z = 3."""
+    edges, n = make_graph("tiny_clustered", seed=1, scale=0.2)
+    cfg = AdwiseConfig(k=4, window_max=32)
+    gpu = partition_stream(edges, n, cfg, device=cuda)
+    cpu = partition_stream(edges, n, cfg, device="cpu")
+    np.testing.assert_array_equal(gpu.assign, cpu.assign)
+    assert gpu.stats["score_rows"] == cpu.stats["score_rows"]
+    streams, valid = EdgeStream(edges, n).split_padded(3)
+    a = partition_stream_batched(streams, valid, n, cfg, device=cuda)
+    b = partition_stream_batched(streams, valid, n, cfg, device="cpu")
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x.assign, y.assign)
+
+
+def test_batched_step_launches_window_score_once_per_step(cuda):
+    edges, n = make_graph("tiny_clustered", seed=1, scale=0.5)
+    streams, valid = EdgeStream(edges, n).split_padded(8)
+    before = ops.launch_counts()["window_score"]
+    res = partition_stream_batched(streams, valid, n, AdwiseConfig(k=16, window_max=32),
+                                   device=cuda)
+    launches = ops.launch_counts()["window_score"] - before
+    st = res[0].stats
+    assert st["n_buckets"] == 1 and st["z"] == 8
+    assert launches == st["steps_run"] + st["warmup_steps"]
+
+
+def test_traced_captured_run_equals_untraced(cuda):
+    edges, n = make_graph("tiny_clustered", seed=1, scale=0.2)
+    kw = dict(passes=2, window_max=16, window_init=4)
+    tr = Tracer()
+    traced = restream.restream_partition(edges, n, 4, trace=tr, device=cuda, **kw)
+    plain = restream.restream_partition(edges, n, 4, device=cuda, **kw)
+    np.testing.assert_array_equal(traced.assign, plain.assign)
+    cats = tr.summary().categories
+    assert cats["scan"]["count"] == sum(traced.stats["pass_scan_calls"])
+    assert cats["pass"]["count"] == 2
+    scans = [s for s in tr.spans if s.name == "scan-call"]
+    assert sum(bool(s.attrs.get("compiled")) for s in scans) == 2  # one capture per pass
+    assert validate_chrome_trace(chrome_trace(tr)) == []
 
 
 def test_pagerank_on_the_card_matches_cpu(cuda):

@@ -155,7 +155,6 @@ def test_launch_prints_the_jax_lines(capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--z", "4"], "item 8"),
     (["--graph", __file__], "item 10"),
 ])
 def test_launch_names_the_roadmap_item_for_unported_paths(argv, item):
@@ -163,6 +162,34 @@ def test_launch_names_the_roadmap_item_for_unported_paths(argv, item):
 
     with pytest.raises(SystemExit, match=f"ROADMAP.md, port queue 1, {item}"):
         port_main(argv + ["--device", "cpu"])
+
+
+@pytest.mark.parametrize("strategy,backend", [
+    ("adwise", "auto"), ("adwise", "loop"), ("hdrf", "auto"), ("adwise-restream", "auto"),
+])
+def test_launch_runs_spotlight_like_jax(strategy, backend, capsys):
+    """``--z 4 --spread 2``: the port's lines equal ``repro.launch.partition``'s
+    (the graph line, the quality fields, the modeled processing)."""
+    from repro.launch.partition import main as jax_main
+    from repro_torch.launch.partition import main as port_main
+
+    argv = ["--graph", "tiny_clustered", "--scale", "0.1", "--k", "8", "--window-max", "16",
+            "--z", "4", "--spread", "2", "--strategy", strategy, "--backend", backend,
+            "--iters", "10"]
+    jax_out = jax_main(argv)
+    jax_lines = capsys.readouterr().out.splitlines()
+    port_out = port_main(argv + ["--device", "cpu"])
+    port_lines = capsys.readouterr().out.splitlines()
+    assert jax_lines[0] == port_lines[0]
+    jp, pp = _fields(jax_lines[1]), _fields(port_lines[1])
+    assert set(jp) == set(pp)
+    for key in ("partitioner", "RD", "imbalance", "unassigned"):
+        assert pp[key] == jp[key], key
+    assert _fields(port_lines[2])["modeled_processing"] == _fields(jax_lines[2])["modeled_processing"]
+    assert port_out["replication_degree"] == jax_out["replication_degree"]
+    want_backend = "loop" if backend == "loop" else "vmap"
+    assert port_out["stats"]["backend"] == jax_out["stats"]["backend"] == want_backend
+    assert port_out["stats"]["z"] == 4 and port_out["stats"]["spread"] == 2
 
 
 @pytest.mark.parametrize("strategy", ["hdrf", "greedy", "adwise-restream", "2ps", "2ps-l"])

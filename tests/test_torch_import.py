@@ -35,6 +35,8 @@ def test_no_jax_or_repro_import_lines():
 def test_every_module_imports_with_jax_and_repro_blocked():
     mods = list(_modules())
     assert "repro_torch.core.adwise" in mods and "repro_torch.kernels.ops" in mods
+    assert {"repro_torch.obs", "repro_torch.obs.tracer", "repro_torch.core.spotlight",
+            "repro_torch.graph.stream"} <= set(mods)
     code = textwrap.dedent(
         f"""
         import sys

@@ -117,6 +117,38 @@ def test_window_score_rows_from_tables_match_jax(w, k, use_cs):
     np.testing.assert_array_equal(got[live].view(np.int32), want[rows[live]].view(np.int32))
 
 
+@pytest.mark.parametrize("z", [1, 3, 4])
+@pytest.mark.parametrize("w,k,use_cs", WS_SHAPES)
+def test_window_score_rows_batched_equal_single_instance_and_jax(w, k, use_cs, z):
+    """The batched plain row op over z instances: instance i's rows equal the
+    z = 1 call on instance i's tables and, bit for bit, the rows of the JAX
+    ``window_score`` on that instance's gathered rows."""
+    rng = np.random.default_rng(z * 101 + w + k)
+    v = 200
+    uv = rng.integers(0, v + 1, (z, w, 2)).astype(np.int32)
+    valid = rng.random((z, w)) < 0.85
+    replicas = rng.random((z, v + 1, k)) < 0.2
+    deg = rng.integers(1, 40, (z, v + 1)).astype(np.int32)
+    max_deg = rng.integers(1, 60, z).astype(np.int32)
+    rows = rng.integers(0, w, (z, max(1, w // 3)))
+    for dtype in (np.int32, np.int64):
+        got = ops.window_score_rows_batched(
+            *_torch_args((uv, valid, replicas, deg, max_deg, rows.astype(dtype))), use_cs=use_cs)
+        assert got.shape == (z, rows.shape[1], k) and got.dtype == torch.float32
+        for i in range(z):
+            one = ops.window_score_rows(
+                *_torch_args((uv[i], valid[i], replicas[i], deg[i])), int(max_deg[i]),
+                torch.as_tensor(rows[i].astype(dtype)), use_cs=use_cs)
+            np.testing.assert_array_equal(got[i].numpy().view(np.int32), one.numpy().view(np.int32))
+            want = np.asarray(jops.window_score(
+                uv[i], valid[i], *_gathered(uv[i], replicas[i], deg[i]), np.zeros(k, np.float32),
+                np.ones(k, bool), jnp.float32(0.0), jnp.int32(max_deg[i]), use_cs=use_cs,
+                tier="xla"))
+            live = valid[i][rows[i]]
+            np.testing.assert_array_equal(got[i].numpy()[live].view(np.int32),
+                                          want[rows[i][live]].view(np.int32))
+
+
 def test_window_score_kernel_wrapper_rejects_cpu_tensors():
     t = _torch_args(_ws_inputs(7, 3))
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -124,6 +156,11 @@ def test_window_score_kernel_wrapper_rejects_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         ws.window_score_rows(*_torch_args(_ws_table_inputs(7, 3)),
                              torch.tensor(40, dtype=torch.int32), torch.zeros(2, dtype=torch.int32))
+    uv, valid, replicas, deg = _ws_table_inputs(7, 3)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ws.window_score_rows_batched(
+            *_torch_args((uv[None], valid[None], replicas[None], deg[None])),
+            torch.tensor([40], dtype=torch.int32), torch.zeros((1, 2), dtype=torch.int32))
     with pytest.raises(ValueError, match="CUDA tensors"):
         ss.segment_sum(torch.zeros(4, 2), ss.segment_layout([0, 0, 1, 2], 3, "cpu"))
 

@@ -15,7 +15,9 @@ import torch
 from repro.core import baselines as jax_baselines
 from repro.core import registry as jreg
 from repro.core import restream as jax_restream
-from repro_torch.core import baselines, registry, restream
+from repro.core.spotlight import spotlight_partition as jax_spotlight
+from repro.core.types import AdwiseConfig as JaxConfig
+from repro_torch.core import AdwiseConfig, baselines, registry, restream, spotlight_partition
 
 torch.set_num_threads(1)
 
@@ -148,3 +150,38 @@ def test_tpsl_core_refuses_a_cold_start():
 def test_scan_rejects_an_unknown_backend():
     with pytest.raises(ValueError, match="backend"):
         registry.run_partitioner("hdrf", STREAMS["mixed"], N, K, device="cpu", backend="gpu")
+
+
+# Spotlight z = 4 over the same adversarial streams (the empty stream and
+# m = 3 < z leave instances without edges): every registry strategy but
+# grid, batched == loop == repro's batched path (tests/test_stepcores.py).
+Z, SPREAD = 4, 2
+_SMALL = dict(window_max=8, window_init=2)
+SPOT_STRATEGIES = [
+    ("hash", {}), ("dbh", {}), ("hdrf", {}), ("hdrf", dict(lam=1.5)), ("greedy", {}),
+    ("adwise", dict(_SMALL)), ("adwise-restream", dict(_SMALL, passes=2)), ("2ps", dict(_SMALL)),
+    ("2ps-l", {}), ("2ps-l", dict(lam=1.5, cap_slack=1.3)),
+]
+
+
+def _spot(fn, config, edges, strategy, cfg, backend, **kw):
+    if strategy == "adwise":
+        return fn(edges, N, K, z=Z, spread=SPREAD, seed=1, strategy="adwise",
+                  cfg=config(k=K, **cfg), backend=backend, **kw)
+    return fn(edges, N, K, z=Z, spread=SPREAD, seed=1, strategy=strategy,
+              strategy_cfg=cfg or None, backend=backend, **kw)
+
+
+@pytest.mark.parametrize("strategy,cfg", SPOT_STRATEGIES,
+                         ids=[f"{s}-{i}" for i, (s, _) in enumerate(SPOT_STRATEGIES)])
+def test_spotlight_batched_equals_loop_adversarial(strategy, cfg):
+    for sname in ("mixed", "star", "empty", "tiny"):
+        edges = STREAMS[sname]
+        batched = _spot(spotlight_partition, AdwiseConfig, edges, strategy, cfg, "batched",
+                        device="cpu")
+        loop = _spot(spotlight_partition, AdwiseConfig, edges, strategy, cfg, "loop",
+                     device="cpu")
+        want = _spot(jax_spotlight, JaxConfig, edges, strategy, cfg, "batched")
+        np.testing.assert_array_equal(batched.assign, loop.assign, err_msg=f"{strategy} {sname}")
+        np.testing.assert_array_equal(batched.assign, want.assign, err_msg=f"{strategy} {sname}")
+        assert batched.stats["backend"] != "loop"
