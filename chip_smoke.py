@@ -60,7 +60,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    top-2 margin exceeds that.
 8. The paper's comparison set through the registry, launch counts zeroed
    just before and read just after: ``hdrf`` and ``greedy`` on brain_like at
-   scale 1.0, k = 32 (steps/s, µs per edge), each bit-equal to its numpy
+   scale 0.25 (a depth cut that keeps the run inside its time limit with
+   phase 10), k = 32 (steps/s, µs per edge), each bit-equal to its numpy
    oracle; ``hash``, ``2ps-l`` (bit-equal to the numpy oracles of both
    phases), ``2ps`` (the same clustering phase) and
    ``adwise-restream`` with 2 passes at W = 256 (one ``window_score`` launch
@@ -90,8 +91,28 @@ Phases (any failure exits non-zero, and no result line is printed):
    its Chrome trace export (``build/chip_smoke/trace.json``)
    validated, one scan span per scan call, two pass lanes, 30 superstep
    spans.
+10. Out-of-core (``partition_file`` over graph files, the file-fed ring on
+   the card): (a) a SNAP text dump of the main path's stream ingested
+   (wall, MB/s), byte-equal to ``write_edge_file``'s binary; (b) ADWISE at
+   z = 1, W = 256 from the file with the default 65,536-row chunk (a
+   98,304-row ring that wraps), bit-equal to phase 2's resident run, every
+   row shipped once at 8 B, one ``window_score`` launch per step, every
+   refill into the one ring; its wall against phase 2's, scan calls, spans
+   prestaged / missed, ``h2d_wait_s``, ``prestage_wall_s`` and the overlap
+   1 − wait / prestage; (c) ``repro_torch.launch.partition.main`` on the
+   text file with ``--ingest --z 8 --spread 4 --chunk-edges 8192
+   --spill-dir ... --workload pagerank``: the spill bit-equal to phase 9a's
+   z = 8 ADWISE, 30 ``segment_sum`` launches; ``hdrf`` at the same z from
+   the file bit-equal to phase 9a's; (d) ``adwise-restream`` (2 passes,
+   pass 2 adopting the ring: ``h2d_bytes == 12 m``), ``2ps``, ``2ps-l``,
+   ``dbh`` and ``hash`` at scale 0.08 from files (chunk 32,768), each
+   bit-equal to the in-memory run on the card; (e) at scale 0.1, ADWISE
+   with prefetch 0 equal to prefetch 2, the latter traced: ``refill``
+   total = ``h2d_wait_s``, ``stage`` total = ``prestage_wall_s``, one scan
+   span per scan call, the export (``build/chip_smoke/oocore_trace.json``)
+   validated.
 
-The kernels' ``launches`` are those of phases 2, 6, 8 and 9 (each path's
+The kernels' ``launches`` are those of phases 2, 6, 8, 9 and 10 (each path's
 counts zeroed just before it and read just after). Then one JSON line with
 every kernel's numbers, and, last, the
 ``{"ok": true, "device": ...}`` line. It imports nothing of JAX and nothing
@@ -465,21 +486,41 @@ def phase_kernels(edges, n):
 SS_WAS_MS = {1: 0.01153, 256: 0.26669}
 
 
-def ss_kernels_per_call(fn, calls: int = 5) -> float:
-    """Device kernels per call of ``fn`` under torch.profiler; fails if any
-    of them is not the segment_sum kernel."""
+def profiled(fn, what: str, tries: int = 3):
+    """``fn()`` under torch.profiler (CPU and CUDA activity), the device
+    synchronised before the session ends: (its result, the device's kernels
+    and copies, the session's wall in s). CUPTI now and then hands back a
+    session with no device record at all although the work ran on the card
+    (seen on the H100 in a loop of profiled pagerank supersteps). Such a
+    session says nothing of the program, so ``fn`` runs again under a new
+    session, up to ``tries`` sessions in all, each empty one logged; a
+    caller that still finds no device record fails its own check."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import device_kernels
 
+    for session in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kern = device_kernels(prof)
+        if kern:
+            break
+        log(f"{what}: the profiler recorded no device activity (session {session} of {tries})")
+    return out, kern, wall
+
+
+def ss_kernels_per_call(fn, calls: int = 5) -> float:
+    """Device kernels per call of ``fn`` under torch.profiler; fails if any
+    of them is not the segment_sum kernel."""
+    import torch
+
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    kern = device_kernels(prof)
+    _, kern, _ = profiled(lambda: [fn() for _ in range(calls)], "segment_sum kernels per call")
     check(all("segsum_" in e.key for e in kern),
           f"segment_sum: only its kernel on the device ({[e.key[:60] for e in kern]})")
     return sum(e.count for e in kern) / calls
@@ -555,16 +596,7 @@ def phase_main_path(edges, n, k, window_max):
     log(f"main peak device memory: {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     # One pagerank superstep under torch.profiler: its device time and the
     # segment_sum kernel's share of it.
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.kernels import device_kernels
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        pagerank(g, iters=1)
-        torch.cuda.synchronize()
-        t_step = time.perf_counter() - t0
-    kern = device_kernels(prof)
+    _, kern, t_step = profiled(lambda: pagerank(g, iters=1), "main pagerank superstep profile")
     busy_us = sum(e.self_device_time_total for e in kern)
     ss_us = sum(e.self_device_time_total for e in kern if "segsum_" in e.key)
     check(busy_us > 0 and ss_us > 0, "pagerank superstep profile: segment_sum on the device")
@@ -590,7 +622,7 @@ def phase_main_path(edges, n, k, window_max):
         check(np.isfinite(row["t_total_s"]) and row["t_total_s"] > 0, f"{name}: total latency finite")
         log(f"brain_like,pagerank_300,{name},,{row['t_partition_s']:.3f},"
             f"{row['t_process_s']:.3f},{row['t_total_s']:.3f},{row['replication_degree']:.3f}")
-    return counts, rd
+    return counts, rd, results["adwise"][0]
 
 
 # ----------------------------------------------------------------------------
@@ -634,12 +666,8 @@ def phase_profile(k):
     """Device busy time per ADWISE step under torch.profiler (CUPTI): kernels
     per step, busy µs per step (the sum of kernel durations, inflated by the
     profiler's own per-kernel cost), and the kernels that take the most."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.core import AdwiseConfig, partition_stream
     from repro_torch.graph import make_graph
-    from repro_torch.kernels import device_kernels
 
     # 400 edges of a small brain_like stream: ~660 steps (m + W + 2). The
     # step's shapes are fixed by W and K, so its kernels are those of the
@@ -647,10 +675,7 @@ def phase_profile(k):
     edges, n = make_graph("brain_like", seed=0, scale=0.005)
     edges = edges[:400]
     cfg = AdwiseConfig(k=k, window_max=256)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        res = partition_stream(edges, n, cfg, device="cuda")
-        torch.cuda.synchronize()
-    kern = device_kernels(prof)
+    res, kern, _ = profiled(lambda: partition_stream(edges, n, cfg, device="cuda"), "profile")
     steps = res.stats["steps_run"] + res.stats["warmup_steps"]
     if not kern:
         log("profile: the profiler recorded no device activity")
@@ -680,17 +705,9 @@ def profile_per_edge(run, m_short: int, m_long: int) -> tuple[float, float]:
     from two profiled runs at m_short and m_long edges: the difference
     cancels the set-up, the capture and the warm-up, and leaves what the
     replayed graphs launch per edge."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.kernels import device_kernels
-
     got = []
     for m in (m_short, m_long):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            run(m)
-            torch.cuda.synchronize()
-        kern = device_kernels(prof)
+        _, kern, _ = profiled(lambda: run(m), f"profile of {m} edges")
         got.append((sum(e.count for e in kern), sum(e.self_device_time_total for e in kern)))
     dm = m_long - m_short
     return (got[1][0] - got[0][0]) / dm, (got[1][1] - got[0][1]) / dm
@@ -719,8 +736,11 @@ def bill(name, res, edges, n, k, graph):
                 wall_s=res.stats["wall_time_s"], t_partition_s=t_part, t_process_s=t_proc)
 
 
-def phase_comparison(edges_full, n_full, k):
-    """HDRF and Greedy at full scale; 2PS-L, 2PS and adwise-restream at the
+SINGLE_EDGE_SCALE = 0.25  # phase 8's hdrf / greedy: one torch step per edge
+
+
+def phase_comparison(k):
+    """HDRF and Greedy at scale 0.25; 2PS-L, 2PS and adwise-restream at the
     benchmark's scale — through the registry on the card, each against the
     port's CPU oracle where one finishes in seconds, billed for
     pagerank_300."""
@@ -733,18 +753,20 @@ def phase_comparison(edges_full, n_full, k):
 
     rows = []
     ops.reset_launch_counts()
-    # Single-edge cores at full preset size.
+    # Single-edge cores, a quarter of the preset.
+    edges_q, n_q = make_graph("brain_like", seed=0, scale=SINGLE_EDGE_SCALE)
+    graph_q = f"brain_like {SINGLE_EDGE_SCALE}"
     for name in ("hdrf", "greedy"):
-        res = registry.run_partitioner(name, edges_full, n_full, k, device="cuda")
+        res = registry.run_partitioner(name, edges_q, n_q, k, device="cuda")
         torch.cuda.synchronize()
         st = res.stats
         loop_s = st["wall_time_s"] - st["setup_s"]
         t0 = time.perf_counter()
-        oracle = registry.run_partitioner(name, edges_full, n_full, k, device="cpu", scan=False)
+        oracle = registry.run_partitioner(name, edges_q, n_q, k, device="cpu", scan=False)
         t_oracle = time.perf_counter() - t0
         check(np.array_equal(res.assign, oracle.assign),
-              f"{name}: the card's assignment equals the numpy oracle bit for bit (brain_like 1.0)")
-        row = bill(name, res, edges_full, n_full, k, "brain_like 1.0")
+              f"{name}: the card's assignment equals the numpy oracle bit for bit ({graph_q})")
+        row = bill(name, res, edges_q, n_q, k, graph_q)
         row.update(steps=st["steps_run"], us_per_edge=loop_s / st["steps_run"] * 1e6,
                    steps_per_s=st["steps_run"] / loop_s, setup_s=st["setup_s"], oracle_s=t_oracle)
         rows.append(row)
@@ -752,10 +774,11 @@ def phase_comparison(edges_full, n_full, k):
     # The restreaming set at the benchmark's scale (a depth cut).
     edges, n = make_graph("brain_like", seed=0, scale=BENCH_SCALE)
     graph = f"brain_like {BENCH_SCALE}"
-    res = registry.run_partitioner("hash", edges, n, k, device="cuda")
+    mem = {}  # the in-memory results phase 10(d) holds its file runs to
+    res = mem["hash"] = registry.run_partitioner("hash", edges, n, k, device="cuda")
     rows.append(bill("hash", res, edges, n, k, graph))
     hash_rd = rows[-1]["rd"]
-    res = registry.run_partitioner("2ps-l", edges, n, k, device="cuda")
+    res = mem["2ps-l"] = registry.run_partitioner("2ps-l", edges, n, k, device="cuda")
     t0 = time.perf_counter()
     oracle = registry.run_partitioner("2ps-l", edges, n, k, device="cpu", scan=False)
     t_oracle = time.perf_counter() - t0
@@ -765,14 +788,14 @@ def phase_comparison(edges_full, n_full, k):
                      phase1_s=res.stats["phase1_wall_s"], n_clusters=res.stats["n_clusters"]))
     # 2ps shares 2ps-l's phase 1 (the clustering just held to its numpy
     # oracle through 2ps-l's assignment).
-    res = registry.run_partitioner("2ps", edges, n, k, device="cuda")
+    res = mem["2ps"] = registry.run_partitioner("2ps", edges, n, k, device="cuda")
     check(res.stats["n_clusters"] == oracle.stats["n_clusters"], "2ps: the oracle's clusters")
     rows.append(dict(bill("2ps", res, edges, n, k, graph), phase1_s=res.stats["phase1_wall_s"],
                      n_clusters=res.stats["n_clusters"]))
     before = ops.launch_counts()["window_score"]
     res = registry.run_partitioner("adwise-restream", edges, n, k, device="cuda", **RESTREAM_CFG)
     ws = ops.launch_counts()["window_score"] - before
-    restream_res = res
+    restream_res = mem["adwise-restream"] = res
     st = res.stats
     check(ws == sum(st["pass_steps"]) and st["pass_steps"][1] > 0,
           "adwise-restream: one window_score launch per step of each pass, pass 2 included")
@@ -821,7 +844,7 @@ def phase_comparison(edges_full, n_full, k):
         what = "cluster step + 2ps-l step" if name == "2ps-l" else "step"
         log(f"comparison profile {name}: kernels_per_edge={kern:.1f} device_busy_us_per_edge={busy:.2f} "
             f"(one {what} per edge; profiled, graph replays)")
-    return counts, restream_res
+    return counts, restream_res, mem
 
 
 # ----------------------------------------------------------------------------
@@ -853,12 +876,11 @@ def phase_spotlight(edges, n, k, window_max, rd_z1):
     launch counts of (a)'s ADWISE path."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import AdwiseConfig, spotlight_partition
     from repro_torch.engine import build_partitioned_graph, pagerank
     from repro_torch.graph import make_graph, replica_sets_from_assignment, replication_degree
-    from repro_torch.kernels import device_kernels, ops
+    from repro_torch.kernels import ops
 
     m = len(edges)
     z, spread = SPOT_Z, SPOT_SPREAD
@@ -887,8 +909,10 @@ def phase_spotlight(edges, n, k, window_max, rd_z1):
         f"setup_s={st['setup_s']:.3f} steps={st['steps_run']} "
         f"us_per_step={loop_s / st['steps_run'] * 1e6:.2f} scan_calls={st['scan_calls']} "
         f"window_score_launches={ws} h2d_bytes={st['h2d_bytes']}")
+    spot = {"adwise": res}
     for name in ("hdrf", "dbh"):
-        r = spotlight_partition(edges, n, k, z=z, spread=spread, strategy=name, device="cuda")
+        r = spot[name] = spotlight_partition(edges, n, k, z=z, spread=spread, strategy=name,
+                                             device="cuda")
         check(spread_ok(r.assign, m, k, z, spread), f"spotlight {name}: every edge inside its spread")
         rdn = replication_degree(replica_sets_from_assignment(edges, r.assign, n, k))
         extra = ""
@@ -903,11 +927,9 @@ def phase_spotlight(edges, n, k, window_max, rd_z1):
     # instance: the step shapes of phase 4's z = 1 profile (W = 256, K = 32).
     small, n_small = make_graph("brain_like", seed=0, scale=0.02)
     sub = small[: 400 * z]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        r = spotlight_partition(sub, n_small, k, z=z, spread=spread, strategy="adwise",
-                                cfg=cfg, device="cuda")
-        torch.cuda.synchronize()
-    kern = device_kernels(prof)
+    r, kern, _ = profiled(lambda: spotlight_partition(sub, n_small, k, z=z, spread=spread,
+                                                      strategy="adwise", cfg=cfg, device="cuda"),
+                          f"spotlight profile z={z}")
     steps = r.stats["steps_run"] + r.stats["warmup_steps"]
     if kern:
         log(f"spotlight profile z={z}: m={len(sub)} steps={steps} "
@@ -916,7 +938,7 @@ def phase_spotlight(edges, n, k, window_max, rd_z1):
         for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
             log(f"spotlight profile kernel {e.key[:90]}: {e.count / steps:.2f} per step, "
                 f"{e.self_device_time_total / steps:.3f} us per step")
-    return counts
+    return counts, spot
 
 
 def phase_spotlight_sweep(k):
@@ -1041,6 +1063,201 @@ def phase_tracing(k, untraced):
         f"events={n_events} scan_spans={cats['scan']['count']} capture_spans={compiled} "
         f"pass_spans={cats['pass']['count']} superstep_spans={cats['engine']['count']} "
         f"(export {os.path.relpath(path, HERE)})")
+
+
+# ----------------------------------------------------------------------------
+# Phase 10: out-of-core — graph files, the file-fed ring, partition_file
+# ----------------------------------------------------------------------------
+
+OOC_CHUNK_SMALL = 32768  # phase 10(d): B = 49,152 rows >= m, so restream adopts the ring
+
+
+def ooc_dir() -> str:
+    path = os.path.join(HERE, "build", "chip_smoke", "oocore")
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def file_bytes(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def ring_line(st: dict) -> str:
+    """The ring and pipeline numbers of a file run's stats."""
+    wait, pre = st["h2d_wait_s"], st["prestage_wall_s"]
+    overlap = 1.0 - wait / pre if pre > 0 else float("nan")
+    return (f"scan_calls={st['scan_calls']} steps={st.get('steps_run')} ring={st['buffer_rows']} "
+            f"h2d_rows={st['h2d_rows']} h2d_bytes={st['h2d_bytes']} spans={st['refill_spans']} "
+            f"prestaged={st['spans_prestaged']} missed={st['spans_missed']} "
+            f"h2d_wait_s={wait:.6f} prestage_wall_s={pre:.6f} overlap={overlap:.4f} "
+            f"io_wall_s={st['io_wall_s']:.6f}")
+
+
+def phase_oocore(edges, n, k, window_max, resident, spot, cmp_res):
+    """(a) ingest a SNAP text dump of brain_like, byte-equal to the binary
+    writer; (b) ADWISE at z = 1 from the file, bit-equal to phase 2's
+    resident run (``resident``); (c) z = 8 through the launcher from the
+    text file, bit-equal to phase 9a (``spot``), then pagerank; hdrf at the
+    same z; (d) the restreaming set, dbh and hash at scale 0.08 from files,
+    bit-equal to the in-memory runs (phase 8's, ``cmp_res``); (e) prefetch
+    0 against 2 at scale 0.1, and a traced file run whose category totals
+    are its counters. Returns the launch counts of (b)-(e)."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import partition_file, run_partitioner
+    from repro_torch.graph import make_graph
+    from repro_torch.graph.io import EdgeFileReader, ingest_text, write_edge_file
+    from repro_torch.kernels import ops
+    from repro_torch.launch.partition import main as launch_main
+    from repro_torch.obs import Tracer, validate_chrome_trace
+
+    out_dir = ooc_dir()
+    m = len(edges)
+    # (a) Ingest: the SNAP text form of the main path's stream.
+    text = os.path.join(out_dir, "brain_like.txt")
+    with open(text, "w") as f:
+        f.write(f"# brain_like scale 1.0: {n} vertices, {m} edges (u v)\n")
+        np.savetxt(f, edges, fmt="%d", delimiter="\t")
+    binary = os.path.join(out_dir, "brain_like.adw")
+    ingested = os.path.join(out_dir, "ingested.adw")
+    write_edge_file(binary, edges, n)
+    rep = ingest_text(text, ingested, num_vertices=n)
+    check(rep.num_edges == m and file_bytes(ingested) == file_bytes(binary),
+          "ingest: the text dump ingests to the bytes write_edge_file writes")
+    log(f"oocore ingest: {rep.bytes_read / 1e6:.3f} MB text, {rep.num_edges} edges in "
+        f"{rep.wall_s:.4f}s ({rep.bytes_read / 1e6 / max(rep.wall_s, 1e-9):.1f} MB/s, "
+        f"parser {rep.parser}); binary {os.path.getsize(binary)} bytes")
+
+    ops.reset_launch_counts()
+    # (b) ADWISE from the file at full width, default chunk (65,536).
+    before = ops.launch_counts()["window_score"]
+    with EdgeFileReader(binary) as r:
+        res = partition_file(r, "adwise", k, window_max=window_max, device="cuda",
+                             spill_dir=os.path.join(out_dir, "b"))
+    torch.cuda.synchronize()
+    ws = ops.launch_counts()["window_score"] - before
+    st = res.stats
+    check(np.array_equal(np.asarray(res.assign), resident.assign),
+          "oocore adwise z=1: the file run equals phase 2's resident run bit for bit")
+    check(st["h2d_rows"] == m and st["h2d_bytes"] == 8 * m,
+          "oocore adwise z=1: every row shipped once, 8 B/row on a cold pass")
+    check(ws == st["steps_run"] + st["warmup_steps"],
+          "oocore adwise z=1: one window_score launch per step")
+    check(st["ring_addrs"] == 1, "oocore adwise z=1: every refill wrote into the one ring")
+    check(st["buffer_rows"] < m, "oocore adwise z=1: the ring wraps")
+    rst = resident.stats
+    loop_s = st["wall_time_s"] - st["setup_s"]
+    log(f"oocore adwise z=1 (brain_like 1.0, m={m}, k={k}, W={window_max}, chunk 65536): "
+        f"wall_s={st['wall_time_s']:.3f} (resident, phase 2: {rst['wall_time_s']:.3f}; "
+        f"ratio {st['wall_time_s'] / rst['wall_time_s']:.4f}) setup_s={st['setup_s']:.3f} "
+        f"us_per_step={loop_s / st['steps_run'] * 1e6:.2f} resident_steps={rst['steps_run']} "
+        f"window_score_launches={ws} {ring_line(st)}")
+
+    # (c) z = 8 on blocks of 4, through the launcher, from the text file.
+    spill = os.path.join(out_dir, "c")
+    stale = text + ".adw"
+    if os.path.exists(stale):
+        os.remove(stale)
+    argv = ["--graph", text, "--ingest", "--strategy", "adwise", "--k", str(k),
+            "--z", str(SPOT_Z), "--spread", str(SPOT_SPREAD), "--window-max", str(window_max),
+            "--chunk-edges", "8192", "--spill-dir", spill, "--workload", "pagerank",
+            "--device", "cuda"]
+    before = ops.launch_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = launch_main(argv)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    for ln in buf.getvalue().splitlines():
+        log(f"oocore launcher: {ln}")
+    got = np.fromfile(os.path.join(spill, "assign.i32"), dtype=np.int32)[:m]
+    cst = out["stats"]
+    check(np.array_equal(got, spot["adwise"].assign),
+          "oocore launcher z=8: the spill equals phase 9a's in-memory z=8 ADWISE bit for bit")
+    check(after["segment_sum"] - before["segment_sum"] == 30,
+          "oocore launcher: pagerank launched segment_sum once per superstep")
+    check(cst["buffer_rows"] == 12288 and cst["buffer_rows"] < -(-m // SPOT_Z),
+          "oocore launcher z=8: each instance's ring wraps")
+    check(after["window_score"] - before["window_score"] == cst["steps_run"] + cst["warmup_steps"],
+          "oocore launcher z=8: one window_score launch per batched step")
+    sst = spot["adwise"].stats
+    log(f"oocore launcher z={SPOT_Z} spread={SPOT_SPREAD}: partition wall_s={cst['wall_time_s']:.3f} "
+        f"(in-memory, phase 9a: {sst['wall_time_s']:.3f}; ratio "
+        f"{cst['wall_time_s'] / sst['wall_time_s']:.4f}) resident_steps={sst['steps_run']} "
+        f"RD={out['replication_degree']:.4f} total_latency_s={out['total_latency_s']:.3f} "
+        f"{ring_line(cst)}")
+    with EdgeFileReader(binary) as r:
+        hres = partition_file(r, "hdrf", k, z=SPOT_Z, spread=SPOT_SPREAD, chunk_edges=8192,
+                              device="cuda", spill_dir=os.path.join(out_dir, "c-hdrf"))
+    check(np.array_equal(np.asarray(hres.assign), spot["hdrf"].assign),
+          "oocore hdrf z=8: the file run equals phase 9a's in-memory run bit for bit")
+    log(f"oocore hdrf z={SPOT_Z}: wall_s={hres.stats['wall_time_s']:.3f} (in-memory, phase 9a: "
+        f"{spot['hdrf'].stats['wall_time_s']:.3f}) {ring_line(hres.stats)}")
+
+    # (d) The restreaming set, dbh and hash at the benchmark's scale.
+    small, n_small = make_graph("brain_like", seed=0, scale=BENCH_SCALE)
+    ms = len(small)
+    small_path = os.path.join(out_dir, f"brain_like_{BENCH_SCALE}.adw")
+    write_edge_file(small_path, small, n_small)
+    want = dict(cmp_res)
+    want["dbh"] = run_partitioner("dbh", small, n_small, k, device="cuda")
+    cfgs = {"adwise-restream": RESTREAM_CFG}
+    for name in ("adwise-restream", "2ps", "2ps-l", "dbh", "hash"):
+        with EdgeFileReader(small_path) as r:
+            fres = partition_file(r, name, k, chunk_edges=OOC_CHUNK_SMALL, device="cuda",
+                                  spill_dir=os.path.join(out_dir, f"d-{name}"),
+                                  **cfgs.get(name, {}))
+        check(np.array_equal(np.asarray(fres.assign), want[name].assign),
+              f"oocore {name} (brain_like {BENCH_SCALE}): the file run equals the in-memory run")
+        fst = fres.stats
+        line = (f"oocore {name} (brain_like {BENCH_SCALE}, m={ms}, chunk {OOC_CHUNK_SMALL}): "
+                f"wall_s={fst['wall_time_s']:.3f} (in-memory: "
+                f"{want[name].stats['wall_time_s']:.3f}) stream_reads={fst['stream_reads']}")
+        if "scan_calls" in fst:
+            line += f" {ring_line(fst)}"
+        log(line)
+        if name == "adwise-restream":
+            check(fst["h2d_rows"] == ms and fst["h2d_bytes"] == 12 * ms,
+                  "oocore adwise-restream: pass 2 adopts the ring (h2d_bytes == 12 m)")
+
+    # (e) The pipeline: prefetch 0 against 2, the second run traced.
+    mid, n_mid = make_graph("brain_like", seed=0, scale=0.1)
+    mid_path = os.path.join(out_dir, "brain_like_0.1.adw")
+    write_edge_file(mid_path, mid, n_mid)
+    runs = {}
+    tr = Tracer()
+    for pf, trace in ((0, None), (2, tr)):
+        with EdgeFileReader(mid_path) as r:
+            runs[pf] = partition_file(r, "adwise", k, window_max=window_max, chunk_edges=8192,
+                                      prefetch=pf, trace=trace, device="cuda",
+                                      spill_dir=os.path.join(out_dir, f"e{pf}"))
+    check(np.array_equal(np.asarray(runs[0].assign), np.asarray(runs[2].assign)),
+          "oocore adwise (brain_like 0.1): prefetch 0 equals prefetch 2 bit for bit")
+    est = runs[2].stats
+    cats = tr.summary().categories
+    check(abs(cats.get("refill", {}).get("wall_s", 0.0) - est["h2d_wait_s"]) < 1e-6,
+          "oocore trace: the refill total is h2d_wait_s")
+    check(abs(cats.get("stage", {}).get("wall_s", 0.0) - est["prestage_wall_s"]) < 1e-6,
+          "oocore trace: the stage total is prestage_wall_s")
+    check(cats["scan"]["count"] == est["scan_calls"], "oocore trace: one scan span per scan call")
+    path = os.path.join(HERE, "build", "chip_smoke", "oocore_trace.json")
+    n_events = tr.export(path)
+    with open(path) as f:
+        problems = validate_chrome_trace(json.load(f))
+    check(problems == [], f"oocore trace export validates ({problems[:3]})")
+    for pf in (0, 2):
+        log(f"oocore adwise prefetch={pf} (brain_like 0.1, m={len(mid)}, chunk 8192"
+            f"{', traced' if pf else ''}): wall_s={runs[pf].stats['wall_time_s']:.3f} "
+            f"{ring_line(runs[pf].stats)}")
+    log(f"oocore trace: events={n_events} "
+        + ", ".join(f"{c}:{d['count']}x/{d['wall_s']:.6f}s" for c, d in sorted(cats.items()))
+        + f" (export {os.path.relpath(path, HERE)})")
+    return ops.launch_counts()
 
 
 # ----------------------------------------------------------------------------
@@ -1173,10 +1390,9 @@ def phase_serve():
 
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import device_kernels, ops
+    from repro_torch.kernels import ops
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import serve
     from repro_torch.models import lm
@@ -1225,10 +1441,8 @@ def phase_serve():
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
     del logits
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        lm.forward_cached(model, cfg, cache, prompts, 0)
-        torch.cuda.synchronize()
-    kern = device_kernels(prof)
+    _, kern, _ = profiled(lambda: lm.forward_cached(model, cfg, cache, prompts, 0),
+                          "serve prefill profile")
     busy_us = sum(e.self_device_time_total for e in kern)
     log(f"serve prefill profile: kernels={sum(e.count for e in kern)} "
         f"device_busy_ms={busy_us / 1e3:.3f} (profiled)")
@@ -1240,14 +1454,14 @@ def phase_serve():
         tok = lg[:, -1:].argmax(-1).to(torch.int32)
     torch.cuda.synchronize()
     n_prof = 8
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def decode(tok):
         for i in range(n_prof):
             lg, _ = lm.forward_cached(model, cfg, cache, tok, t + 3 + i)
             tok = lg[:, -1:].argmax(-1).to(torch.int32)
-        torch.cuda.synchronize()
-        wall_prof = time.perf_counter() - t0
-    kern = device_kernels(prof)
+        return tok
+
+    _, kern, wall_prof = profiled(lambda: decode(tok), "serve decode profile")
     busy_us = sum(e.self_device_time_total for e in kern)
     n_kern = sum(e.count for e in kern)
     log(f"serve steady: second prefill_ms={t_prefill * 1e3:.3f} (before the redesign: 142.033) "
@@ -1362,7 +1576,7 @@ def main() -> int:
         kernel_rows = phase_kernels(edges, n)
         log(f"phase 1 (kernels vs plain): {time.perf_counter() - t0:.1f}s")
         t0 = time.perf_counter()
-        counts, rd_z1 = phase_main_path(edges, n, k=32, window_max=256)
+        counts, rd_z1, resident = phase_main_path(edges, n, k=32, window_max=256)
         log(f"phase 2 (main path): {time.perf_counter() - t0:.1f}s launches={counts}")
         for name in ("window_score", "segment_sum"):
             check(counts[name] > 0, f"{name} launched on the main path")
@@ -1385,13 +1599,13 @@ def main() -> int:
         phase_lm_parity()
         log(f"phase 7 (LM cuda vs cpu): {time.perf_counter() - t0:.1f}s")
         t0 = time.perf_counter()
-        cmp_counts, restream_res = phase_comparison(edges, n, k=32)
+        cmp_counts, restream_res, cmp_res = phase_comparison(k=32)
         log(f"phase 8 (comparison set): {time.perf_counter() - t0:.1f}s launches={cmp_counts}")
         for name in ("window_score", "segment_sum"):
             check(cmp_counts[name] > 0, f"{name} launched on the comparison set's path")
             counts[name] += cmp_counts[name]
         t0 = time.perf_counter()
-        spot_counts = phase_spotlight(edges, n, k=32, window_max=256, rd_z1=rd_z1)
+        spot_counts, spot = phase_spotlight(edges, n, k=32, window_max=256, rd_z1=rd_z1)
         t_a = time.perf_counter() - t0
         phase_spotlight_sweep(k=32)
         t_b = time.perf_counter() - t0 - t_a
@@ -1403,6 +1617,12 @@ def main() -> int:
         for name in ("window_score", "segment_sum"):
             check(spot_counts[name] > 0, f"{name} launched on the spotlight path")
             counts[name] += spot_counts[name]
+        t0 = time.perf_counter()
+        ooc_counts = phase_oocore(edges, n, 32, 256, resident, spot, cmp_res)
+        log(f"phase 10 (out-of-core): {time.perf_counter() - t0:.1f}s launches={ooc_counts}")
+        for name in ("window_score", "segment_sum"):
+            check(ooc_counts[name] > 0, f"{name} launched on the out-of-core path")
+            counts[name] += ooc_counts[name]
         sources = {"window_score": ws_mod, "segment_sum": ss_mod, "flash_attention": fa_mod}
         kernels = []
         for name, row in kernel_rows.items():

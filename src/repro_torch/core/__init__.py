@@ -20,6 +20,10 @@ Public API:
   restream_partition_batched,
   two_phase_partition_batched              — the same over z batched instances
   spotlight_partition, spread_mask         — §III-D parallel loading
+  partition_file                           — out-of-core: any strategy over
+                                             a graph file, bounded edge memory
+  FileSource, RingHandle                   — the file ring and its cross-pass
+                                             hand-off (core.driver)
 """
 from repro_torch.core.types import AdwiseConfig, PartitionResult, WarmState
 from repro_torch.core.adwise import partition_stream, partition_stream_batched
@@ -46,6 +50,8 @@ from repro_torch.core.restream import (
     warm_from_assignment,
 )
 from repro_torch.core.spotlight import spotlight_partition, spread_mask
+from repro_torch.core.driver import FileSource, RingHandle
+from repro_torch.core.oocore import partition_file
 
 __all__ = [
     "AdwiseConfig",
@@ -71,4 +77,7 @@ __all__ = [
     "get_partitioner",
     "register",
     "run_partitioner",
+    "partition_file",
+    "FileSource",
+    "RingHandle",
 ]

@@ -1,8 +1,9 @@
-"""The streaming-scan driver of the port: resident streams, z instances.
+"""The streaming-scan driver of the port: resident streams and file rings,
+z instances.
 
-Port of the resident half of the JAX package's ``core/driver.py``
-(``StepCore``, ``AdwiseCore``, ``ResidentSource``, ``ScanDriver``). The
-chunk arithmetic is the JAX driver's: ``steps_total = ceil(m_max/b) +
+Port of the JAX package's ``core/driver.py`` (``StepCore``, ``AdwiseCore``,
+``ResidentSource``, ``FileSource``, ``ScanDriver``). The resident chunk
+arithmetic is the JAX driver's: ``steps_total = ceil(m_max/b) +
 ceil(W/b) + 2`` steps, sized by the longest instance (shorter ones idle),
 split into ``n_chunks`` scan calls of ``chunk_steps`` steps, then drain
 calls while any instance has edges left — so ``w_trace``, ``scan_calls`` and
@@ -42,14 +43,51 @@ one copy of the outputs to the host. The spans are host-side: they add no
 synchronisation, so on the card a ``dispatch`` span times the enqueueing of
 graph replays, not their run.
 
-File-ring sources (out-of-core) are a later slice (ROADMAP.md, port queue
-1, item 10), and so is placing instances on several cards.
+File sources (out-of-core)
+--------------------------
+:class:`FileSource` is the JAX package's device-resident ring over
+per-instance stream readers, with the same sizing arithmetic (``scan_steps``,
+``Rq``, ``B``, ``max_span``), the same refill spans and the same h2d
+counters: 8 B/row of uv on a cold pass, 12 B/row when the source has
+``prev_read``, 4 B/row on instances whose uv rows survive from an adopted
+:class:`RingHandle`. The step reads the ring at ``s % B``. In the JAX
+package each refill returns a new donated ring; here one ``(z, B, 2)`` uv
+ring and one ``(z, B)`` prev ring (filled with -1 on the device) are
+allocated per pass, every refill writes into them in place, and an adopted
+handle gives the next pass the same tensors. The driver builds its step over
+those tensors once, so the captured CUDA graphs stay valid for the pass.
+
+Donation ordered the JAX package's speculative refill after the scan call
+in flight; here stream order does: a refill's host-to-device copies are
+enqueued on the stream that replays the graphs, after scan call k's
+replays, so the copy that recycles a slot runs after the last step that may
+read it. The host's disk reads still overlap the scan, in the
+:class:`_ReadAhead` worker (numpy only, one daemon thread). Refill rows go
+through pinned staging (``pin_memory()``, whose caching allocator holds the
+block until the copy that reads it has run): a copy from pageable memory
+would make the host wait for the scan.
+
+The ring path hands each scan call's placements to ``on_assign`` after the
+call, with ONE synchronisation for ``assigned``, ``cursor``, ``sidx`` and
+``p`` (copied into pinned host buffers before the speculative refill is
+enqueued, so the wait does not include that refill's copies), as the JAX
+driver syncs once per call. Its counters are those of the JAX ring:
+``h2d_wait_s`` (wall in blocking refills), ``prefetch_depth``,
+``refill_spans`` = ``spans_prestaged`` + ``spans_missed`` and
+``prestage_wall_s`` (the worker's staging wall), with the spans ``refill``,
+``refill-spec``, ``fetch``, ``stage`` (on the read-ahead thread's track),
+the ``ring-adopt`` instant and the ``readahead_staged_rows`` gauge.
+
+Placing instances on several cards is not ported.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import os
+import threading
 import time
-from typing import Any, Callable, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Callable, Deque, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -70,15 +108,32 @@ __all__ = [
     "StepCore",
     "AdwiseCore",
     "ResidentSource",
+    "FileSource",
+    "RingBuf",
+    "RingHandle",
     "StreamResidency",
     "ScanDriver",
     "DriveResult",
     "resolve_backend",
+    "resolve_prefetch",
+    "PREFETCH_ENV",
 ]
 
 # Steps captured in one CUDA graph; a scan call replays it chunk_steps // 32
 # times, then a one-step graph for the remainder.
 STEPS_PER_GRAPH = 32
+
+PREFETCH_ENV = "ADWISE_PREFETCH"
+
+
+def resolve_prefetch(prefetch: Optional[int] = None) -> int:
+    """Effective read-ahead depth: explicit argument > ``ADWISE_PREFETCH``
+    env var > default 2. ``0`` selects the synchronous bit-parity path
+    (no worker thread, every span read inline between scan calls)."""
+    if prefetch is None:
+        raw = os.environ.get(PREFETCH_ENV, "").strip()
+        prefetch = int(raw) if raw else 2
+    return max(0, int(prefetch))
 
 
 def resolve_backend(backend: str, z: int) -> tuple[str, int]:
@@ -298,12 +353,457 @@ class ResidentSource:
         return self.z * self.per
 
 
+class RingBuf(NamedTuple):
+    """Device-resident stream ring: slot ``s % B`` holds logical row ``s``.
+
+    Allocated once per pass and written in place by every refill, so the
+    step built over it (and the CUDA graphs captured from that step) read
+    the rows each refill ships.
+    """
+
+    uv: torch.Tensor  # (z, B, 2) int32
+    prev: torch.Tensor  # (z, B) int32 prior-pass assignment, -1 = none
+
+
+class RingHandle(NamedTuple):
+    """Cross-pass hand-off of a completed ring pass (file mode).
+
+    A re-streaming pass with the same geometry adopts it through
+    ``FileSource(resume=...)``: instances whose whole stream fit in the ring
+    without wrapping keep their uv rows on the device and ship only prev
+    placements. The adopting pass writes into the same tensors.
+    """
+
+    buf: RingBuf
+    hi: np.ndarray  # (z,) per-instance upload high-water marks at pass end
+    B: int  # ring rows per instance
+    z: int
+    m_per: np.ndarray  # (z,) real stream lengths the pass ran over
+
+
+# One staged block: (start_row, row_count, uv rows or None, prev rows or
+# None). uv is None for cross-pass resumed instances (prev-only refills).
+_Block = Tuple[int, int, Optional[np.ndarray], Optional[np.ndarray]]
+
+
+def _read_rows(src: "FileSource", i: int, start: int, c: int
+               ) -> Tuple[Optional[np.ndarray], Optional[np.ndarray]]:
+    """Instance i's host rows [start, start + c): uv (unless its uv rows are
+    still on the device from an adopted ring) and, with ``prev_read``, the
+    prior pass's placements. A reader that returns another row count raises."""
+    uv: Optional[np.ndarray] = None
+    if not src.uv_resident[i]:
+        uv = np.ascontiguousarray(src.readers[i].read(start, c), np.int32)
+        if len(uv) != c:
+            raise RuntimeError(
+                f"instance {i}: reader returned {len(uv)} of {c} rows at offset {start}")
+    prev: Optional[np.ndarray] = None
+    if src.prev_read is not None:
+        prev = np.ascontiguousarray(src.prev_read[i](start, c), np.int32)
+        if len(prev) != c:
+            raise RuntimeError(
+                f"instance {i}: prev_read returned {len(prev)} of {c} rows at offset {start}")
+    return uv, prev
+
+
+class _ReadAhead:
+    """Host read-ahead worker: stage stream/prev rows while the scan runs.
+
+    One daemon thread services all z instances, least-staged first, reading
+    ``Rq``-row blocks (the final ragged tail ends exactly at ``m_i``) into a
+    bounded per-instance staging deque, at most ``depth_rows`` rows past
+    what :meth:`take` has consumed. Every refill span is a whole number of
+    Rq blocks (or ends exactly at ``m_i``), so ``take`` always pops whole
+    blocks and never splits one. The worker touches numpy only, never the
+    device.
+
+    Disk reads happen OUTSIDE the lock (the lock only guards the deques and
+    the progress counters); worker exceptions are captured and re-raised in
+    the consumer's next ``take``. ``close`` is idempotent and joins the
+    thread — safe on every exception path.
+    """
+
+    def __init__(self, source: "FileSource", depth_rows: int) -> None:
+        self._src = source
+        self._depth = int(depth_rows)
+        self._cv = threading.Condition()
+        z = source.z
+        self._staged: List[Deque[_Block]] = [collections.deque() for _ in range(z)]
+        # Worker-side read position and consumer-side pop position per
+        # instance; both only ever advance.
+        self._next = np.zeros((z,), np.int64)
+        self._taken = np.zeros((z,), np.int64)
+        self._exc: Optional[BaseException] = None
+        self._stop = False
+        self._thread = threading.Thread(target=self._loop, name="adwise-readahead", daemon=True)
+        self._thread.start()
+
+    # -- worker side -------------------------------------------------------
+    def _pick(self) -> Optional[int]:
+        """Least-staged eligible instance, or None (caller holds the lock)."""
+        src = self._src
+        best, best_lag = None, 0
+        for i in range(src.z):
+            if self._next[i] >= src.m_per[i]:
+                continue  # instance fully staged
+            lag = int(self._next[i] - self._taken[i])
+            if lag >= self._depth:
+                continue  # at the bound: wait for the consumer
+            if best is None or lag < best_lag:
+                best, best_lag = i, lag
+        return best
+
+    def _loop(self) -> None:
+        src = self._src
+        try:
+            while True:
+                with self._cv:
+                    while True:
+                        if self._stop:
+                            return
+                        i = self._pick()
+                        if i is not None:
+                            break
+                        if (self._next >= src.m_per).all():
+                            return  # everything staged; worker retires
+                        self._cv.wait()
+                    start = int(self._next[i])
+                    c = min(src.Rq, int(src.m_per[i]) - start)
+                # Reads outside the lock: the consumer keeps popping while
+                # the worker is on disk.
+                trace = src.trace
+                t_stage = time.perf_counter()
+                uv, prev = _read_rows(src, i, start, c)
+                t_staged = time.perf_counter()
+                if trace.enabled:
+                    # Recorded from the worker thread, so the span lands on
+                    # the `adwise-readahead` track.
+                    trace.add_span(
+                        "stage", "stage", t_stage, t_staged,
+                        attrs=dict(instance=i, start=start, rows=c, prev=prev is not None),
+                    )
+                with self._cv:
+                    # Worker-side staging wall: what h2d_wait_s (blocking
+                    # refills only) cannot see. Accumulated even when
+                    # untraced, so the overlap is always measured.
+                    src.prestage_wall_s += t_staged - t_stage
+                    self._staged[i].append((start, c, uv, prev))
+                    self._next[i] = start + c
+                    if trace.enabled:
+                        depth = int((self._next - self._taken).sum())
+                    self._cv.notify_all()
+                if trace.enabled:
+                    trace.gauge("readahead_staged_rows", depth)
+        except BaseException as e:  # surfaced via take(); the thread must not die silently
+            with self._cv:
+                self._exc = e
+                self._cv.notify_all()
+
+    # -- consumer side -----------------------------------------------------
+    def take(self, i: int, start: int, count: int
+             ) -> Tuple[Optional[np.ndarray], Optional[np.ndarray], bool]:
+        """Pop ``count`` staged rows of instance i beginning at ``start``.
+
+        Returns ``(uv_rows, prev_rows, waited)`` — ``waited`` is True when
+        the consumer had to block on the worker (a pipeline miss).
+        """
+        end = start + count
+        uv_parts: List[np.ndarray] = []
+        prev_parts: List[np.ndarray] = []
+        waited = False
+        with self._cv:
+            assert start == int(self._taken[i]), (
+                f"instance {i}: take at {start}, staged position is {int(self._taken[i])}")
+            while self._taken[i] < end:
+                if self._exc is not None:
+                    raise RuntimeError("read-ahead worker failed") from self._exc
+                if self._staged[i]:
+                    b_start, c, uv, prev = self._staged[i].popleft()
+                    assert b_start == int(self._taken[i])
+                    assert b_start + c <= end, (
+                        f"instance {i}: staged block [{b_start}, {b_start + c}) straddles "
+                        f"take end {end} — span/block alignment broken")
+                    if uv is not None:
+                        uv_parts.append(uv)
+                    if prev is not None:
+                        prev_parts.append(prev)
+                    self._taken[i] = b_start + c
+                    self._cv.notify_all()  # freed depth: wake the worker
+                else:
+                    waited = True
+                    self._cv.wait()
+        uv_all = (uv_parts[0] if len(uv_parts) == 1
+                  else np.concatenate(uv_parts) if uv_parts else None)
+        prev_all = (prev_parts[0] if len(prev_parts) == 1
+                    else np.concatenate(prev_parts) if prev_parts else None)
+        return uv_all, prev_all, waited
+
+    def close(self) -> None:
+        with self._cv:
+            self._stop = True
+            self._cv.notify_all()
+        self._thread.join(timeout=30.0)
+
+
+class FileSource:
+    """Bounded device-resident ring buffer over per-instance stream readers.
+
+    ``readers[i]`` is instance i's locally addressed stream (an
+    ``EdgeFileReader`` / sub-reader, or anything with ``num_edges`` and
+    ``read(start, count)``); ``prev_read[i](start, count)`` optionally
+    supplies the prior pass's placements for buffered re-streaming
+    revocation.
+
+    Sizing, as in the JAX package (``W = core.window_rows``,
+    ``b = core.rows_per_step``): ``S = (B0 - W) // b`` scan steps per call
+    consume at most ``F = W + S·b`` rows, where
+    ``B0 = max(chunk_edges, W + b)``. Refills are quantized to spans that
+    are multiples of ``Rq`` (a power of two); the ring holds
+    ``B = (⌈F/Rq⌉ + 2)·Rq`` rows, so a quantized refill always leaves ≥ F
+    uploaded-but-unread rows ahead of the cursor while never overwriting a
+    live slot (row ``s`` lands in slot ``s % B`` only once row ``s − B`` is
+    behind the cursor). One host read stays within ``max_span`` ≤ B0 rows.
+
+    Invariants (checked): ``cursor ≤ hi ≤ cursor + B`` and ``hi`` advances
+    monotonically — every stream row is read from disk and shipped to the
+    device exactly once per pass.
+
+    ``prefetch >= 1`` starts a :class:`_ReadAhead` worker that stages up to
+    ``prefetch · max_span`` rows ahead of consumption, and the driver issues
+    a speculative refill after each scan call. ``prefetch=0`` is the
+    synchronous path. ``resume`` adopts a previous pass's
+    :class:`RingHandle`: matching-geometry instances that never wrapped ship
+    prev-only spans (4 B/row instead of 12 B/row).
+    """
+
+    resident = False
+
+    def __init__(
+        self,
+        readers: Sequence,
+        *,
+        chunk_edges: int,
+        cfg: Optional[AdwiseConfig] = None,
+        core: Optional[StepCore] = None,
+        prev_read: Optional[List[Callable[[int, int], np.ndarray]]] = None,
+        prefetch: Optional[int] = None,
+        resume: Optional[RingHandle] = None,
+        trace: Any = None,
+    ) -> None:
+        self.trace = resolve_tracer(trace)
+        self.readers = list(readers)
+        self.z = len(self.readers)
+        if self.z < 1:
+            raise ValueError("FileSource needs at least one reader")
+        self.m_per = np.array([r.num_edges for r in self.readers], np.int64)
+        self.prev_read = prev_read
+        if core is not None:
+            w_max, b = core.window_rows, core.rows_per_step
+        elif cfg is not None:
+            w_max, b = cfg.window_max, cfg.assign_batch
+        else:
+            raise ValueError("FileSource needs a cfg or a step-core")
+        b0 = int(max(chunk_edges, w_max + b))
+        self.scan_steps = max(1, (b0 - w_max) // b)
+        f = w_max + self.scan_steps * b  # worst-case rows consumed per call
+        self.Rq = 1 << max(2, (max(f // 8, 1)).bit_length())
+        self.B = (-(-f // self.Rq) + 2) * self.Rq
+        # Single disk reads stay within b0, kept a multiple of Rq so span
+        # shapes stay quantized.
+        self.max_span = max(self.Rq, (b0 // self.Rq) * self.Rq)
+        # Host-side high-water mark: rows [0, hi) are on the device.
+        self.hi = np.zeros((self.z,), np.int64)
+        self.h2d_rows = 0
+        self.h2d_bytes = 0
+        self.h2d_wait_s = 0.0
+        self.prestage_wall_s = 0.0
+        self.refill_spans = 0
+        self.spans_prestaged = 0
+        self.spans_missed = 0
+        self.prefetch = resolve_prefetch(prefetch)
+        # Distinct (uv, prev) device addresses the refills wrote to: one
+        # pair per pass, shared with the pass that adopts the ring.
+        self.ring_addrs: set = set()
+        # uv_resident[i]: instance i's uv rows survive from the adopted
+        # previous-pass ring — refills ship prev-only spans.
+        self.uv_resident = np.zeros((self.z,), bool)
+        self._resume_buf: Optional[RingBuf] = None
+        if resume is not None:
+            self._adopt(resume)
+        self._worker: Optional[_ReadAhead] = None
+        self._worker_started = False
+
+    def _adopt(self, resume: RingHandle) -> None:
+        """Adopt a previous pass's ring under the cross-pass contract: same
+        geometry (B, z, per-instance m), and only instances whose whole
+        stream fit without wrapping (``m_i <= B`` and the pass uploaded all
+        of it) keep uv residency."""
+        if self.prev_read is None:
+            raise ValueError(
+                "resuming a ring without prev_read would re-run the same pass; "
+                "cross-pass adoption is for re-streaming revocation only")
+        if (resume.B != self.B or resume.z != self.z
+                or not (np.asarray(resume.m_per) == self.m_per).all()):
+            return  # geometry changed (re-chunked): full re-ship fallback
+        fits = (self.m_per <= resume.B) & (np.asarray(resume.hi) >= self.m_per)
+        if fits.any():
+            self.uv_resident = fits
+            self._resume_buf = resume.buf
+            if self.trace.enabled:
+                self.trace.instant(
+                    "ring-adopt", "refill",
+                    resident_instances=int(fits.sum()), z=self.z, B=self.B,
+                )
+
+    def alloc(self, device: torch.device) -> RingBuf:
+        """The ring for this pass: the adopted previous-pass ring when
+        resuming, else a fresh one on ``device``: uv zeros, prev all -1 (no
+        prior placement — 0 would be a real partition id and would trigger
+        a false revocation), filled on the device. Stale prev rows in an
+        adopted ring are harmless: hi restarts at 0, so every row's prev is
+        shipped again before the cursor can reach it."""
+        if self._resume_buf is not None:
+            buf, self._resume_buf = self._resume_buf, None
+            if buf.uv.device.type != device.type:
+                raise ValueError(f"adopted ring lives on {buf.uv.device}, not {device}")
+            return buf
+        return RingBuf(
+            uv=torch.zeros((self.z, self.B, 2), dtype=torch.int32, device=device),
+            prev=torch.full((self.z, self.B), -1, dtype=torch.int32, device=device),
+        )
+
+    def _fetch(self, i: int, start: int, c: int
+               ) -> Tuple[Optional[np.ndarray], Optional[np.ndarray], bool]:
+        """One span's host rows: from the staging queue when pipelined,
+        read inline otherwise. Lazily starts the worker so sizing-only
+        FileSource uses never spawn a thread."""
+        if self.prefetch > 0 and not self._worker_started:
+            self._worker_started = True
+            self._worker = _ReadAhead(self, self.prefetch * self.max_span)
+        if self._worker is not None:
+            return self._worker.take(i, start, c)
+        uv, prev = _read_rows(self, i, start, c)
+        # The synchronous path stalls on every span by construction.
+        return uv, prev, True
+
+    def refill(self, buf: RingBuf, cursors: np.ndarray, *, speculative: bool = False) -> RingBuf:
+        """Ship the new tail rows of every instance into ``buf``, in place;
+        returns ``buf``.
+
+        ``cursors[i]`` is instance i's scan cursor — rows behind it are dead
+        and their slots are free to overwrite. A ``speculative`` refill
+        passes the guaranteed-progress lower bound instead of the true
+        cursor and is left out of the measured ``h2d_wait_s`` stall: its
+        staging work overlaps the scan call in flight, and its copies are
+        enqueued behind that call on the same stream.
+        """
+        trace = self.trace
+        traced = trace.enabled
+        t_start = time.perf_counter() if (traced or not speculative) else 0.0
+        shipped_rows = 0
+        call_spans = 0
+        call_missed = 0
+        with_prev = self.prev_read is not None
+        pin = buf.uv.device.type == "cuda"
+        self.ring_addrs.add((buf.uv.data_ptr(), buf.prev.data_ptr()))
+        for i in range(self.z):
+            cur = int(cursors[i])
+            m_i = int(self.m_per[i])
+            hi = int(self.hi[i])
+            if cur > hi:
+                raise RuntimeError(
+                    f"instance {i}: scan cursor {cur} overran the uploaded "
+                    f"high-water mark {hi} — ring refill bound violated")
+            target = min(cur + self.B, m_i)
+            if target <= hi:
+                continue
+            span_total = target - hi
+            if target < m_i:
+                # Quantize to Rq blocks; B ≥ F + 2·Rq keeps ≥ F rows ahead
+                # of the cursor even after flooring.
+                span_total -= span_total % self.Rq
+            end = hi + span_total
+            while hi < end:
+                slot = hi % self.B
+                # Never wrap inside a write; never exceed the chunk bound.
+                c = min(end - hi, self.B - slot, self.max_span)
+                if traced:
+                    t_fetch = time.perf_counter()
+                rows, prows, waited = self._fetch(i, hi, c)
+                if traced:
+                    trace.add_span(
+                        "fetch", "fetch", t_fetch, time.perf_counter(),
+                        attrs=dict(instance=i, start=hi, rows=c, prestaged=not waited),
+                    )
+                self.refill_spans += 1
+                call_spans += 1
+                if waited:
+                    self.spans_missed += 1
+                    call_missed += 1
+                else:
+                    self.spans_prestaged += 1
+                if rows is not None:
+                    _ship(buf.uv[i, slot:slot + c], rows, pin)
+                    self.h2d_rows += c
+                    self.h2d_bytes += c * 8
+                if with_prev:
+                    _ship(buf.prev[i, slot:slot + c], prows, pin)
+                    self.h2d_bytes += c * 4
+                shipped_rows += c
+                hi += c
+            self.hi[i] = hi
+        if not speculative:
+            t_end = time.perf_counter()
+            self.h2d_wait_s += t_end - t_start
+            if traced:
+                # Same (t_start, t_end) floats that fed h2d_wait_s: the
+                # `refill` category total reconciles with it exactly.
+                trace.add_span(
+                    "refill", "refill", t_start, t_end,
+                    attrs=dict(rows=shipped_rows, spans=call_spans,
+                               missed=call_missed, Rq=self.Rq),
+                )
+        elif traced and call_spans:
+            trace.add_span(
+                "refill-spec", "refill-spec", t_start, time.perf_counter(),
+                attrs=dict(rows=shipped_rows, spans=call_spans,
+                           missed=call_missed, Rq=self.Rq),
+            )
+        return buf
+
+    def close(self) -> None:
+        """Join the read-ahead worker (idempotent; safe on exception paths).
+        After close, further refills fall back to synchronous reads."""
+        if self._worker is not None:
+            self._worker.close()
+            self._worker = None
+
+    def __enter__(self) -> "FileSource":
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        self.close()
+
+
+def _ship(dst: torch.Tensor, rows: np.ndarray, pin: bool) -> None:
+    """Copy host rows into a slice of the ring, enqueued on the current
+    stream. On the card the rows go through a pinned block first, so the
+    copy is asynchronous and the host does not wait for the scan in flight;
+    the caching host allocator keeps the block until the copy has run."""
+    host = torch.from_numpy(rows)
+    if pin:
+        host = host.pin_memory()
+    dst.copy_(host, non_blocking=pin)
+
+
 class DriveResult(NamedTuple):
     """Raw outcome of one driven scan; callers assemble their stats."""
 
-    sidx: np.ndarray  # (z, T·b)
-    p: np.ndarray  # (z, T·b)
-    w_trace: np.ndarray  # (z, T)
+    # Per-instance step outputs over every scan call — collected in
+    # resident mode only (the file path streams them to `on_assign`).
+    sidx: Optional[np.ndarray]  # (z, T·b)
+    p: Optional[np.ndarray]  # (z, T·b)
+    w_trace: Optional[np.ndarray]  # (z, T)
     assigned: np.ndarray  # (z,)
     score_rows: np.ndarray  # (z,)
     final_w: np.ndarray  # (z,)
@@ -322,15 +822,24 @@ class DriveResult(NamedTuple):
     buffer_rows: int
     scan_steps_per_call: int
     steps_per_graph: int  # 0 on the CPU (plain loop)
+    # Refill-pipeline accounting (file mode; zeros for resident sources).
+    h2d_wait_s: float = 0.0  # wall spent in blocking refills
+    prefetch_depth: int = 0
+    refill_spans: int = 0
+    spans_prestaged: int = 0
+    spans_missed: int = 0
+    prestage_wall_s: float = 0.0  # the read-ahead worker's staging wall
+    ring_addrs: int = 0  # distinct ring addresses the refills wrote to
 
 
 class ScanDriver:
-    """Chunked stepping loop over a resident stream of z instances, on one
-    device."""
+    """The stepping loop over a source of z instances, on one device: the
+    resident stream (chunked scan calls, outputs collected once) or a file
+    ring (refill → scan → one sync → emit, per call)."""
 
     def __init__(
         self,
-        source: ResidentSource,
+        source: Any,  # a ResidentSource or a FileSource
         core: Any,  # a StepCore, or an AdwiseConfig (wraps AdwiseCore)
         num_vertices: Optional[int] = None,
         *,
@@ -344,6 +853,11 @@ class ScanDriver:
     ) -> None:
         self.device = compat.resolve_device(device)
         self.trace = resolve_tracer(trace)
+        # A traced driver over an untraced FileSource lends it its tracer,
+        # so refill/stage spans land in the same timeline.
+        src_trace = getattr(source, "trace", None)
+        if self.trace.enabled and src_trace is not None and not src_trace.enabled:
+            source.trace = self.trace
         if isinstance(core, AdwiseConfig):
             if num_vertices is None:
                 raise ValueError("an AdwiseConfig core needs num_vertices")
@@ -376,7 +890,8 @@ class ScanDriver:
         dev = self.device
         self.warm = warm is not None
         # The prior-assignment table every resident pass ships: -1 = none.
-        self._prev_np = np.full((z, source.per), -1, np.int32)
+        # A file pass reads prior placements through the source's prev_read.
+        self._prev_np = np.full((z, source.per), -1, np.int32) if source.resident else None
         if warm is None:
             carry = stack_instances([core.init_carry(budget, dev)] * z)
         else:
@@ -386,6 +901,10 @@ class ScanDriver:
             if any(has_prev) and not all(has_prev):
                 raise ValueError(
                     "all instances must agree on whether prev_assign is provided")
+            if any(has_prev) and not source.resident:
+                raise ValueError(
+                    "file-mode warm states must not carry prev_assign; pass "
+                    "prev_read to the FileSource instead")
             for i, w in enumerate(warm):
                 if w.prev_assign is None:
                     continue
@@ -409,6 +928,9 @@ class ScanDriver:
         self._allowed = torch.as_tensor(allowed_np, device=dev)
         self._caps = torch.as_tensor(caps, device=dev)
         self.steps_per_graph = STEPS_PER_GRAPH if dev.type == "cuda" else 0
+        # Set after a completed ring drive: the cross-pass hand-off a
+        # re-streaming pass may adopt (FileSource(resume=...)).
+        self.ring_handle: Optional[RingHandle] = None
 
     def _recalibrate(self, carry: Any, t0: float) -> None:
         if self.has_budget and not self.fixed_cost:
@@ -519,14 +1041,147 @@ class ScanDriver:
             steps_per_graph=self.steps_per_graph,
         )
 
-    def run(self, *, n_chunks: int = 8) -> DriveResult:
-        """Drive the scan to completion over the resident streams."""
-        return self._run_resident(n_chunks)
+    def _run_ring(self, on_assign: Callable[[int, np.ndarray, np.ndarray], None]) -> DriveResult:
+        src, core, dev, z = self.source, self.core, self.device, self.z
+        m_max = int(self.m_per.max())
+        S = src.scan_steps
+        pipelined = src.prefetch > 0
+        carry = self.carry
+        iters = 0
+        # Every step with a non-empty window assigns >= 1 edge per instance,
+        # so the calls are bounded by m_max plus the window build-up.
+        max_iters = -(-(m_max + core.window_rows) // S) + 8
+        # Host mirrors of the synced counters, one sync per scan call. The
+        # loop body: top-up refill (true cursor) -> scan call k -> copies of
+        # its outputs and counters to the host -> SPECULATIVE refill for
+        # call k+1 (from the guaranteed-progress lower bound, enqueued
+        # behind call k) -> the one sync -> emit. At prefetch=0 the
+        # speculative refill is skipped.
+        assigned = np.zeros((z,), np.int64)
+        cursors = np.zeros((z,), np.int64)
+        trace = self.trace
+        traced = trace.enabled
+        done_before = 0
+        t0 = time.perf_counter()
+        try:
+            buf = src.alloc(dev)
+            step = core.make_step(buf.uv, self._m_real, self._allowed, self._caps, buf.prev)
+            out = StepOut.empty(S, z, core.rows_per_step, dev)
+            if dev.type == "cuda":
+                run_chunk = _GraphStepper(step, carry, out, S, self.steps_per_graph)
+            else:
+                run_chunk = _LoopStepper(step, carry, out, S)
+            emitted = _HostCopy((carry.assigned, carry.cursor, out.sidx, out.p), dev)
+            setup_s = time.perf_counter() - t0
+            while not (assigned >= self.m_per).all():
+                iters += 1
+                if iters > max_iters:
+                    raise RuntimeError(
+                        f"streaming scan failed to converge: {assigned} of "
+                        f"{self.m_per} assigned after {iters - 1} calls")
+                buf = src.refill(buf, cursors)
+                if traced:
+                    t_call = time.perf_counter()
+                captured = run_chunk()
+                emitted.start()
+                if pipelined:
+                    # Safe without syncing: the call in flight advances every
+                    # unfinished instance by >= S assignments, so rows below
+                    # lb are dead for every later call, and the copies are
+                    # enqueued behind that call on the same stream.
+                    lb = np.minimum(assigned + S, self.m_per)
+                    buf = src.refill(buf, lb, speculative=True)
+                # staticcheck: disable=SC003 ring-mode termination: ONE sync per scan call for assigned, cursor, sidx and p, amortized over S steps
+                a_h, c_h, sidx_h, p_h = emitted.wait()
+                assigned = a_h.astype(np.int64)
+                # The next refill needs the host cursor to size disk reads,
+                # and file mode streams placements to on_assign to stay
+                # O(chunk): both come from the same sync.
+                cursors = c_h.astype(np.int64)
+                sidx = sidx_h.transpose(1, 0, 2).reshape(z, -1)
+                pout = p_h.transpose(1, 0, 2).reshape(z, -1)
+                for i in range(z):
+                    live = sidx[i] >= 0
+                    if live.any():
+                        on_assign(i, sidx[i][live].astype(np.int64), pout[i][live])
+                if traced:
+                    # Refill -> scan call -> speculative refill -> the one
+                    # sync -> emit: the whole host wait for scan call k.
+                    # `rows` stays an np scalar; the exporter unwraps it.
+                    done = assigned.sum()
+                    trace.add_span(
+                        "scan-call", "scan", t_call, time.perf_counter(),
+                        attrs=dict(call=iters, steps=S, rows=done - done_before,
+                                   compiled=captured),
+                    )
+                    done_before = done
+                self._recalibrate(carry, t0)
+            if not (cursors <= src.hi).all():
+                raise RuntimeError(f"scan cursors {cursors} overran uploaded rows {src.hi}")
+            wall = time.perf_counter() - t0
+        finally:
+            src.close()
+        self.ring_handle = RingHandle(buf=buf, hi=src.hi.copy(), B=src.B, z=z,
+                                      m_per=self.m_per.copy())
+        cnt = core.counters(carry)
+        return DriveResult(
+            sidx=None,
+            p=None,
+            w_trace=None,
+            assigned=carry.assigned.cpu().numpy(),
+            score_rows=cnt["score_rows"],
+            final_w=cnt["final_w"],
+            lam=cnt["lam"],
+            cost_per_score=cnt["cost_per_score"],
+            wall_time_s=wall,
+            r_sel=self.r_sel,
+            backend=self.backend,
+            n_shards=self.n_shards,
+            scan_calls=iters,
+            steps_run=iters * S,
+            warmup_steps=run_chunk.warmup_steps,
+            setup_s=setup_s + run_chunk.capture_s,
+            h2d_rows=src.h2d_rows,
+            h2d_bytes=src.h2d_bytes,
+            buffer_rows=src.B,
+            scan_steps_per_call=S,
+            steps_per_graph=self.steps_per_graph,
+            h2d_wait_s=src.h2d_wait_s,
+            prefetch_depth=src.prefetch,
+            refill_spans=src.refill_spans,
+            spans_prestaged=src.spans_prestaged,
+            spans_missed=src.spans_missed,
+            prestage_wall_s=src.prestage_wall_s,
+            ring_addrs=len(src.ring_addrs),
+        )
+
+    def run(
+        self,
+        *,
+        n_chunks: int = 8,
+        on_assign: Optional[Callable[[int, np.ndarray, np.ndarray], None]] = None,
+    ) -> DriveResult:
+        """Drive the scan to completion.
+
+        Resident sources step through ``n_chunks`` provisioned scan calls
+        (+ drain) and return the collected step outputs; file sources loop
+        refill → scan until every instance has assigned its stream, emitting
+        finished placements through ``on_assign(i, local_idx, p)`` (required
+        — the file path never holds O(m) outputs).
+        """
+        if self.source.resident:
+            return self._run_resident(n_chunks)
+        if on_assign is None:
+            raise ValueError("file-mode driving requires on_assign")
+        return self._run_ring(on_assign)
 
     def stats_base(self, res: DriveResult, instance: int) -> dict:
-        """The JAX driver's per-instance stat fields (resident mode), plus
-        the port's ``steps_run``, ``warmup_steps``, ``setup_s``,
-        ``steps_per_graph`` and ``device``."""
+        """The JAX driver's per-instance stat fields, plus the port's
+        ``steps_run``, ``warmup_steps``, ``setup_s``, ``steps_per_graph`` and
+        ``device``; after a file drive also ``ring_addrs`` and
+        ``ring_handle`` (the ring a later pass may adopt)."""
+        ring = {} if self.source.resident else dict(
+            ring_addrs=res.ring_addrs, ring_handle=self.ring_handle)
         return dict(
             k=self.core.k,
             name=self.core.name,
@@ -544,23 +1199,49 @@ class ScanDriver:
             h2d_bytes=res.h2d_bytes,
             buffer_rows=res.buffer_rows,
             scan_steps_per_call=res.scan_steps_per_call,
-            h2d_wait_s=0.0,
-            prefetch_depth=0,
-            refill_spans=0,
-            spans_prestaged=0,
-            spans_missed=0,
-            prestage_wall_s=0.0,
+            h2d_wait_s=res.h2d_wait_s,
+            prefetch_depth=res.prefetch_depth,
+            refill_spans=res.refill_spans,
+            spans_prestaged=res.spans_prestaged,
+            spans_missed=res.spans_missed,
+            prestage_wall_s=res.prestage_wall_s,
             steps_run=res.steps_run,
             warmup_steps=res.warmup_steps,
             setup_s=res.setup_s,
             steps_per_graph=res.steps_per_graph,
             device=str(self.device),
+            **ring,
         )
 
 
 def _snapshot(out: StepOut) -> tuple:
     """Device-side copies of one scan call's outputs (no host sync)."""
     return out.sidx.clone(), out.p.clone(), out.w_cap.clone()
+
+
+class _HostCopy:
+    """Host copies of a fixed set of device tensors, taken once per scan
+    call. ``start`` enqueues the copies (into pinned buffers on the card, so
+    they are asynchronous) and records an event; ``wait`` synchronises on
+    that event alone and returns numpy views of the buffers, valid until the
+    next ``start``."""
+
+    def __init__(self, tensors: Sequence[torch.Tensor], device: torch.device) -> None:
+        pin = device.type == "cuda"
+        self.src = tuple(tensors)
+        self.host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=pin) for t in self.src)
+        self.ready = torch.cuda.Event() if pin else None
+
+    def start(self) -> None:
+        for h, d in zip(self.host, self.src):
+            h.copy_(d, non_blocking=self.ready is not None)
+        if self.ready is not None:
+            self.ready.record()
+
+    def wait(self) -> Tuple[np.ndarray, ...]:
+        if self.ready is not None:
+            self.ready.synchronize()
+        return tuple(h.numpy() for h in self.host)
 
 
 class _LoopStepper:

@@ -11,7 +11,9 @@ from repro_torch.graph.generate import (
 from repro_torch.graph.metrics import (
     partition_balance,
     partition_sizes,
+    quality_from_chunks,
     replica_sets_from_assignment,
+    replica_sets_from_chunks,
     replication_degree,
     sync_volume,
     unassigned_count,
@@ -30,6 +32,8 @@ __all__ = [
     "partition_balance",
     "partition_sizes",
     "replica_sets_from_assignment",
+    "replica_sets_from_chunks",
+    "quality_from_chunks",
     "sync_volume",
     "unassigned_count",
 ]

@@ -1,7 +1,7 @@
 """Partitioning-quality metrics (Eq. 1 and Eq. 2 of the paper).
 
-Copied from the JAX package's ``graph/metrics.py`` (numpy only; the chunked
-out-of-core variants wait for the out-of-core slice). All metrics take an
+Copied from the JAX package's ``graph/metrics.py`` (numpy only), with its
+chunked out-of-core variants. All metrics take an
 assignment ``assign[m] in [0, k)`` in stream order, with an explicit
 ``unassigned=`` policy for ``-1`` entries: ``"raise"`` (default) or
 ``"drop"`` (compute over the assigned subset).
@@ -12,11 +12,13 @@ import numpy as np
 
 __all__ = [
     "replica_sets_from_assignment",
+    "replica_sets_from_chunks",
     "replication_degree",
     "partition_sizes",
     "partition_balance",
     "sync_volume",
     "unassigned_count",
+    "quality_from_chunks",
 ]
 
 
@@ -93,6 +95,67 @@ def partition_balance(
     if mx == 0:
         return 0.0
     return float((mx - sizes.min()) / mx)
+
+
+def replica_sets_from_chunks(
+    pairs,
+    num_vertices: int,
+    k: int,
+    *,
+    unassigned: str = "raise",
+) -> np.ndarray:
+    """Chunked accumulation of :func:`replica_sets_from_assignment`.
+
+    ``pairs`` is an iterable of ``(edges_chunk, assign_chunk)`` — e.g. a
+    zip of ``EdgeFileReader.chunks(c)`` with slices of an assignment spill
+    memmap — so replica tables for file-resident graphs build with O(chunk)
+    edge memory (the (V, k) bool table is vertex-sized state, as everywhere).
+    Bitwise identical to the in-memory function on the concatenated stream.
+    """
+    rep = np.zeros((num_vertices, k), dtype=bool)
+    for edges, assign in pairs:
+        assign = np.asarray(assign)
+        assert len(edges) == len(assign), (len(edges), len(assign))
+        ok = _assigned_mask(assign, k, unassigned)
+        rep[edges[ok, 0], assign[ok]] = True
+        rep[edges[ok, 1], assign[ok]] = True
+    return rep
+
+
+def quality_from_chunks(
+    pairs,
+    num_vertices: int,
+    k: int,
+    *,
+    unassigned: str = "raise",
+) -> dict:
+    """One chunked pass → the standard quality dict for a file-driven run:
+    ``replication_degree`` (Eq. 1), ``imbalance`` (iota), ``sizes``,
+    ``unassigned``, plus the accumulated ``replicas`` table itself (callers
+    that need both the numbers and the table — e.g. re-streaming warm starts
+    — get them from the single read). Matches the in-memory metrics exactly.
+    """
+    rep = np.zeros((num_vertices, k), dtype=bool)
+    sizes = np.zeros(k, dtype=np.int64)
+    n_unassigned = 0
+    for edges, assign in pairs:
+        assign = np.asarray(assign)
+        assert len(edges) == len(assign), (len(edges), len(assign))
+        ok = _assigned_mask(assign, k, unassigned)
+        n_unassigned += int((~ok).sum())
+        rep[edges[ok, 0], assign[ok]] = True
+        rep[edges[ok, 1], assign[ok]] = True
+        sizes += np.bincount(assign[ok], minlength=k).astype(np.int64)
+    mx = sizes.max() if k else 0
+    imbalance = float((mx - sizes.min()) / mx) if mx > 0 else 0.0
+    return dict(
+        replication_degree=replication_degree(rep),
+        imbalance=imbalance,
+        sizes=sizes,
+        unassigned=n_unassigned,
+        sync_volume=sync_volume(rep),
+        replicas=rep,
+    )
 
 
 def sync_volume(replicas: np.ndarray, bytes_per_replica: int = 8) -> int:

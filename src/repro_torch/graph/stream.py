@@ -1,8 +1,6 @@
 """Edge-stream abstraction.
 
-Copy of the JAX package's ``graph/stream.py`` without its file methods
-(saving, loading and the binary edge-file format are the out-of-core slice,
-ROADMAP.md port queue 1, item 10). A streaming partitioner consumes edges
+Copy of the JAX package's ``graph/stream.py``. A streaming partitioner consumes edges
 in a fixed order; the stream splits into ``z`` disjoint sub-streams for
 parallel loading (one per partitioner instance, as in the paper's
 evaluation setup where each of 8 machines loads 1/8 of the graph).
@@ -85,3 +83,28 @@ class EdgeStream:
         np.add.at(deg, self.edges[:, 0], 1)
         np.add.at(deg, self.edges[:, 1], 1)
         return deg
+
+    def save(self, path: str) -> None:
+        np.savez_compressed(path, edges=self.edges, num_vertices=self.num_vertices)
+
+    @staticmethod
+    def load(path: str) -> "EdgeStream":
+        # NpzFile holds the archive open until closed; copy the arrays out
+        # under a context manager so the file handle never leaks.
+        with np.load(path) as data:
+            return EdgeStream(data["edges"].copy(), int(data["num_vertices"]))
+
+    def to_file(self, path: str) -> None:
+        """Write as a binary edge-stream file (`repro_torch.graph.io` format)."""
+        from repro_torch.graph.io.format import write_edge_file
+
+        write_edge_file(path, self.edges, self.num_vertices)
+
+    @staticmethod
+    def from_file(path: str) -> "EdgeStream":
+        """Load a binary edge-stream file fully resident (small graphs /
+        tests; large graphs should stay behind an ``EdgeFileReader``)."""
+        from repro_torch.graph.io.format import read_edge_file
+
+        edges, n = read_edge_file(path)
+        return EdgeStream(edges, n)

@@ -21,17 +21,35 @@ as the JAX package's ``repro.launch.partition``. ``--device`` picks
 trace-event JSON (open it in https://ui.perfetto.dev). Tracing is
 host-side only: it adds no device synchronisation.
 
-A graph file path (out-of-core) is not ported yet and exits with a message
-that names its ROADMAP.md item, never falling through to something else.
+``--graph`` also takes a *path*: a binary edge-stream file
+(``repro_torch.graph.io`` format) is partitioned out-of-core through
+``repro_torch.core.oocore.partition_file`` — resident edge memory stays
+bounded by ``--chunk-edges``, assignments spill to disk, quality metrics
+accumulate in chunks, and the report adds the measured IO and the ring's
+refill pipeline. ``--ingest`` converts a SNAP-style text edge list to the
+binary format first (``--relabel`` densifies sparse vertex ids);
+``--prefetch N`` sets the read-ahead depth (0 = synchronous refills)::
+
+    PYTHONPATH=src python -m repro_torch.launch.partition --graph g.txt \
+        --ingest --strategy adwise --k 32 --z 8 --spread 4 \
+        --chunk-edges 8192 --spill-dir spill --workload pagerank
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import shutil
+import tempfile
 import time
 
-from repro_torch.core import AdwiseConfig, available_strategies, run_partitioner, spotlight_partition
+from repro_torch.core import (
+    AdwiseConfig,
+    available_strategies,
+    partition_file,
+    run_partitioner,
+    spotlight_partition,
+)
 from repro_torch.engine import (
     PAPER_CLUSTER,
     build_partitioned_graph,
@@ -45,6 +63,7 @@ from repro_torch.graph import (
     GRAPH_PRESETS,
     make_graph,
     partition_balance,
+    quality_from_chunks,
     replica_sets_from_assignment,
     replication_degree,
     unassigned_count,
@@ -54,16 +73,128 @@ from repro_torch.graph import (
 _ADWISE_LIKE = ("adwise", "adwise-restream", "2ps")
 
 
-def _unported(what: str, item: str) -> SystemExit:
-    return SystemExit(
-        f"repro_torch.launch.partition: {what} is not ported yet — "
-        f"ROADMAP.md, port queue 1, {item}"
-    )
-
-
 def _adwise_cfg_kwargs(args) -> dict:
     return dict(window_max=args.window_max, latency_budget=args.budget,
                 use_clustering=not args.no_cs)
+
+
+def _strategy_cfg_kwargs(args) -> dict:
+    """Registry-style **cfg for the active strategy (file-driven path)."""
+    cfg = {}
+    if args.strategy in _ADWISE_LIKE:
+        cfg = _adwise_cfg_kwargs(args)
+    if args.strategy == "adwise-restream":
+        cfg["passes"] = args.passes
+        if args.eps is not None:
+            cfg["eps"] = args.eps
+    return cfg
+
+
+def run_partition_file(path, args, trace=None):
+    """Out-of-core path: ingest (optional) → partition_file → the reader,
+    the result and the temporary directories the run must remove."""
+    from repro_torch.graph.io import EdgeFileReader, ingest_text
+
+    if args.oracle:
+        raise SystemExit(
+            "--oracle (the sequential Algorithm-1 reference) has no "
+            "out-of-core driver; run it on a generator preset instead"
+        )
+    if args.backend in ("batched", "loop"):
+        print(f"note: --backend {args.backend} has no file-driven equivalent; "
+              "using 'auto' (every scan-core strategy rides the batched ring "
+              "buffer; only the stateless hashes run a per-instance loop)")
+    ingest_tmp = None
+    if args.ingest:
+        # The cache name keys on --relabel: the two settings produce
+        # different id spaces, so they must never reuse each other's binary.
+        suffix = ".relabel.adw" if args.relabel else ".adw"
+        binary = path + suffix
+        if not os.access(os.path.dirname(os.path.abspath(path)) or ".", os.W_OK):
+            # Read-only dataset mount: put the binary in the spill dir (kept)
+            # or a temp dir the end of the run removes.
+            if args.spill_dir is None:
+                ingest_tmp = tempfile.mkdtemp(prefix="adwise-ingest-")
+            else:
+                os.makedirs(args.spill_dir, exist_ok=True)
+            binary = os.path.join(args.spill_dir or ingest_tmp, os.path.basename(path) + suffix)
+        if os.path.exists(binary) and os.path.getmtime(binary) >= os.path.getmtime(path):
+            print(f"reusing up-to-date binary {binary} (delete it to re-ingest)")
+        else:
+            rep = ingest_text(path, binary, relabel=args.relabel)
+            mb = rep.bytes_read / 1e6
+            print(
+                f"ingested {path}: {rep.num_edges} edges, {rep.num_vertices} "
+                f"vertices, {rep.comment_lines} comments, {rep.blank_lines} "
+                f"blanks in {rep.wall_s:.2f}s "
+                f"({mb / max(rep.wall_s, 1e-9):.1f} MB/s) -> {binary}"
+            )
+        path = binary
+    reader = EdgeFileReader(path)
+    print(
+        f"graph={path} |V|={reader.num_vertices} |E|={reader.num_edges} "
+        f"k={args.k} (out-of-core, chunk={args.chunk_edges})"
+    )
+    backend = args.backend if args.backend not in ("batched", "loop") else "auto"
+    spill_tmp = None if args.spill_dir else tempfile.mkdtemp(prefix="adwise-oocore-")
+    try:
+        res = partition_file(
+            reader, args.strategy, args.k, z=args.parallel,
+            spread=args.spread if args.parallel > 1 else None, seed=args.seed,
+            chunk_edges=args.chunk_edges, backend=backend,
+            spill_dir=args.spill_dir or spill_tmp, prefetch=args.prefetch,
+            trace=trace, device=args.device, **_strategy_cfg_kwargs(args),
+        )
+    except BaseException:
+        reader.close()
+        for tmp in (spill_tmp, ingest_tmp):
+            if tmp is not None:
+                shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    return reader, res, spill_tmp, ingest_tmp
+
+
+def _chunked_quality(res, reader, args) -> tuple[float, float]:
+    """(RD, ι) of a file run, accumulated in chunks: the edge array is
+    never materialised."""
+    assign = res.assign
+    pairs = (
+        (chunk, assign[s : s + len(chunk)])
+        for s, chunk in zip(range(0, reader.num_edges, args.chunk_edges),
+                            reader.chunks(args.chunk_edges))
+    )
+    q = quality_from_chunks(pairs, reader.num_vertices, args.k, unassigned="drop")
+    return q["replication_degree"], q["imbalance"]
+
+
+def _print_file_io(st: dict) -> None:
+    """The io and refill-pipeline report lines of a file run."""
+    print(
+        f"io: {st['rows_read']} rows read "
+        f"({st['stream_reads_measured']} stream reads, billed "
+        f"{st['stream_reads']}), io_wall={st['io_wall_s']:.2f}s, "
+        f"resident edges <= {st['peak_resident_edges']}, "
+        f"h2d={st.get('h2d_bytes', 0) / 1e6:.2f} MB "
+        f"({st.get('h2d_rows', 0)} rows over "
+        f"{st.get('scan_calls', 0)} scan calls, "
+        f"ring={st.get('buffer_rows', 0)} rows), "
+        f"spill={st['spill_path']}"
+    )
+    spans = int(st.get("refill_spans", 0) or 0)
+    if spans:
+        pre = int(st.get("spans_prestaged", 0) or 0)
+        wait = float(st.get("h2d_wait_s", 0.0) or 0.0)
+        prestage = float(st.get("prestage_wall_s", 0.0) or 0.0)
+        # Measured overlap: fraction of the worker's staging wall hidden
+        # from the driver's critical path (1 - stall/staging).
+        overlap = max(0.0, 1.0 - wait / prestage) if prestage > 0 else 0.0
+        print(
+            f"pipeline: prefetch={st.get('prefetch_depth', 0)}, "
+            f"h2d_wait={wait:.3f}s, prestage_wall={prestage:.3f}s, "
+            f"spans={spans} ({pre} prestaged / "
+            f"{int(st.get('spans_missed', 0) or 0)} missed), "
+            f"overlap={overlap:.0%}"
+        )
 
 
 def run_partition(edges, n, args, trace=None):
@@ -108,7 +239,33 @@ def _run_partition(edges, n, args):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--graph", default="brain_like",
-                    help="generator preset (brain_like/orkut_like/web_like/...)")
+                    help="generator preset (brain_like/orkut_like/web_like/...)"
+                         " OR a path to a graph file: a binary edge-stream "
+                         "file (repro_torch.graph.io format) is partitioned "
+                         "out-of-core with bounded edge memory; with "
+                         "--ingest, a SNAP-style text edge list is converted "
+                         "to the binary format first")
+    ap.add_argument("--ingest", action="store_true",
+                    help="treat --graph as a text edge list (u v per line, "
+                         "#/%% comments, blank lines) and ingest it to "
+                         "<graph>.adw before partitioning (one pass, "
+                         "O(chunk) memory)")
+    ap.add_argument("--relabel", action="store_true",
+                    help="with --ingest: map vertex ids to a dense [0, n) "
+                         "space in first-appearance order (required for "
+                         "sparse or negative ids)")
+    ap.add_argument("--chunk-edges", type=int, default=1 << 16,
+                    help="out-of-core chunk size: resident edge rows are "
+                         "bounded by ~2x this per spotlight instance "
+                         "(file-driven path only)")
+    ap.add_argument("--spill-dir", default=None,
+                    help="directory for the assignment spill (file-driven "
+                         "path). Default: a temp dir, removed when the run "
+                         "finishes; pass a path to keep the spill")
+    ap.add_argument("--prefetch", type=int, default=None,
+                    help="read-ahead depth for the file-driven ring refill "
+                         "pipeline: 0 = synchronous, N>=1 overlaps file reads "
+                         "with the running scan. Default: $ADWISE_PREFETCH or 2")
     ap.add_argument("--scale", type=float, default=0.05)
     ap.add_argument("--strategy", default="adwise",
                     help=f"one of {', '.join(available_strategies())}")
@@ -143,9 +300,8 @@ def main(argv=None):
                          "device syncs")
     args = ap.parse_args(argv)
 
-    if args.graph not in GRAPH_PRESETS:
-        if os.path.exists(args.graph):
-            raise _unported("partitioning a graph file", "item 10 (out-of-core)")
+    from_file = args.ingest or os.path.exists(args.graph)
+    if not from_file and args.graph not in GRAPH_PRESETS:
         ap.error(f"unknown graph preset {args.graph!r}; presets: {', '.join(GRAPH_PRESETS)}")
     if args.strategy not in available_strategies():
         ap.error(f"unknown strategy {args.strategy!r}; "
@@ -156,16 +312,43 @@ def main(argv=None):
         from repro_torch.obs import Tracer
 
         tracer = Tracer()
-    edges, n = make_graph(args.graph, seed=args.seed, scale=args.scale)
-    print(f"graph={args.graph} |V|={n} |E|={len(edges)} k={args.k}")
-    res = run_partition(edges, n, args, trace=tracer)
+    reader = None
+    spill_tmp = ingest_tmp = None
+    if from_file:
+        reader, res, spill_tmp, ingest_tmp = run_partition_file(args.graph, args, trace=tracer)
+        n = reader.num_vertices
+        edges = None  # never resident during partitioning
+    else:
+        edges, n = make_graph(args.graph, seed=args.seed, scale=args.scale)
+        print(f"graph={args.graph} |V|={n} |E|={len(edges)} k={args.k}")
+        res = run_partition(edges, n, args, trace=tracer)
+    try:
+        return _report(args, res, edges, n, reader, tracer)
+    finally:
+        if from_file:
+            # The temp spill dies with the run (POSIX keeps the live mapping
+            # valid past the unlink); --spill-dir keeps it instead. The
+            # reader always closes.
+            reader.close()
+            for tmp in (spill_tmp, ingest_tmp):
+                if tmp is not None:
+                    shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _report(args, res, edges, n, reader, tracer) -> dict:
+    """Quality, workload and total-latency report of a partition result."""
     n_unassigned = unassigned_count(res.assign)
-    rep = replica_sets_from_assignment(edges, res.assign, n, args.k, unassigned="drop")
-    rd = replication_degree(rep)
-    imb = partition_balance(res.assign, args.k, unassigned="drop")
+    if reader is not None:
+        rd, imb = _chunked_quality(res, reader, args)
+    else:
+        rep = replica_sets_from_assignment(edges, res.assign, n, args.k, unassigned="drop")
+        rd = replication_degree(rep)
+        imb = partition_balance(res.assign, args.k, unassigned="drop")
     t_part = res.stats.get("wall_time_s", 0.0)
     print(f"partitioner={args.strategy} RD={rd:.3f} imbalance={imb:.4f} "
           f"unassigned={n_unassigned} partition_latency={t_part:.2f}s")
+    if reader is not None:
+        _print_file_io(res.stats)
     out = dict(
         graph=args.graph, strategy=args.strategy, k=args.k, device=args.device,
         replication_degree=rd, imbalance=imb, unassigned=n_unassigned,
@@ -175,6 +358,12 @@ def main(argv=None):
                or (isinstance(v, list) and all(isinstance(x, (int, float)) for x in v))},
     )
     if args.workload != "none":
+        if reader is not None:
+            # Partitioning ran out-of-core; the processing engine builds a
+            # resident partitioned graph, so the edges are loaded only now.
+            print("loading edges for the processing engine (partitioning "
+                  "itself ran out-of-core)")
+            edges = reader.read_all()
         g = build_partitioned_graph(edges, res.assign, n, args.k, device=args.device)
         t0 = time.perf_counter()
         if args.workload == "pagerank":

@@ -1,8 +1,9 @@
 """The port on the card: each CUDA kernel against its plain torch version,
 the CUDA-graph scan driver against the plain CPU loop (ADWISE, the HDRF,
 Greedy, 2PS-L and clustering step-cores, warm passes, z spotlight
-instances in one batched step, traced runs), and the dense LM on the card
-against its CPU path.
+instances in one batched step, traced runs), the file ring (out-of-core
+``partition_file``) against the CPU ring and the resident path, and the
+dense LM on the card against its CPU path.
 
 Every test here needs a CUDA device; without one it skips. This file
 imports neither ``jax`` nor ``repro``, so it runs where only the port is
@@ -19,7 +20,9 @@ from repro_torch.core import (
     AdwiseConfig, driver, partition_stream, registry, restream, spotlight_partition,
 )
 from repro_torch.core.adwise import partition_stream_batched
+from repro_torch.core import partition_file
 from repro_torch.graph import EdgeStream
+from repro_torch.graph.io import EdgeFileReader, write_edge_file
 from repro_torch.obs import Tracer, chrome_trace, validate_chrome_trace
 from repro_torch.engine import build_partitioned_graph, pagerank
 from repro_torch.graph import make_graph
@@ -500,6 +503,104 @@ def test_pagerank_on_the_card_matches_cpu(cuda):
     b, _ = pagerank(build_partitioned_graph(edges, assign, n, 4, device=cuda), iters=20)
     assert ops.launch_counts()["segment_sum"] - before == 20
     np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-8)
+
+
+RING = [
+    ("adwise", dict(window_max=16), 1), ("hdrf", {}, 1), ("greedy", {}, 1),
+    ("2ps", dict(window_max=16), 1), ("2ps-l", {}, 1),
+    ("adwise-restream", dict(window_max=16, passes=2), 1),
+    ("adwise", dict(window_max=16), 4), ("hdrf", {}, 4),
+]
+_RING_KEYS = ("h2d_rows", "h2d_bytes", "scan_calls", "buffer_rows", "refill_spans")
+
+
+def _ring_file(tmp_path, scale=0.2):
+    edges, n = make_graph("tiny_clustered", seed=1, scale=scale)
+    path = str(tmp_path / "g.adw")
+    write_edge_file(path, edges, n)
+    return path, edges, n
+
+
+def _from_file(path, strategy, device, spill, z=1, **kw):
+    with EdgeFileReader(path) as r:
+        return partition_file(r, strategy, 8, z=z, spread=2 if z > 1 else None, seed=3,
+                              chunk_edges=96, spill_dir=spill, device=device, **kw)
+
+
+@pytest.mark.parametrize("strategy,cfg,z", RING, ids=[f"{s}-z{z}" for s, _, z in RING])
+def test_file_ring_card_equals_cpu_ring_and_resident(cuda, tmp_path, strategy, cfg, z):
+    """The ring on the card (wrapping: 96-row chunks) == the same ring on the
+    CPU == the resident path on the card, with the CPU ring's counters."""
+    path, edges, n = _ring_file(tmp_path)
+    gpu = _from_file(path, strategy, cuda, str(tmp_path / "g"), z, **cfg)
+    cpu = _from_file(path, strategy, "cpu", str(tmp_path / "c"), z, **cfg)
+    if z == 1:
+        resident = registry.run_partitioner(strategy, edges, n, 8, seed=3, device=cuda, **cfg)
+    else:
+        acfg = AdwiseConfig(k=8, seed=3, **cfg) if strategy == "adwise" else None
+        resident = spotlight_partition(edges, n, 8, z, 2, strategy=strategy, cfg=acfg, seed=3,
+                                       device=cuda)
+    np.testing.assert_array_equal(np.asarray(gpu.assign), np.asarray(cpu.assign))
+    np.testing.assert_array_equal(np.asarray(gpu.assign), resident.assign)
+    for key in _RING_KEYS:
+        assert gpu.stats[key] == cpu.stats[key], key
+    assert gpu.stats["buffer_rows"] < len(edges) // z  # the ring wraps
+
+
+def test_file_ring_prefetch_0_equals_2(cuda, tmp_path):
+    path, _, _ = _ring_file(tmp_path)
+    a = _from_file(path, "adwise", cuda, str(tmp_path / "a"), prefetch=0, window_max=16)
+    b = _from_file(path, "adwise", cuda, str(tmp_path / "b"), prefetch=2, window_max=16)
+    np.testing.assert_array_equal(np.asarray(a.assign), np.asarray(b.assign))
+    assert a.stats["spans_prestaged"] == 0 and b.stats["prefetch_depth"] == 2
+    assert b.stats["spans_prestaged"] + b.stats["spans_missed"] == b.stats["refill_spans"]
+
+
+def test_ring_address_stable_over_a_pass_and_across_adoption(cuda, tmp_path):
+    """Every refill of a pass writes into the one ring the captured graphs
+    read, and a re-streaming pass that adopts the RingHandle writes into
+    the same tensors, shipping only the 4 B/row prev table."""
+    path, edges, n = _ring_file(tmp_path)
+    m = len(edges)
+    cfg = AdwiseConfig(k=8, window_max=16)
+    out = np.full((m,), -1, np.int32)
+
+    def sink(i, idx, p):
+        out[idx] = p
+
+    def two_passes(r, chunk_edges):
+        src = driver.FileSource([r], chunk_edges=chunk_edges, cfg=cfg)
+        drv = driver.ScanDriver(src, cfg, n, device=cuda)
+        res = drv.run(on_assign=sink)
+        prev = out.copy()
+        warm = restream.warm_from_assignment(edges, prev, n, 8)._replace(prev_assign=None)
+        src2 = driver.FileSource([r], chunk_edges=chunk_edges, cfg=cfg, resume=drv.ring_handle,
+                                 prev_read=[lambda s, c: prev[s:s + c]])
+        drv2 = driver.ScanDriver(src2, cfg, n, warm=[warm], device=cuda)
+        res2 = drv2.run(on_assign=sink)
+        return drv, res, drv2, res2
+
+    with EdgeFileReader(path) as r:
+        # 128-row chunks: the ring wraps, so pass 2 takes a fresh ring and
+        # ships uv again (12 B/row).
+        drv, res, drv2, res2 = two_passes(r, 128)
+        assert res.scan_calls > 1 and drv.stats_base(res, 0)["ring_addrs"] == 1
+        assert res2.h2d_bytes == 12 * m and res2.ring_addrs == 1
+        # A ring that holds the whole stream is adopted: same tensors.
+        drv, res, drv2, res2 = two_passes(r, 4 * m)
+        assert drv2.ring_handle.buf.uv.data_ptr() == drv.ring_handle.buf.uv.data_ptr()
+        assert res2.ring_addrs == 1 and res2.h2d_rows == 0 and res2.h2d_bytes == 4 * m
+
+
+def test_file_ring_launches_window_score_once_per_replayed_step(cuda, tmp_path):
+    path, edges, _ = _ring_file(tmp_path)
+    before = ops.launch_counts()["window_score"]
+    res = _from_file(path, "adwise", cuda, str(tmp_path / "w"), window_max=16)
+    launches = ops.launch_counts()["window_score"] - before
+    st = res.stats
+    assert launches == st["steps_run"] + st["warmup_steps"]
+    assert st["steps_run"] == st["scan_calls"] * st["scan_steps_per_call"]
+    assert st["h2d_rows"] == len(edges) and st["h2d_bytes"] == 8 * len(edges)
 
 
 def _fa_inputs(shape, dtype, device):

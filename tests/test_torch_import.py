@@ -36,7 +36,9 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     mods = list(_modules())
     assert "repro_torch.core.adwise" in mods and "repro_torch.kernels.ops" in mods
     assert {"repro_torch.obs", "repro_torch.obs.tracer", "repro_torch.core.spotlight",
-            "repro_torch.graph.stream"} <= set(mods)
+            "repro_torch.graph.stream", "repro_torch.core.oocore", "repro_torch.graph.io",
+            "repro_torch.graph.io.format", "repro_torch.graph.io.ingest",
+            "repro_torch.graph.io.shuffle"} <= set(mods)
     code = textwrap.dedent(
         f"""
         import sys

@@ -1,10 +1,12 @@
-"""The port's tracer (``repro_torch.obs``) on its in-memory paths (mirrors
-the in-memory parts of ``tests/test_obs.py``): the null tracer costs
-nothing, tracing on is bit-identical to tracing off for every strategy,
-the span tree is well formed and reconciles with the driver's counters,
-restream passes get their own lanes, the engine records superstep spans,
-the Chrome export validates, and SC003 flags a tracer inside a port step
-closure. The port's copy of the tracer is also held to ``repro.obs``."""
+"""The port's tracer (``repro_torch.obs``) on its in-memory and file paths
+(mirrors ``tests/test_obs.py``): the null tracer costs nothing, tracing on
+is bit-identical to tracing off for every strategy, the span tree is well
+formed and reconciles with the driver's counters (on a file run: the
+``refill`` total is ``h2d_wait_s``, the ``stage`` total is
+``prestage_wall_s``, one scan span per scan call), restream passes get
+their own lanes, the engine records superstep spans, the Chrome export
+validates, and SC003 flags a tracer inside a port step closure. The port's
+copy of the tracer is also held to ``repro.obs``."""
 import json
 import sys
 import textwrap
@@ -27,7 +29,9 @@ from repro_torch.core import (
     two_phase_partition,
 )
 from repro_torch.core.adwise import partition_stream_batched
+from repro_torch.core import partition_file
 from repro_torch.graph import EdgeStream, make_graph, rmat
+from repro_torch.graph.io import EdgeFileReader, write_edge_file
 from repro_torch.obs import (
     NULL_TRACER,
     NullTracer,
@@ -196,6 +200,58 @@ def test_span_tree_well_formed(graph, n_chunks, wmax, z):
                                     n_chunks=n_chunks, **CPU)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a.assign, b.assign)
+
+
+@pytest.fixture(scope="module")
+def graph_file(graph, tmp_path_factory):
+    edges, n = graph
+    path = str(tmp_path_factory.mktemp("tobs") / "g.adw")
+    write_edge_file(path, edges, n)
+    return path
+
+
+def _file_run(path, strategy, trace, tmp_path, **kw):
+    with EdgeFileReader(path) as r:
+        return partition_file(r, strategy, K, seed=0, spill_dir=str(tmp_path), trace=trace,
+                              **CPU, **kw)
+
+
+@pytest.mark.parametrize("strategy,kw", [
+    ("adwise", dict(window_max=8, chunk_edges=200)),
+    ("hdrf", dict(chunk_edges=256, prefetch=0)),
+    ("adwise-restream", dict(window_max=8, chunk_edges=2048, passes=2)),
+    ("2ps-l", dict(chunk_edges=300, z=2, spread=4)),
+])
+def test_file_run_traced_equals_untraced_and_reconciles(graph_file, tmp_path, strategy, kw):
+    """A traced file run assigns as the untraced one; its category totals
+    are the stats counters: refill == h2d_wait_s, stage == prestage_wall_s,
+    one scan span per scan call; stage spans come from the read-ahead
+    thread, scan and refill spans never do."""
+    off = _file_run(graph_file, strategy, None, tmp_path / "off", **kw)
+    tr = Tracer()
+    on = _file_run(graph_file, strategy, tr, tmp_path / "on", **kw)
+    np.testing.assert_array_equal(np.asarray(off.assign), np.asarray(on.assign))
+    st = on.stats
+    cats = tr.summary().categories
+    assert st["trace_summary"]["events"] == tr.summary().events
+    assert cats["scan"]["count"] == st["scan_calls"]
+    assert abs(cats.get("refill", {}).get("wall_s", 0.0) - st["h2d_wait_s"]) < 1e-6
+    assert abs(cats.get("stage", {}).get("wall_s", 0.0) - st["prestage_wall_s"]) < 1e-6
+    for s in tr.spans:
+        if s.cat == "stage":
+            assert s.thread.startswith("adwise-readahead"), s
+        if s.cat in ("scan", "refill"):
+            assert not s.thread.startswith("adwise-readahead"), s
+    if kw.get("prefetch") == 0:
+        assert "stage" not in cats and st["spans_missed"] == st["refill_spans"]
+    if strategy == "adwise-restream":
+        # Pass 2 adopts pass 1's ring: one ring-adopt instant, two lanes.
+        assert sum(1 for e in tr.instants if e.name == "ring-adopt") == 1
+        assert {t for t in tr.summary().tracks if t.startswith("restream-pass-")} == {
+            "restream-pass-1", "restream-pass-2"}
+    phases = {s.name for s in tr.spans if s.cat == "phase"}
+    assert {"partition_file", "spill-verify"} <= phases
+    assert validate_chrome_trace(chrome_trace(tr)) == []
 
 
 # ----------------------------------------------------------------------------
