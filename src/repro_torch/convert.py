@@ -1,10 +1,10 @@
 """State carried across between the two packages, as numpy arrays.
 
 The partitioner has no weights: its state is the ADWISE scan carry and the
-partitioned graph. The LM side has weights and a KV cache. These functions
-turn their fields, taken out of either package as numpy arrays, into the
-port's types and back, so a test can start both packages from the same
-state.
+partitioned graph. The LM side has weights, a KV cache and, in training, an
+optimizer state. These functions turn their fields, taken out of either
+package as numpy arrays, into the port's types and back, so a test can
+start both packages from the same state.
 
 A bfloat16 leaf of the JAX package arrives as an ``ml_dtypes.bfloat16``
 numpy array, which ``torch.tensor`` rejects; it goes through float32,
@@ -28,12 +28,16 @@ from repro_torch.core.adwise import Carry
 from repro_torch.configs.base import ArchConfig
 from repro_torch.engine import partitioned
 from repro_torch.models import lm
+from repro_torch.models.names import jax_leaf, jax_leaves
 
 __all__ = [
     "carry_from_numpy",
     "carry_to_numpy",
     "partitioned_graph_from_numpy",
     "lm_params_from_numpy",
+    "lm_params_to_numpy",
+    "opt_state_from_numpy",
+    "opt_state_to_numpy",
     "cache_from_numpy",
     "cache_to_numpy",
 ]
@@ -121,6 +125,37 @@ def _leaves(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
     return out
 
 
+def _per_param(tree: Mapping[str, Any], model: lm.LM, cfg: ArchConfig, what: str
+               ) -> Dict[str, np.ndarray]:
+    """name -> numpy array of each of ``model``'s parameters, read from a
+    nested dict in the JAX ``init_params`` layout (stacked ``blocks``
+    leaves split per layer). Every leaf must be present with the port's
+    shape, and nothing else may be: a missing, extra or mis-shaped leaf
+    raises."""
+    src = _leaves(tree)
+    want = {name: jax_leaf(name) for name, _ in model.named_parameters()}
+    missing = {key for key, _ in want.values()} - set(src)
+    extra = set(src) - {key for key, _ in want.values()}
+    if missing or extra:
+        raise KeyError(f"{what}: missing leaves {sorted(missing)}, unexpected {sorted(extra)}")
+    out = {}
+    for name, p in model.named_parameters():
+        key, layer = want[name]
+        a = np.asarray(src[key])
+        if layer is not None:
+            if a.shape[0] != cfg.n_layers:
+                raise ValueError(
+                    f"{what}: {key} stacks {a.shape[0]} layers, the config {cfg.n_layers}"
+                )
+            a = a[layer]
+        if tuple(a.shape) != tuple(p.shape):
+            raise ValueError(
+                f"{what}: {name} has shape {tuple(a.shape)}, expected {tuple(p.shape)}"
+            )
+        out[name] = a
+    return out
+
+
 @torch.no_grad()
 def lm_params_from_numpy(
     params: Mapping[str, Any], cfg: ArchConfig, device=None, tp: int = 1,
@@ -133,37 +168,66 @@ def lm_params_from_numpy(
     else may be: a missing, extra or mis-shaped leaf raises.
     """
     model = lm.LM(cfg, tp, device=device)
-    src = _leaves(params)
-    want = {}
+    arrays = _per_param(params, model, cfg, "lm_params_from_numpy")
     for name, p in model.named_parameters():
-        if name.startswith("blocks."):
-            _, i, rest = name.split(".", 2)
-            want[name] = (f"blocks.{rest}", int(i))
-        else:
-            want[name] = (name, None)
-    missing = {key for key, _ in want.values()} - set(src)
-    extra = set(src) - {key for key, _ in want.values()}
-    if missing or extra:
-        raise KeyError(
-            f"lm_params_from_numpy: missing leaves {sorted(missing)}, unexpected {sorted(extra)}"
-        )
-    for name, p in model.named_parameters():
-        key, layer = want[name]
-        a = np.asarray(src[key])
-        if layer is not None:
-            if a.shape[0] != cfg.n_layers:
-                raise ValueError(
-                    f"lm_params_from_numpy: {key} stacks {a.shape[0]} layers, "
-                    f"the config {cfg.n_layers}"
-                )
-            a = a[layer]
-        if tuple(a.shape) != tuple(p.shape):
-            raise ValueError(
-                f"lm_params_from_numpy: {name} has shape {tuple(a.shape)}, "
-                f"expected {tuple(p.shape)}"
-            )
-        p.copy_(_as_torch(a, p.dtype, p.device))
+        p.copy_(_as_torch(arrays[name], p.dtype, p.device))
     return model
+
+
+def _nest(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for key, a in flat.items():
+        *parents, leaf = key.split(".")
+        node = out
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = a
+    return out
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def lm_params_to_numpy(params: "lm.LM | Mapping[str, torch.Tensor]") -> Dict[str, Any]:
+    """The JAX ``init_params`` layout (nested dict; per-layer leaves stacked
+    into ``blocks`` along a leading layer axis) as numpy arrays, from an
+    :class:`~repro_torch.models.lm.LM` or a mapping of its parameter names
+    to tensors (its gradients, an optimizer moment); bfloat16 comes out as
+    float32 (exact)."""
+    named = dict(params.named_parameters()) if isinstance(params, torch.nn.Module) else params
+    flat = {}
+    for key, names in jax_leaves(named).items():
+        layers = [jax_leaf(n)[1] for n in names]
+        if layers == [None]:
+            flat[key] = _numpy(named[names[0]])
+        elif layers == list(range(len(names))):
+            flat[key] = np.stack([_numpy(named[n]) for n in names])
+        else:
+            raise ValueError(f"lm_params_to_numpy: {key} has layers {layers}")
+    return _nest(flat)
+
+
+def opt_state_from_numpy(opt: Mapping[str, Any], model: lm.LM, cfg: ArchConfig
+                         ) -> Dict[str, Any]:
+    """The port's AdamW state (``repro_torch.optim.adamw_init``'s layout:
+    fp32 ``m`` and ``v`` by parameter name, a 0-dim int32 ``step``) on the
+    model's device, from the JAX ``adamw_init`` / ``adamw_update`` state as
+    numpy arrays (``m`` and ``v`` in the ``init_params`` layout)."""
+    dev = model.embed.device
+    moments = {}
+    for k in ("m", "v"):
+        arrays = _per_param(opt[k], model, cfg, f"opt_state_from_numpy[{k}]")
+        moments[k] = {n: _as_torch(a, torch.float32, dev) for n, a in arrays.items()}
+    step = torch.tensor(int(np.asarray(opt["step"])), dtype=torch.int32, device=dev)
+    return dict(m=moments["m"], v=moments["v"], step=step)
+
+
+def opt_state_to_numpy(opt: Mapping[str, Any]) -> Dict[str, Any]:
+    """The port's AdamW state in the JAX layout, as numpy arrays."""
+    return dict(m=lm_params_to_numpy(opt["m"]), v=lm_params_to_numpy(opt["v"]),
+                step=np.asarray(int(opt["step"]), np.int32))
 
 
 def cache_from_numpy(cache: Mapping[str, Any], device=None) -> lm.Cache:
@@ -178,10 +242,5 @@ def cache_from_numpy(cache: Mapping[str, Any], device=None) -> lm.Cache:
 def cache_to_numpy(cache: lm.Cache) -> Dict[str, Any]:
     """The cache as numpy arrays in the JAX layout; a bfloat16 cache comes
     out as float32 (exact)."""
-
-    def out(t: torch.Tensor) -> np.ndarray:
-        t = t.detach().cpu()
-        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
-
     k, v = cache["kv"]
-    return dict(kv=(out(k), out(v)))
+    return dict(kv=(_numpy(k), _numpy(v)))

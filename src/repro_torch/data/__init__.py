@@ -1,0 +1,5 @@
+"""Deterministic synthetic data pipeline (shard-aware, resumable) — the
+port's copy of ``repro.data``."""
+from repro_torch.data.pipeline import SyntheticTokens
+
+__all__ = ["SyntheticTokens"]

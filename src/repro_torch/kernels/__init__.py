@@ -13,8 +13,12 @@ CUPTI_RECORDS = (
 
 def device_kernels(prof):
     """The device's kernels, copies and memsets in a ``torch.profiler``
-    run's ``key_averages()``, without CUPTI's own records."""
+    run's ``key_averages()``, without CUPTI's own records and without the
+    device-side spans of ``record_function`` ranges (user annotations),
+    which the profiler files on the device's timeline beside the kernels
+    they enclose."""
     from torch.autograd import DeviceType
 
     return [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.key not in CUPTI_RECORDS]
+            if e.device_type == DeviceType.CUDA and e.key not in CUPTI_RECORDS
+            and not getattr(e, "is_user_annotation", False)]

@@ -18,6 +18,20 @@ shapes and sends CPU tensors to the plain version,
 ``flash_attention_plain``. ``LAUNCHES`` counts kernel launches (a launch
 recorded into a CUDA graph counts in ``CAPTURED`` instead; see
 ``kernels/window_score.py``), and ``LAUNCHES_BY_BODY`` splits them by body.
+
+**Gradients.** :class:`FlashAttentionFn` is the op under autograd, and
+``kernels.ops.flash_attention`` goes through it on both devices. Its
+forward is the kernel on a CUDA tensor and the plain version on a CPU one
+(the kernel's output has no autograd history of its own). Its backward,
+:func:`attention_backward_plain`, recomputes the plain softmax attention in
+fp32 over blocks of 512 query rows, as the JAX package's
+``_blocked_softmax_attn`` computes the function it differentiates, and
+differentiates each block with ``torch.autograd.grad``; dK and dV are
+summed over each GQA group. ``BACKWARD_CALLS`` counts backward calls. This
+is not a port of a TPU kernel: ``flash_attention_pallas`` is forward-only
+and the JAX package's training gradient is XLA's autodiff of its blocked
+softmax, so no backward kernel is owed. A hand-written Hopper backward
+(ROADMAP.md port queue 2) is open work.
 """
 from __future__ import annotations
 
@@ -26,6 +40,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.ref import NEG_INF
 from repro_torch.kernels.ref import flash_attention_ref as flash_attention_plain
 
 __all__ = [
@@ -38,6 +53,10 @@ __all__ = [
     "rows_aligned",
     "flash_attention",
     "flash_attention_plain",
+    "attention_backward_plain",
+    "FlashAttentionFn",
+    "BACKWARD_CALLS",
+    "BACKWARD_Q_BLOCK",
     "LAUNCHES",
     "LAUNCHES_BY_BODY",
     "REPLACES",
@@ -50,6 +69,10 @@ HEAD_DIMS = (32, 64, 96, 128)
 WGMMA_HEAD_DIMS = (64, 128)
 BODIES = ("fma", "mma_sync", "wgmma")  # the kernel's codes 0, 1, 2
 LAUNCHES_BY_BODY = dict.fromkeys(BODIES, 0)
+BACKWARD_CALLS = 0
+# Query rows per block of the backward's recompute: the q_block of JAX's
+# _blocked_softmax_attn, which bounds the live fp32 logits to (B, H, 512, Tk).
+BACKWARD_Q_BLOCK = 512
 # Non-causal calls need Tk a multiple of the TPU kernel's KV block, as the
 # JAX package asserts (it pads K and relies on the causal mask to hide it).
 KV_ALIGN = 128
@@ -195,3 +218,77 @@ def flash_attention(
         LAUNCHES += 1
         LAUNCHES_BY_BODY[body] += 1
     return out
+
+
+def attention_backward_plain(
+    q: torch.Tensor,  # (B, Hq, Tq, Dh)
+    k: torch.Tensor,  # (B, Hkv, Tk, Dh)
+    v: torch.Tensor,  # (B, Hkv, Tk, Dh)
+    dout: torch.Tensor,  # (B, Hq, Tq, Dh)
+    *,
+    causal: bool = True,
+    scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of the plain version's output against ``dout``, each in
+    its input's dtype, on either device.
+
+    The attention of each block of ``BACKWARD_Q_BLOCK`` query rows (read at
+    the call) is recomputed in fp32 (the plain version's arithmetic) and
+    differentiated with ``torch.autograd.grad``; dq is written per block, dk and dv are summed
+    over the blocks in fp32, each already summed over its GQA group by the
+    grouped product. A causal block reads only the keys its last row sees
+    (row r sits at Tk - Tq + r): the keys beyond are masked to NEG_INF,
+    whose probabilities are exactly 0, so they add nothing to any gradient.
+    """
+    b, hq, tq, dh = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    group = hq // hkv
+    scale = scale if scale is not None else 1.0 / (dh**0.5)
+    kf = k.detach().float()
+    vf = v.detach().float()
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    with torch.enable_grad():
+        for lo in range(0, tq, BACKWARD_Q_BLOCK):
+            hi = min(tq, lo + BACKWARD_Q_BLOCK)
+            kn = tk - tq + hi if causal else tk
+            qb = q[:, :, lo:hi].detach().float().requires_grad_(True)
+            kb = kf[:, :, :kn].requires_grad_(True)
+            vb = vf[:, :, :kn].requires_grad_(True)
+            qg = (qb * scale).reshape(b, hkv, group, hi - lo, dh)
+            logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, kb)
+            if causal:
+                qpos = torch.arange(lo, hi, device=q.device) + (tk - tq)
+                mask = qpos[:, None] >= torch.arange(kn, device=q.device)[None, :]
+                logits = torch.where(mask, logits, NEG_INF)
+            probs = torch.softmax(logits, dim=-1)
+            out = torch.einsum("bhgqk,bhkd->bhgqd", probs, vb).reshape(b, hq, hi - lo, dh)
+            gq, gk, gv = torch.autograd.grad(out, (qb, kb, vb), dout[:, :, lo:hi].float())
+            dq[:, :, lo:hi] = gq
+            dk[:, :, :kn] += gk
+            dv[:, :, :kn] += gv
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention`` under autograd: the kernel (CUDA) or the plain
+    version (CPU) forward, :func:`attention_backward_plain` backward. Saves
+    q, k and v; ``BACKWARD_CALLS`` counts the backward calls."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.scale = causal, scale
+        if q.device.type == "cpu":
+            return flash_attention_plain(q, k, v, causal=causal, scale=scale)
+        return flash_attention(q, k, v, causal=causal, scale=scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        global BACKWARD_CALLS
+        q, k, v = ctx.saved_tensors
+        BACKWARD_CALLS += 1
+        with torch.profiler.record_function("flash_attention_backward"):
+            dq, dk, dv = attention_backward_plain(q, k, v, dout, causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None

@@ -128,6 +128,8 @@ def flash_attention(
 ) -> torch.Tensor:
     """(B, Hq, Tq, Dh) GQA attention in ``q.dtype`` (see
     ``kernels/flash_attention.py``); ``scale`` defaults to Dh**-0.5.
+    Differentiable on both devices, through
+    :class:`~repro_torch.kernels.flash_attention.FlashAttentionFn`.
 
     Raises on shapes outside the op's contract
     (:func:`~repro_torch.kernels.flash_attention.check_shapes`) on either
@@ -135,8 +137,7 @@ def flash_attention(
     """
     if _device_of(q, k, v).type == "cpu":
         _fa.check_shapes(q, k, v, causal)
-        return _ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
-    return _fa.flash_attention(q, k, v, causal=causal, scale=scale)
+    return _fa.FlashAttentionFn.apply(q, k, v, causal, scale)
 
 
 def launch_counts() -> dict[str, int]:
@@ -148,6 +149,7 @@ def reset_launch_counts() -> None:
     for mod in _KERNELS.values():
         mod.LAUNCHES = 0
     _fa.LAUNCHES_BY_BODY.update(dict.fromkeys(_fa.BODIES, 0))
+    _fa.BACKWARD_CALLS = 0
 
 
 def captured_counts() -> dict[str, int]:

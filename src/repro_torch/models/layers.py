@@ -9,8 +9,10 @@ carries weights across with :func:`repro_torch.convert.lm_params_from_numpy`.
 
 Attention sends its prefill (a cache given, T > 1) and its cache-less calls
 through :func:`repro_torch.kernels.ops.flash_attention` — the hand-written
-kernel on a CUDA tensor, the plain version on a CPU one; the JAX package
-computes them with its XLA blocked softmax, the same function. Decode
+kernel on a CUDA tensor, the plain version on a CPU one, differentiable on
+both (the training forward's cache-less calls take gradients through it);
+the JAX package computes them with its XLA blocked softmax, the same
+function. Decode
 (T == 1) stays a masked product over the whole cache in plain torch, with
 the JAX package's roundings. ``moe_ffn`` is not ported yet (ROADMAP.md port
 queue 1).

@@ -5,14 +5,22 @@ bias and tied embeddings.
   init_params(cfg, generator, tp)                  — an :class:`LM` with random
                                                      weights drawn on the
                                                      generator's device
+  forward_train(model, cfg, batch, tp)             — logits for the next-token
+                                                     loss (or the hidden states)
+  loss_fn(model, cfg, batch, tp)                   — chunked cross-entropy
   init_cache(cfg, batch, max_seq, tp, device) +
   forward_cached(model, cfg, cache, tokens, pos)   — prefill / decode
 
 The parameters follow the JAX ``init_params`` layout and distributions, one
 module per layer in place of the stacked ``blocks`` leaves (the JAX scan
-over layers becomes a Python loop). Every other family (moe, ssm, hybrid,
-encdec, vlm), ``forward_train`` and the loss are not ported yet: they raise
-``NotImplementedError`` naming their ROADMAP.md item, never run something
+over layers becomes a Python loop). They are created with
+``requires_grad=False``; a trainer turns gradients on
+(``model.requires_grad_(True)``). Training remats each block and each
+cross-entropy chunk with ``torch.utils.checkpoint`` where the JAX package
+uses ``jax.checkpoint``; the cache-less attention of the training forward
+goes through ``ops.flash_attention``, which is differentiable. Every other
+family (moe, ssm, hybrid, encdec, vlm) is not ported yet: it raises
+``NotImplementedError`` naming its ROADMAP.md item, never runs something
 else.
 """
 from __future__ import annotations
@@ -22,12 +30,14 @@ from typing import Dict, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import compat
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 
-__all__ = ["ModelDims", "model_dims", "LM", "init_params", "init_cache", "forward_cached"]
+__all__ = ["ModelDims", "model_dims", "LM", "init_params", "forward_train", "loss_fn",
+           "init_cache", "forward_cached"]
 
 Cache = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
 
@@ -139,14 +149,103 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, tp: int = 1, device=No
                     torch.zeros(shape, dtype=_dtype(cfg), device=dev)))
 
 
-def _attn_block(blk: Block, x, cfg: ArchConfig, dims: ModelDims, cache, pos: int):
-    """Residual attention + FFN block; writes the layer's cache in place."""
+def _attn_block(blk: Block, x, cfg: ArchConfig, dims: ModelDims, cache=None, pos: int = 0):
+    """Residual attention + FFN block; writes the layer's cache in place
+    (cache-less, causal over the whole sequence, when ``cache`` is None)."""
     out, _ = L.attention(
         blk.attn, L.rms_norm(x, blk.ln1), h=dims.h, kv=dims.kv, dh=dims.dh,
         rope_theta=cfg.rope_theta, causal=True, cache=cache, cache_pos=pos,
     )
     x = x + out
     return x + L.mlp(blk.mlp, L.rms_norm(x, blk.ln2))
+
+
+def _head(model: LM, cfg: ArchConfig) -> torch.Tensor:
+    return model.embed.T if cfg.tie_embeddings else model.head
+
+
+def forward_train(
+    model: LM,
+    cfg: ArchConfig,
+    batch: Dict[str, torch.Tensor],
+    tp: int = 1,
+    remat: bool = True,
+    return_hidden: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (logits (B, S, V), moe_aux_loss ()); the final-normed hidden
+    states (B, S, D) in place of the logits if asked.
+
+    ``batch["tokens"]``: (B, S) int. With ``remat`` each block runs under
+    ``torch.utils.checkpoint`` (non-reentrant): its activations are
+    recomputed in the backward, so on the card each layer's
+    ``flash_attention`` kernel launches twice per training step. The dense
+    family has no auxiliary loss (a zero).
+    """
+    _require_dense(cfg)
+    dims = model_dims(cfg, tp)
+    x = model.embed[batch["tokens"]]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for blk in model.blocks:
+        if remat:
+            x = checkpoint(_attn_block, blk, x, cfg, dims, use_reentrant=False)
+        else:
+            x = _attn_block(blk, x, cfg, dims)
+    x = L.rms_norm(x, model.ln_f)
+    if return_hidden:
+        return x, aux
+    return x @ _head(model, cfg), aux
+
+
+def loss_fn(
+    model: LM,
+    cfg: ArchConfig,
+    batch: Dict[str, torch.Tensor],
+    tp: int = 1,
+    remat: bool = True,
+    aux_weight: float = 0.01,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross-entropy (+ MoE aux): (loss, dict(ce, moe_aux)), the
+    JAX keys. ``batch["tokens"]``: (B, S+1)."""
+    tokens = batch["tokens"]
+    hidden, aux = forward_train(model, cfg, dict(batch, tokens=tokens[:, :-1]), tp=tp,
+                                remat=remat, return_hidden=True)
+    ce = _chunked_ce(hidden, _head(model, cfg), tokens[:, 1:], remat=remat)
+    return ce + aux_weight * aux, dict(ce=ce, moe_aux=aux)
+
+
+def _chunk_loss(x_c: torch.Tensor, head: torch.Tensor, y_c: torch.Tensor) -> torch.Tensor:
+    logits = (x_c @ head).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, y_c[..., None].long())[..., 0]
+    return (logz - gold).sum()
+
+
+def _chunked_ce(
+    hidden: torch.Tensor,  # (B, S, D)
+    head: torch.Tensor,  # (D, V)
+    labels: torch.Tensor,  # (B, S)
+    n_chunks: int = 8,
+    remat: bool = True,
+) -> torch.Tensor:
+    """Sequence-chunked cross-entropy, mean over the B·S tokens.
+
+    The head product and the CE run per chunk of ⌈S / n⌉ positions with
+    fp32 logits; with ``remat`` each chunk is checkpointed, so only one
+    (B, S/n, V) slice of logits is live, in the forward and in the backward.
+    The gold logit is a ``gather``, equal to the JAX package's one-hot sum.
+    """
+    b, s, _ = hidden.shape
+    n_chunks = min(n_chunks, s)
+    cs = -(-s // n_chunks)
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for lo in range(0, s, cs):
+        hi = min(s, lo + cs)
+        args = (hidden[:, lo:hi], head, labels[:, lo:hi])
+        if remat:
+            total = total + checkpoint(_chunk_loss, *args, use_reentrant=False)
+        else:
+            total = total + _chunk_loss(*args)
+    return total / (b * s)
 
 
 @torch.no_grad()
@@ -173,5 +272,4 @@ def forward_cached(
     for i, blk in enumerate(model.blocks):
         x = _attn_block(blk, x, cfg, dims, (ck[i], cv[i]), pos)
     x = L.rms_norm(x, model.ln_f)
-    head = model.embed.T if cfg.tie_embeddings else model.head
-    return x @ head, cache
+    return x @ _head(model, cfg), cache

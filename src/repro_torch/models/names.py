@@ -1,0 +1,36 @@
+"""How the port's parameter names map onto the JAX package's parameter tree.
+
+The port names a parameter as ``LM.named_parameters()`` does (``embed``,
+``blocks.3.attn.wq``, ...); the JAX tree stacks the per-layer leaves, so
+the port's ``blocks.<i>.<rest>`` is row i of JAX's ``blocks.<rest>``.
+"""
+from __future__ import annotations
+
+from typing import Dict, Iterable, List, Tuple
+
+__all__ = ["jax_leaf", "jax_leaves"]
+
+
+def jax_leaf(name: str) -> Tuple[str, int | None]:
+    """The JAX leaf (dotted path) of a port parameter name, and the layer
+    (its row in that stacked leaf), or None for an unstacked leaf."""
+    if name.startswith("blocks."):
+        _, i, rest = name.split(".", 2)
+        return f"blocks.{rest}", int(i)
+    return name, None
+
+
+def _order(name: str) -> Tuple[List[str], int]:
+    key, layer = jax_leaf(name)
+    return key.split("."), -1 if layer is None else layer
+
+
+def jax_leaves(names: Iterable[str]) -> Dict[str, List[str]]:
+    """The port's parameter names grouped by the JAX leaf they are part of,
+    in that tree's order (keys sorted at every level), each group in layer
+    order: a stacked ``blocks`` leaf of JAX is one group of per-layer
+    names."""
+    groups: Dict[str, List[str]] = {}
+    for name in sorted(names, key=_order):
+        groups.setdefault(jax_leaf(name)[0], []).append(name)
+    return groups

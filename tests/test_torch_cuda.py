@@ -27,7 +27,7 @@ from repro_torch.obs import Tracer, chrome_trace, validate_chrome_trace
 from repro_torch.engine import build_partitioned_graph, pagerank
 from repro_torch.graph import make_graph
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import device_kernels, ops
+from repro_torch.kernels import device_kernels, ops, ref
 from repro_torch.kernels.segment_sum import segment_layout
 from repro_torch.models import lm
 
@@ -736,3 +736,77 @@ def test_dense_lm_on_the_card_matches_cpu(cuda):
     assert ops.launch_counts()["flash_attention"] == before
     for x, y in zip(caches[0]["kv"], caches[1]["kv"]):
         np.testing.assert_allclose(y.cpu().numpy(), x.numpy(), rtol=2e-3, atol=2e-3)
+
+
+# b, hq, hkv, tq, tk, dh, causal: wgmma (bf16, Dh 64/128), mma_sync (Dh 32),
+# fma (fp32), Tq < Tk, non-causal.
+FN_SHAPES = [
+    (1, 6, 2, 300, 300, 128, True), (2, 4, 2, 130, 200, 64, True),
+    (1, 4, 1, 77, 77, 32, True), (1, 4, 2, 40, 256, 64, False),
+]
+
+
+@pytest.mark.parametrize("shape", FN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_function_grads_on_the_card(cuda, shape, dtype):
+    """The op under autograd on the card: its forward is the bare kernel's
+    output bit for bit (one launch, with a grad_fn); dq/dk/dv against
+    autograd through the plain version on the card — within 1e-5 in fp32
+    (summation order), one bf16 ulp (2^-7 relative) in bf16."""
+    b, hq, hkv, tq, tk, dh, causal = shape
+    rng = np.random.default_rng(dh)
+    q, k, v = (torch.as_tensor(rng.normal(size=sh).astype(np.float32)).to(cuda, dtype)
+               .requires_grad_(True)
+               for sh in ((b, hq, tq, dh), (b, hkv, tk, dh), (b, hkv, tk, dh)))
+    dout = torch.as_tensor(rng.normal(size=(b, hq, tq, dh)).astype(np.float32)).to(cuda, dtype)
+    before, bwd0 = ops.launch_counts()["flash_attention"], fa.BACKWARD_CALLS
+    out = ops.flash_attention(q, k, v, causal=causal)
+    assert out.grad_fn is not None and ops.launch_counts()["flash_attention"] - before == 1
+    with torch.no_grad():
+        assert torch.equal(out, fa.flash_attention(q, k, v, causal=causal))
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    assert fa.BACKWARD_CALLS - bwd0 == 1
+    want = torch.autograd.grad(ref.flash_attention_ref(q, k, v, causal=causal), (q, k, v), dout)
+    tol = 1e-5 if dtype == torch.float32 else 2.0**-7
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        np.testing.assert_allclose(g.float().cpu().numpy(), w.float().cpu().numpy(), rtol=tol,
+                                   atol=tol * max(w.float().abs().max().item(), 1e-30))
+
+
+def test_train_step_on_the_card_matches_cpu(cuda):
+    """Reduced llama3.2-3b (fp32): one launcher step (make_step) on the card
+    against the same weights and batch on the CPU — loss within 1e-5, every
+    gradient within 1e-4 relative norm, each leaf's update within 1e-2
+    (the update divides by √v̂: see tests/test_torch_train.py); two kernel
+    launches per layer (forward and remat) and one attention backward."""
+    from repro_torch.launch import train
+
+    cfg = get_config("llama3.2-3b").reduced()
+    toks = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab, (2, 33)),
+                           dtype=torch.int32)
+    runs = {}
+    for dev in ("cpu", cuda):
+        model, state = train.build_state(cfg, torch.device(dev), seed=0)
+        if dev != "cpu":
+            with torch.no_grad():
+                for p, q in zip(model.parameters(), runs["cpu"]["start"]):
+                    p.copy_(q)
+        start = [p.detach().cpu().clone() for p in model.parameters()]
+        _, metrics = train.make_step(model, cfg, lambda s: 1e-2)(state, {"tokens": toks.to(dev)})
+        runs["cpu" if dev == "cpu" else "cuda"] = dict(
+            start=start, metrics=metrics,
+            grads=[p.grad.cpu() for p in model.parameters()],
+            params=[p.detach().cpu() for p in model.parameters()])
+    a, g = runs["cpu"], runs["cuda"]
+    assert g["metrics"]["flash_launches"] == 2 * cfg.n_layers
+    assert g["metrics"]["attn_backward_calls"] == cfg.n_layers
+    np.testing.assert_allclose(g["metrics"]["loss"], a["metrics"]["loss"], rtol=1e-5, atol=1e-5)
+
+    def rel(x, y):
+        return ((x - y).norm() / y.norm().clamp_min(1e-30)).item()
+
+    for x, y in zip(g["grads"], a["grads"]):
+        assert rel(x, y) <= 1e-4
+    for x, y, s in zip(g["params"], a["params"], a["start"]):
+        assert rel(x - s, y - s) <= 1e-2

@@ -38,7 +38,12 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     assert {"repro_torch.obs", "repro_torch.obs.tracer", "repro_torch.core.spotlight",
             "repro_torch.graph.stream", "repro_torch.core.oocore", "repro_torch.graph.io",
             "repro_torch.graph.io.format", "repro_torch.graph.io.ingest",
-            "repro_torch.graph.io.shuffle"} <= set(mods)
+            "repro_torch.graph.io.shuffle", "repro_torch.optim", "repro_torch.optim.adamw",
+            "repro_torch.optim.compress", "repro_torch.checkpoint",
+            "repro_torch.checkpoint.manager", "repro_torch.data", "repro_torch.data.pipeline",
+            "repro_torch.runtime", "repro_torch.runtime.fault", "repro_torch.runtime.straggler",
+            "repro_torch.runtime.elastic", "repro_torch.launch.train",
+            "repro_torch.models.names"} <= set(mods)
     code = textwrap.dedent(
         f"""
         import sys
