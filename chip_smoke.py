@@ -44,9 +44,13 @@ Phases (any failure exits non-zero, and no result line is printed):
    Tq = Tk = 2000, at a long context (B = 1, T = 8192; the plain version
    checked once, not timed),
    at Tk = 129 for Dh 64 and 128, at the shapes of the JAX kernel tests in
-   fp32 and fp16, at each Dh in {32, 64, 96, 128}, and non-causal at
-   Tk = 256; at each, kernel / plain / SDPA times and the bound (SDPA is
-   timed as a yardstick only; the port never calls it).
+   fp32 and fp16, at each Dh in {32, 64, 96, 128}, non-causal at Tk =
+   256, Zamba2-7B's shared attention (q (4, 32, 2048, 112), causal) on the
+   ``mma_sync`` (bf16) and ``fma`` (fp32) bodies, and Whisper-tiny's
+   non-causal shapes at batch 8 (the encoder over 224 frames, the
+   cross-attention of 448 queries and of one decoded query over them); at
+   each, kernel / plain / SDPA times and the bound (SDPA is timed as a
+   yardstick only; the port never calls it).
 6. LM serving at full width: ``repro_torch.launch.serve.main`` on
    Llama-3.2-3B (28 layers, bf16, random weights from the seed), batch 4,
    prompt 2048, 64 generated tokens — 28 flash launches in the prefill,
@@ -128,8 +132,25 @@ Phases (any failure exits non-zero, and no result line is printed):
    batch 1, seq 256, on the card against the CPU: loss, every gradient,
    the moments and each leaf's update; (d) the launcher at reduced width
    with checkpoints, an injected failure, top-k compression and a resume.
+12. The other LM families at full width: (a) ``repro_torch.launch.serve.main``
+   on granite-moe-1b-a400m, internvl2-26b (+ 256 patches), zamba2-7b and
+   rwkv6-7b at batch 4, prompt 2048, and whisper-tiny at batch 8, prompt
+   448 (its decoder context; 224 frames), 16 tokens each, bf16, random
+   weights from seed 0, one model at a time, counts zeroed just before
+   each and read just after: tokens in range, finite logits, the
+   ``flash_attention`` launches per prefill by body (granite 24 and
+   internvl 48 ``wgmma``, zamba2 13 ``mma_sync``, whisper 12 ``wgmma``,
+   rwkv6 none) and per decode step (whisper 4 ``wgmma``, the others none);
+   prefill ms, decode ms per step, peak memory; then the same model again,
+   a second prefill and decode steps under torch.profiler (busy time and
+   idle share); (b) each family at full width cut to 2 layers (zamba2 7,
+   its shared block after the 6th; whisper 2 + 2), fp32 (TF32 off), batch
+   1, prompt 128, 4 decode steps, on the card against the CPU from the
+   same weights, logits within ``FAMILY_PARITY_TOL`` of their scale; for
+   the MoE the tokens whose top-k experts differ between the devices are
+   counted first and the logits compared before the first of them.
 
-The kernels' ``launches`` are those of phases 2, 6, 8, 9, 10 and 11 (each
+The kernels' ``launches`` are those of phases 2, 6, 8, 9, 10, 11 and 12 (each
 path's counts zeroed just before it and read just after). Then one JSON line with
 every kernel's numbers, and, last, the
 ``{"ok": true, "device": ...}`` line. It imports nothing of JAX and nothing
@@ -1399,6 +1420,25 @@ def phase_flash():
             measure(f"Dh={dh}", (2, 12, 4, 517, 517, dh), dtype)
     for dtype in (torch.float32, torch.bfloat16):
         measure("non-causal", (2, 8, 2, 256, 256, 64), dtype, causal=False)
+    # The prefill shapes of phase 12's wgmma launches: Granite-MoE's (GQA
+    # group 2, Dh 64) and InternVL2's (2048 tokens + 256 patches, GQA group
+    # 6, Dh 128; the plain version's fp32 logits are 4.1 GB here).
+    measure("granite prefill", (4, 16, 8, 2048, 2048, 64), torch.bfloat16)
+    measure("internvl prefill", (4, 48, 8, 2304, 2304, 128), torch.bfloat16)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # Zamba2-7B's shared attention block at the family serving shape: Dh 112
+    # on mma_sync (bf16) and on fma (fp32).
+    for dtype in (torch.bfloat16, torch.float32):
+        measure("zamba2 Dh=112", (4, 32, 32, 2048, 2048, 112), dtype)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # Whisper-tiny at batch 8, prompt 448: the encoder over 224 frames, the
+    # cross-attention in prefill and in decode (Tq = 1) — non-causal at a Tk
+    # no 128-row tile divides.
+    measure("whisper encoder", (8, 6, 6, 224, 224, 64), torch.bfloat16, causal=False)
+    measure("whisper cross", (8, 6, 6, 448, 224, 64), torch.bfloat16, causal=False)
+    measure("whisper cross decode", (8, 6, 6, 1, 224, 64), torch.bfloat16, causal=False)
     return row
 
 
@@ -1898,6 +1938,235 @@ def phase_train_launcher():
     shutil.rmtree(ck, ignore_errors=True)
 
 
+# ----------------------------------------------------------------------------
+# Phase 12: the other LM families, served at full width
+# ----------------------------------------------------------------------------
+
+# arch, batch, prompt, generated tokens, flash launches per prefill and per
+# decode step by body. Whisper's prompt is its decoder context (448); its
+# encoder gets prompt // 2 = 224 frames.
+FAMILY_RUNS = [
+    ("granite-moe-1b-a400m", 4, 2048, 16, {"wgmma": 24}, {}),
+    ("internvl2-26b", 4, 2048, 16, {"wgmma": 48}, {}),
+    ("zamba2-7b", 4, 2048, 16, {"mma_sync": 13}, {}),
+    ("rwkv6-7b", 4, 2048, 16, {}, {}),
+    ("whisper-tiny", 8, 448, 16, {"wgmma": 12}, {"wgmma": 4}),
+]
+FAMILY_PROFILE_STEPS = 4
+
+
+def phase_families():
+    """(a) Each family at full width and depth through ``serve.main`` (bf16,
+    random weights from seed 0), its counts zeroed just before and read just
+    after: tokens in range, finite logits, the flash launches of each phase
+    by body; prefill ms, decode ms per step, peak memory. Then the same
+    model again (steady state): one prefill, and decode steps under
+    torch.profiler (device busy per step, idle share). Returns the summed
+    launch counts of the serve runs."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    total = None
+    for arch, b, t, n_gen, pre, dec in FAMILY_RUNS:
+        cfg = get_config(arch)
+        steps = n_gen - 1
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        info = {}
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        gen = serve.main(["--arch", arch, "--batch", str(b), "--prompt-len", str(t),
+                          "--gen", str(n_gen)], info=info)
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        total = counts if total is None else {k: total[k] + counts[k] for k in counts}
+        check(gen.shape == (b, n_gen) and (gen >= 0).all() and (gen < cfg.vocab).all(),
+              f"families {arch}: ({b}, {n_gen}) tokens in [0, vocab)")
+        check(info["logits_finite"], f"families {arch}: prefill and decode logits finite")
+        want_pre = {body: pre.get(body, 0) for body in info["prefill_flash_bodies"]}
+        want_dec = {body: dec.get(body, 0) * steps for body in info["decode_flash_bodies"]}
+        check(info["prefill_flash_bodies"] == want_pre,
+              f"families {arch}: flash launches per prefill by body {info['prefill_flash_bodies']} == {want_pre}")
+        check(info["decode_flash_bodies"] == want_dec,
+              f"families {arch}: flash launches in decode by body {info['decode_flash_bodies']} == {want_dec}")
+        check(counts["flash_attention"] == sum(pre.values()) + sum(dec.values()) * steps,
+              f"families {arch}: every flash launch of the run counted")
+        log(f"families {arch} ({cfg.family}) B={b} prompt={t} gen={n_gen}: "
+            f"prefill_ms={info['prefill_s'] * 1e3:.3f} "
+            f"prefill_tok_per_s={b * t / info['prefill_s']:.1f} "
+            f"decode_ms_per_step={info['decode_s'] / steps * 1e3:.3f} (of {b} tokens) "
+            f"decode_tok_per_s={info['decode_tokens'] / info['decode_s']:.1f} "
+            f"peak_mem_GiB={info['peak_bytes'] / 2**30:.3f} main_wall_s={wall:.3f} "
+            f"flash_prefill={info['prefill_flash_bodies']} flash_decode={info['decode_flash_bodies']}")
+        log(f"families {arch} generated[0][:12] = {gen[0, :12].tolist()}")
+        del gen, info
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # Steady state: the same model again, a second prefill (wall) and
+        # decode steps under the profiler.
+        model = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+        n_params = sum(p.numel() for p in model.parameters())
+        prompts, kw, offset = serve.family_inputs(cfg, b, t, np.random.default_rng(0), "cuda")
+        cache = lm.init_cache(cfg, b, t + n_gen + FAMILY_PROFILE_STEPS, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = lm.forward_cached(model, cfg, cache, prompts, 0, **kw)
+        tok = logits[:, -1:].argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        del logits
+        outs, _, cache = serve.decode(model, cfg, cache, tok, offset + t, 2)  # warm decode
+        tok = outs[-1]
+        torch.cuda.synchronize()
+        _, kern, wall_prof = profiled(
+            lambda: serve.decode(model, cfg, cache, tok, offset + t + 2, FAMILY_PROFILE_STEPS),
+            f"families {arch} decode profile")
+        busy_us = sum(e.self_device_time_total for e in kern)
+        check(busy_us > 0, f"families {arch}: decode ran on the device (profiler)")
+        n = FAMILY_PROFILE_STEPS
+        log(f"families {arch} steady: params={n_params} second prefill_ms={t_prefill * 1e3:.3f} "
+            f"decode profile: {n} steps, kernels_per_step={sum(e.count for e in kern) / n:.1f} "
+            f"device_busy_ms_per_step={busy_us / n / 1e3:.3f} "
+            f"wall_ms_per_step={wall_prof / n * 1e3:.3f} (profiled) "
+            f"idle_share={1 - busy_us / 1e6 / wall_prof:.3f}")
+        for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:4]:
+            log(f"families {arch} decode kernel {e.key[:70]}: {e.count / n:.1f} per step, "
+                f"{e.self_device_time_total / n:.1f} us per step")
+        del model, cache, prompts, kw, tok, outs
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
+# Phase 12 (b): the card against the port's CPU path, each family at full
+# width with a depth cut, fp32 (TF32 off). Tolerance on logits, relative to
+# their largest magnitude: three times the largest error of a sound run
+# (zamba2-7b's prefill, 8.51e-5 at a logit scale of 5.36 = 1.59e-5, on an
+# NVIDIA H100 80GB HBM3 at 700 W; the other families 1.2e-6 to 6.0e-6).
+FAMILY_PARITY_TOL = 5e-5
+# The MoE's prompt tokens whose top-k experts may differ between the devices
+# in some layer: a sound run reads 0 of 128 (same card). Logits are compared
+# before the first such token, which must lie in the prompt's second half.
+FAMILY_MOE_FLIPS_MAX = 2
+
+
+def phase_families_parity():
+    """(b) Each family at full width, 2 layers (zamba2: 7 with its shared
+    block after the 6th, so a remainder layer follows it; whisper: 2 encoder
+    and 2 decoder layers), fp32, batch 1, prompt 128 (+ 256 patches; 64
+    frames), 4 decode steps, on the card against the CPU from the same
+    weights. For the MoE the routes are counted first: logits are compared
+    at the prompt positions before the first token whose top-k experts
+    differ between the devices in any layer, and decode only while no route
+    has differed; at most ``FAMILY_MOE_FLIPS_MAX`` prompt tokens may differ,
+    none in the prompt's first half. The first MoE layer's input (the
+    attention sublayer's output, normed, which no route can change) is
+    compared at every position."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import layers, lm
+
+    routes = {"cpu": [], "cuda": []}
+    moe_inputs = {"cpu": [], "cuda": []}
+    real_moe = layers.moe_ffn
+
+    def recording_moe(params, x, **kw):
+        if not moe_inputs[x.device.type]:
+            moe_inputs[x.device.type].append(x.float().cpu())
+        logits = x.reshape(-1, x.shape[-1]).float() @ params["router"]
+        top = torch.sort(torch.softmax(logits, -1), dim=-1, descending=True, stable=True).indices
+        routes[x.device.type].append(top[:, :kw["top_k"]].sort(-1).values.cpu())
+        return real_moe(params, x, **kw)
+
+    b, t, n_dec = 1, 128, 4
+    layers.moe_ffn = recording_moe
+    try:
+        for arch, *_ in FAMILY_RUNS:
+            base = get_config(arch)
+            cut = dict(n_layers=2, dtype="float32")
+            if base.family == "hybrid":
+                cut["n_layers"] = base.shared_every + 1
+            if base.family == "encdec":
+                cut["n_enc_layers"] = 2
+            cfg = dataclasses.replace(base, **cut)
+            t0 = time.perf_counter()
+            gpu_model = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+            cpu_model = lm.LM(cfg, device="cpu")
+            cpu_model.load_state_dict(gpu_model.state_dict())
+            prompts, kw, offset = serve.family_inputs(cfg, b, t, np.random.default_rng(1), "cpu")
+            caches = [lm.init_cache(cfg, b, t + n_dec, device=d) for d in ("cpu", "cuda")]
+            for v in (*routes.values(), *moe_inputs.values()):
+                v.clear()
+
+            def differing(since):
+                """(B·T,) bool: the tokens whose top-k experts differ
+                between the devices in any MoE layer run since ``since``."""
+                pairs = list(zip(routes["cpu"][since:], routes["cuda"][since:]))
+                if not pairs:
+                    return torch.zeros(0, dtype=torch.bool)
+                return torch.stack([(ra != rg).any(-1) for ra, rg in pairs]).any(0)
+
+            a, _ = lm.forward_cached(cpu_model, cfg, caches[0], prompts, 0, **kw)
+            g, _ = lm.forward_cached(gpu_model, cfg, caches[1], prompts.cuda(), 0,
+                                     **{k: v.cuda() for k, v in kw.items()})
+            flipped = differing(0)
+            first = int(flipped.nonzero()[0]) if flipped.any() else t  # b = 1: token = position
+            route_note = ""
+            if cfg.moe:
+                xa, xg = moe_inputs["cpu"][0], moe_inputs["cuda"][0]
+                x_scale = max(1.0, xa.abs().max().item())
+                x_err = (xg - xa).abs().max().item()
+                check(x_err <= FAMILY_PARITY_TOL * x_scale,
+                      f"families parity {arch}: the first MoE layer's input at all {t} positions "
+                      f"within {FAMILY_PARITY_TOL} of its scale ({x_err} at {x_scale:.4f})")
+                check(int(flipped.sum()) <= FAMILY_MOE_FLIPS_MAX and first >= t // 2,
+                      f"families parity {arch}: {int(flipped.sum())} prompt tokens route differently "
+                      f"(at most {FAMILY_MOE_FLIPS_MAX}, the first at {first} >= {t // 2})")
+                route_note = (f" first MoE input max_abs_err={x_err} (scale {x_scale:.4f}); routes: "
+                              f"{int(flipped.sum())} of {b * t} prompt tokens differ in some layer "
+                              f"(logits compared before position {first})")
+            scale = max(1.0, a.abs().max().item())
+            errs = [(g.cpu() - a)[:, :first].abs().max().item()]
+            check(errs[0] <= FAMILY_PARITY_TOL * scale,
+                  f"families parity {arch}: prefill logits within {FAMILY_PARITY_TOL} of their scale")
+            same = int(torch.equal(a[:, -1].argmax(-1), g[:, -1].cpu().argmax(-1)))
+            for i in range(n_dec if first == t else 0):
+                tok = a[:, -1:].argmax(-1).to(torch.int32)  # the CPU's token feeds both
+                since = len(routes["cpu"])
+                a, _ = lm.forward_cached(cpu_model, cfg, caches[0], tok, offset + t + i)
+                g, _ = lm.forward_cached(gpu_model, cfg, caches[1], tok.cuda(), offset + t + i)
+                if differing(since).any():
+                    break
+                errs.append((g.cpu() - a).abs().max().item())
+                check(errs[-1] <= FAMILY_PARITY_TOL * scale,
+                      f"families parity {arch}: decode step {i} logits within {FAMILY_PARITY_TOL} of their scale")
+                same += int(torch.equal(a[:, -1].argmax(-1), g[:, -1].cpu().argmax(-1)))
+            log(f"families parity {arch} width, {cfg.n_layers} layers, fp32, prompt {t}, {n_dec} "
+                f"decode steps: max_abs_err per step={errs} logit scale={scale:.4f} "
+                f"(tolerance {FAMILY_PARITY_TOL} x scale) greedy tokens equal {same}/{len(errs)}"
+                f"{route_note} wall_s={time.perf_counter() - t0:.1f}")
+            del gpu_model, cpu_model, caches, a, g
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        layers.moe_ffn = real_moe
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch not found beside this script; run it "
@@ -2000,6 +2269,14 @@ def main() -> int:
             f"c {t_c:.1f}s) launches={train_counts}")
         check(train_counts["flash_attention"] > 0, "flash_attention launched on the training path")
         counts["flash_attention"] += train_counts["flash_attention"]
+        t0 = time.perf_counter()
+        fam_counts = phase_families()
+        t_a = time.perf_counter() - t0
+        phase_families_parity()
+        log(f"phase 12 (LM families): {time.perf_counter() - t0:.1f}s (a {t_a:.1f}s, "
+            f"b {time.perf_counter() - t0 - t_a:.1f}s) launches={fam_counts}")
+        check(fam_counts["flash_attention"] > 0, "flash_attention launched on the families' path")
+        counts["flash_attention"] += fam_counts["flash_attention"]
         sources = {"window_score": ws_mod, "segment_sum": ss_mod, "flash_attention": fa_mod}
         kernels = []
         for name, row in kernel_rows.items():

@@ -128,10 +128,10 @@ def _leaves(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
 def _per_param(tree: Mapping[str, Any], model: lm.LM, cfg: ArchConfig, what: str
                ) -> Dict[str, np.ndarray]:
     """name -> numpy array of each of ``model``'s parameters, read from a
-    nested dict in the JAX ``init_params`` layout (stacked ``blocks``
-    leaves split per layer). Every leaf must be present with the port's
-    shape, and nothing else may be: a missing, extra or mis-shaped leaf
-    raises."""
+    nested dict in the JAX ``init_params`` layout (stacked ``blocks`` and
+    ``enc_blocks`` leaves split per layer). Every leaf must be present with
+    the port's shape, and nothing else may be: a missing, extra or
+    mis-shaped leaf raises."""
     src = _leaves(tree)
     want = {name: jax_leaf(name) for name, _ in model.named_parameters()}
     missing = {key for key, _ in want.values()} - set(src)
@@ -143,10 +143,9 @@ def _per_param(tree: Mapping[str, Any], model: lm.LM, cfg: ArchConfig, what: str
         key, layer = want[name]
         a = np.asarray(src[key])
         if layer is not None:
-            if a.shape[0] != cfg.n_layers:
-                raise ValueError(
-                    f"{what}: {key} stacks {a.shape[0]} layers, the config {cfg.n_layers}"
-                )
+            n = cfg.n_enc_layers if key.startswith("enc_blocks.") else cfg.n_layers
+            if a.shape[0] != n:
+                raise ValueError(f"{what}: {key} stacks {a.shape[0]} layers, the config {n}")
             a = a[layer]
         if tuple(a.shape) != tuple(p.shape):
             raise ValueError(
@@ -161,11 +160,17 @@ def lm_params_from_numpy(
     params: Mapping[str, Any], cfg: ArchConfig, device=None, tp: int = 1,
 ) -> lm.LM:
     """The port's :class:`~repro_torch.models.lm.LM` on ``device`` from the
-    nested dict of JAX ``lm.init_params`` leaves as numpy arrays.
+    nested dict of JAX ``lm.init_params`` leaves as numpy arrays, for every
+    family.
 
-    The stacked ``blocks`` leaves (leading axis = layer) are split per
-    layer. Every leaf must be present with the port's shape, and nothing
-    else may be: a missing, extra or mis-shaped leaf raises.
+    The stacked ``blocks`` and ``enc_blocks`` leaves (leading axis = layer)
+    are split per layer; ``shared``, ``vit_proj`` and ``enc_ln_f`` are
+    unstacked. Every leaf must be present with the port's shape, and nothing
+    else may be: a missing, extra or mis-shaped leaf raises. Each leaf lands
+    in its parameter's dtype, which is the JAX leaf's: the leaves the JAX
+    package keeps in fp32 in a bf16 model (the MoE router, RWKV-6's ``w0``
+    ``w_a`` ``w_b`` ``u`` ``ln_x``, Mamba-2's ``a_log`` ``dt_bias``
+    ``d_skip`` ``norm``) stay fp32, unrounded.
     """
     model = lm.LM(cfg, tp, device=device)
     arrays = _per_param(params, model, cfg, "lm_params_from_numpy")
@@ -192,7 +197,8 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
 
 def lm_params_to_numpy(params: "lm.LM | Mapping[str, torch.Tensor]") -> Dict[str, Any]:
     """The JAX ``init_params`` layout (nested dict; per-layer leaves stacked
-    into ``blocks`` along a leading layer axis) as numpy arrays, from an
+    into ``blocks`` / ``enc_blocks`` along a leading layer axis) as numpy
+    arrays, from an
     :class:`~repro_torch.models.lm.LM` or a mapping of its parameter names
     to tensors (its gradients, an optimizer moment); bfloat16 comes out as
     float32 (exact)."""
@@ -230,17 +236,28 @@ def opt_state_to_numpy(opt: Mapping[str, Any]) -> Dict[str, Any]:
                 step=np.asarray(int(opt["step"]), np.int32))
 
 
+def _map_tree(tree: Any, fn) -> Any:
+    """``fn`` applied to every leaf of a tree of dicts, tuples and lists,
+    which keep their types."""
+    if isinstance(tree, Mapping):
+        return {k: _map_tree(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tree(v, fn) for v in tree)
+    return fn(tree)
+
+
 def cache_from_numpy(cache: Mapping[str, Any], device=None) -> lm.Cache:
-    """A port KV cache ``dict(kv=(k, v))`` on ``device`` from the JAX
-    ``init_cache`` / ``forward_cached`` cache as numpy arrays (dense
-    layout: each (n_layers, B, KV, S, Dh))."""
+    """A port cache on ``device`` from the JAX ``init_cache`` /
+    ``forward_cached`` cache of any family as numpy arrays, in the same
+    structure (dicts, tuples and lists kept: dense / moe / vlm ``kv=(k, v)``;
+    ssm ``s``, ``lx_att``, ``lx_cm``; hybrid ``s`` and a ``kv`` list of
+    (k, v) pairs; encdec ``kv`` and ``xkv``), each leaf in its own dtype
+    (the fp32 SSM states of a bf16 model stay fp32)."""
     dev = compat.resolve_device(device)
-    k, v = cache["kv"]
-    return dict(kv=(_as_torch(k, None, dev), _as_torch(v, None, dev)))
+    return _map_tree(cache, lambda a: _as_torch(a, None, dev))
 
 
 def cache_to_numpy(cache: lm.Cache) -> Dict[str, Any]:
-    """The cache as numpy arrays in the JAX layout; a bfloat16 cache comes
-    out as float32 (exact)."""
-    k, v = cache["kv"]
-    return dict(kv=(_numpy(k), _numpy(v)))
+    """The cache as numpy arrays in the JAX layout and structure; a bfloat16
+    leaf comes out as float32 (exact)."""
+    return _map_tree(cache, _numpy)

@@ -10,9 +10,13 @@
 // with fp32 running max, sum and accumulator, and the output in q's dtype.
 // Causality is aligned to the end of KV: query row r sits at absolute
 // position Tk - Tq + r and sees the columns c <= that position; columns at
-// or past Tk are masked in the kernel (no padding in the wrapper). Masked
-// scores are -1e30, not -inf, as in the JAX kernel, so exp(m_prev - m_new)
-// never meets inf - inf; the final divide is by max(l, 1e-30).
+// or past Tk are masked in the kernel (no padding in the wrapper), on every
+// body and whether or not the call is causal, so a non-causal call takes any
+// Tk >= 1 and any Tq >= 1 (an encoder over an odd number of frames, a
+// cross-attention from one decoded token); the TPU kernel needs Tk % 128 == 0
+// there. Masked scores are -1e30, not -inf, as in the JAX kernel, so
+// exp(m_prev - m_new) never meets inf - inf; the final divide is by
+// max(l, 1e-30).
 //
 // Bound: at the serving shape (B = 4, Hq = 24, Hkv = 8, T = 2048, Dh = 128,
 // bf16, causal) it reads 33.6 MB and writes 50.3 MB — 0.025 ms at 3.35 TB/s —
@@ -44,10 +48,12 @@
 //    wgmma m64nDhk16, V read from shared memory as an MN-major operand (the
 //    descriptor's transpose bit), so no ldmatrix. A consumer releases a
 //    stage only after its P V wgmma has retired.
-//  * "mma_sync" — fp16 / bf16 at Dh 32 and 96: mma.sync m16n8k16 with fp32
-//    accumulation, 64-row q tiles on four warps of 16 rows, P in registers,
-//    V's fragments through ldmatrix.trans, K / V double-buffered with
-//    cp.async (rows padded by 8 elements against bank conflicts).
+//  * "mma_sync" — fp16 / bf16 at Dh 32, 96 and 112: mma.sync m16n8k16 with
+//    fp32 accumulation (Dh / 16 k-steps of q k^T, Dh / 16 ldmatrix.x4 loads
+//    of V per 16 keys), 64-row q tiles on four warps of 16 rows, P in
+//    registers, V's fragments through ldmatrix.trans, K / V double-buffered
+//    with cp.async in 16-byte chunks (Dh / 8 a row; rows padded by 8
+//    elements, so 8 consecutive rows fall on distinct banks at every Dh).
 //  * "fma" — fp32: 256 threads, each owning 4 rows x 4 score columns and
 //    4 x Dh/16 accumulators, fp32 FMA from shared memory (rows padded by one
 //    float) — exact fp32 products, at the fp32 FMA rate.
@@ -235,7 +241,7 @@ __global__ void __launch_bounds__(kThreads) flash_fp32_kernel(const Args a)
 }
 
 // ---------------------------------------------------------------------------
-// fp16 / bf16 at Dh 32 and 96 (any Dh on request): tensor cores through
+// fp16 / bf16 at Dh 32, 96 and 112 (any multiple of 16 on request): tensor cores through
 // mma.sync m16n8k16, fp32 accumulation
 // ---------------------------------------------------------------------------
 
@@ -967,6 +973,7 @@ int launch_dh(const Args& a, int b, int hq, int hkv, int dh, cudaStream_t st, in
     case 32: return launch<T, 32>(a, b, hq, hkv, st, body);
     case 64: return launch<T, 64>(a, b, hq, hkv, st, body);
     case 96: return launch<T, 96>(a, b, hq, hkv, st, body);
+    case 112: return launch<T, 112>(a, b, hq, hkv, st, body);
     case 128: return launch<T, 128>(a, b, hq, hkv, st, body);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -976,7 +983,7 @@ int launch_dh(const Args& a, int b, int hq, int hkv, int dh, cudaStream_t st, in
 
 // dtype: 0 float32, 1 float16, 2 bfloat16. The body follows from dtype and
 // Dh — fma for float32, wgmma for 16-bit at Dh 64 / 128 (every row and the
-// base on 16 bytes), mma_sync for 16-bit at Dh 32 / 96 — and is written to
+// base on 16 bytes), mma_sync for 16-bit at Dh 32 / 96 / 112 — and is written to
 // *body (0 fma, 1 mma_sync, 2 wgmma) before the launch. q (B, Hq, Tq, Dh), k and v (B, Hkv, Tk, Dh), o (B, Hq, Tq,
 // Dh), each given by its element strides of (batch, head, row) with a
 // contiguous last axis. Requires Hq % Hkv == 0, 1 <= Tk, 1 <= Tq, and

@@ -10,7 +10,10 @@ q tile, the KV walk a loop inside the block, the ragged edges masked in the
 kernel). It holds three bodies, and :func:`body_for` names the one a call
 takes: ``"wgmma"`` for fp16 / bf16 at Dh 64 and 128 (TMA loads by a
 producer warpgroup, ``wgmma`` products on two consumer warpgroups),
-``"mma_sync"`` for fp16 / bf16 at Dh 32 and 96, ``"fma"`` for fp32.
+``"mma_sync"`` for fp16 / bf16 at Dh 32, 96 and 112, ``"fma"`` for fp32.
+Causal calls need Tq <= Tk; non-causal calls take any Tk and Tq (the kernel
+masks the columns at or past Tk on every body), where the TPU kernel needs
+Tk % 128 == 0.
 
 :func:`flash_attention` takes CUDA tensors only; ``kernels.ops`` checks the
 shapes and sends CPU tensors to the plain version,
@@ -46,7 +49,6 @@ from repro_torch.kernels.ref import flash_attention_ref as flash_attention_plain
 __all__ = [
     "BODIES",
     "HEAD_DIMS",
-    "KV_ALIGN",
     "WGMMA_HEAD_DIMS",
     "body_for",
     "check_shapes",
@@ -65,7 +67,7 @@ __all__ = [
 REPLACES = "src/repro/kernels/flash_attention.py:77"  # flash_attention_pallas
 LAUNCHES = 0
 CAPTURED = 0
-HEAD_DIMS = (32, 64, 96, 128)
+HEAD_DIMS = (32, 64, 96, 112, 128)
 WGMMA_HEAD_DIMS = (64, 128)
 BODIES = ("fma", "mma_sync", "wgmma")  # the kernel's codes 0, 1, 2
 LAUNCHES_BY_BODY = dict.fromkeys(BODIES, 0)
@@ -73,9 +75,6 @@ BACKWARD_CALLS = 0
 # Query rows per block of the backward's recompute: the q_block of JAX's
 # _blocked_softmax_attn, which bounds the live fp32 logits to (B, H, 512, Tk).
 BACKWARD_Q_BLOCK = 512
-# Non-causal calls need Tk a multiple of the TPU kernel's KV block, as the
-# JAX package asserts (it pads K and relies on the causal mask to hide it).
-KV_ALIGN = 128
 
 _DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 # The launcher's codes above every cudaError_t (csrc/flash_attention.cu).
@@ -100,7 +99,7 @@ def _launcher():
 def body_for(dtype: torch.dtype, dh: int) -> str:
     """The kernel body a CUDA call with this dtype and head dim takes:
     ``"wgmma"`` for fp16 / bf16 at Dh 64 and 128, ``"mma_sync"`` for
-    fp16 / bf16 at Dh 32 and 96, ``"fma"`` for fp32 (exact products)."""
+    fp16 / bf16 at Dh 32, 96 and 112, ``"fma"`` for fp32 (exact products)."""
     if dh not in HEAD_DIMS:
         raise ValueError(f"flash_attention: Dh must be one of {HEAD_DIMS}, got {dh}")
     if dtype == torch.float32:
@@ -124,7 +123,7 @@ def rows_aligned(t: torch.Tensor) -> bool:
 def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> None:
     """The op's shape contract, on either device: q (B, Hq, Tq, Dh), k and v
     (B, Hkv, Tk, Dh) with Hq % Hkv == 0; causal calls need Tq <= Tk (query
-    row r sits at position Tk - Tq + r), non-causal ones Tk % 128 == 0."""
+    row r sits at position Tk - Tq + r), non-causal ones take any Tk."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, torch.Tensor) or t.dim() != 4:
             raise ValueError(f"flash_attention: {name} must be a 4-D tensor (B, H, T, Dh)")
@@ -140,10 +139,6 @@ def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool
         raise ValueError(f"flash_attention: Hq={hq} is not a multiple of Hkv={hkv}")
     if causal and tq > tk:
         raise ValueError(f"flash_attention: causal needs Tq <= Tk, got Tq={tq}, Tk={tk}")
-    if not causal and tk % KV_ALIGN != 0:
-        raise ValueError(
-            f"flash_attention: non-causal needs Tk divisible by {KV_ALIGN}, got Tk={tk}"
-        )
 
 
 def flash_attention(

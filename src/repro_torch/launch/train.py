@@ -16,8 +16,8 @@ compression; the same printed lines, and it returns the losses. A step is
 ``lm.loss_fn`` + ``backward()`` (blocks and CE chunks rematerialised) →
 optional ``topk_compress_allreduce`` → ``adamw_update``, which updates the
 parameters and moments in place. One device: ``--tp`` above 1 exits naming
-its ROADMAP.md item. The dense family only; other families raise
-``NotImplementedError`` naming theirs.
+its ROADMAP.md item. The dense family only; another family raises
+``NotImplementedError`` naming its ROADMAP.md item before anything is built.
 """
 from __future__ import annotations
 
@@ -127,6 +127,7 @@ def main(argv=None, info: Optional[dict] = None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    lm.check_trainable(cfg)
     dev = compat.resolve_device(args.device)
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
     if dev.type == "cuda":

@@ -14,8 +14,15 @@ both (the training forward's cache-less calls take gradients through it);
 the JAX package computes them with its XLA blocked softmax, the same
 function. Decode
 (T == 1) stays a masked product over the whole cache in plain torch, with
-the JAX package's roundings. ``moe_ffn`` is not ported yet (ROADMAP.md port
-queue 1).
+the JAX package's roundings. A cross-attention call (``xattn_kv``) is
+non-causal at any Tk and any Tq, Tq = 1 in decode included; it reaches the
+kernel too.
+
+``moe_ffn`` is the JAX package's sort-based, capacity-constrained top-k MoE
+in plain torch: the routing, the stable sorts, the capacity drops and the
+fp32 combine are tensor code, and the expert products are batched matrix
+products (``torch.bmm``), which the JAX package leaves to XLA's einsums
+outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -35,6 +42,8 @@ __all__ = [
     "attention",
     "init_mlp",
     "mlp",
+    "init_moe",
+    "moe_ffn",
 ]
 
 NEG_INF = -1e30
@@ -191,3 +200,83 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype: torch.dtype) 
 def mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU: (silu(x @ w_gate) * (x @ w_up)) @ w_down."""
     return (F.silu(x @ params["w_gate"]) * (x @ params["w_up"])) @ params["w_down"]
+
+
+def init_moe(gen: torch.Generator, d_model: int, d_ff: int, n_experts: int,
+             dtype: torch.dtype) -> dict:
+    """The router is fp32 whatever ``dtype`` is, as in the JAX package; the
+    3-D expert weights draw with ``dense_init``'s fan-in ``shape[0]`` (the
+    expert count E, the JAX package's rule), ``w_down`` with an explicit
+    ``d_ff**-0.5``."""
+    return dict(
+        router=dense_init(gen, (d_model, n_experts), torch.float32),
+        w_gate=dense_init(gen, (n_experts, d_model, d_ff), dtype),
+        w_up=dense_init(gen, (n_experts, d_model, d_ff), dtype),
+        w_down=dense_init(gen, (n_experts, d_ff, d_model), dtype, scale=d_ff**-0.5),
+    )
+
+
+def moe_ffn(
+    params: Params,
+    x: torch.Tensor,  # (B, T, D)
+    *,
+    n_experts: int,
+    top_k: int,
+    capacity_factor: float = 1.25,
+    router_bias: Optional[torch.Tensor] = None,  # (E,): the ADWISE-balance hook
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Sort-based capacity-constrained top-k MoE (token drop on overflow).
+
+    Returns (out (B, T, D), aux_loss (), expert_load (E,) fp32): the Switch
+    load-balancing loss E · Σ_e f_e · p_e and the tokens routed to each
+    expert before drops. ``router_bias`` (``repro_torch.core.moe_balance``)
+    is added to the fp32 router logits.
+
+    The JAX package's choices, each kept: the top k by a stable descending
+    sort (``lax.top_k`` takes the lower expert on ties; ``torch.topk``
+    promises no order), the (token, slot) pairs grouped by expert with a
+    stable sort, capacity ``max(8, ⌈int(cf·T·k/E) / 8⌉·8)`` slots an expert,
+    pairs past it sent to a dump row, and the combine summed in fp32 per
+    token (``index_add_``, whose order on the card differs from XLA's
+    scatter-add: equal within fp32 rounding, not bit for bit).
+    """
+    b, t, d = x.shape
+    n_tok = b * t
+    e, k = n_experts, top_k
+    cap = int(capacity_factor * n_tok * k / e)
+    cap = max(8, -(-cap // 8) * 8)
+    xf = x.reshape(n_tok, d)
+
+    logits = xf.float() @ params["router"]
+    if router_bias is not None:
+        logits = logits + router_bias[None, :]
+    probs = torch.softmax(logits, dim=-1)
+    top = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, gate_idx = top.values[:, :k], top.indices[:, :k]  # (T, k)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    me = probs.mean(dim=0)
+    fe = F.one_hot(gate_idx[:, 0], e).float().mean(dim=0)
+    aux = e * torch.sum(fe * me)
+
+    flat_e = gate_idx.reshape(-1)  # (T·k,)
+    flat_t = torch.arange(n_tok, device=x.device).repeat_interleave(k)
+    order = torch.sort(flat_e, stable=True).indices
+    se, st_, sw = flat_e[order], flat_t[order], gate_vals.reshape(-1)[order]
+    counts = torch.bincount(se, minlength=e)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(n_tok * k, device=x.device) - starts[se]
+    keep = rank < cap
+    dest = torch.where(keep, se * cap + rank, e * cap)  # overflow -> the dump row
+
+    xs = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
+    xs[dest] = xf[st_]
+    xs = xs[:-1].reshape(e, cap, d)
+    hidden = F.silu(torch.bmm(xs, params["w_gate"])) * torch.bmm(xs, params["w_up"])
+    ys = torch.bmm(hidden, params["w_down"])  # (E, C, D)
+
+    y_rows = ys.reshape(e * cap, d)
+    gathered = torch.where(keep[:, None], y_rows[dest.clamp_max(e * cap - 1)], 0.0)
+    out = torch.zeros((n_tok, d), dtype=torch.float32, device=x.device)
+    out.index_add_(0, st_, gathered.float() * sw[:, None])
+    return out.reshape(b, t, d).to(x.dtype), aux, counts.float()

@@ -1,6 +1,13 @@
-"""The port's language model (counterpart of ``repro.models.lm``), family
-``dense``: GQA decoder blocks with a SwiGLU FFN, RMSNorm, RoPE, optional QKV
-bias and tied embeddings.
+"""The port's language model (counterpart of ``repro.models.lm``), for
+every family of the JAX package:
+
+  dense / moe / vlm : GQA decoder blocks (SwiGLU or top-k MoE FFN); vlm
+                      prepends projected image patches (``vit_proj``)
+  ssm (rwkv6)       : RWKV-6 blocks (time mix + channel mix)
+  hybrid (zamba2)   : Mamba-2 layers + ONE shared-weight attention block
+                      applied after every ``shared_every`` layers
+  encdec (whisper)  : a bidirectional encoder over stub frame embeddings +
+                      a causal decoder with cross-attention
 
   init_params(cfg, generator, tp)                  — an :class:`LM` with random
                                                      weights drawn on the
@@ -9,24 +16,29 @@ bias and tied embeddings.
                                                      loss (or the hidden states)
   loss_fn(model, cfg, batch, tp)                   — chunked cross-entropy
   init_cache(cfg, batch, max_seq, tp, device) +
-  forward_cached(model, cfg, cache, tokens, pos)   — prefill / decode
+  forward_cached(model, cfg, cache, tokens, pos,
+                 frames=, patches=)                — prefill / decode
 
-The parameters follow the JAX ``init_params`` layout and distributions, one
-module per layer in place of the stacked ``blocks`` leaves (the JAX scan
-over layers becomes a Python loop). They are created with
-``requires_grad=False``; a trainer turns gradients on
-(``model.requires_grad_(True)``). Training remats each block and each
-cross-entropy chunk with ``torch.utils.checkpoint`` where the JAX package
-uses ``jax.checkpoint``; the cache-less attention of the training forward
-goes through ``ops.flash_attention``, which is differentiable. Every other
-family (moe, ssm, hybrid, encdec, vlm) is not ported yet: it raises
-``NotImplementedError`` naming its ROADMAP.md item, never runs something
-else.
+The parameters follow the JAX ``init_params`` layout, leaf names, dtypes and
+distributions, one module per layer in place of the stacked ``blocks`` /
+``enc_blocks`` leaves (the JAX scans over layers become Python loops): a
+:class:`Block` (attention + MLP or MoE, with cross-attention in whisper's
+decoder), an :class:`RwkvBlock` or a :class:`MambaBlock`. The leaves the JAX
+package keeps in fp32 in a bf16 model (the MoE router, RWKV-6's decay and
+bonus leaves and ``ln_x``, Mamba-2's ``a_log``, ``dt_bias``, ``d_skip`` and
+``norm``) are fp32 here too. They are created with ``requires_grad=False``;
+a trainer turns gradients on (``model.requires_grad_(True)``). Training
+remats each block and each cross-entropy chunk with
+``torch.utils.checkpoint`` where the JAX package uses ``jax.checkpoint``;
+the cache-less attention of the training forward goes through
+``ops.flash_attention``, which is differentiable. Training is ported for the
+dense family only: ``forward_train`` and ``loss_fn`` of another family raise
+``NotImplementedError`` naming ROADMAP.md port queue 1, item 16.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -35,18 +47,22 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import compat
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 
-__all__ = ["ModelDims", "model_dims", "LM", "init_params", "forward_train", "loss_fn",
-           "init_cache", "forward_cached"]
+__all__ = ["ModelDims", "model_dims", "Block", "RwkvBlock", "MambaBlock", "LM", "init_params",
+           "check_trainable", "forward_train", "loss_fn", "init_cache", "forward_cached"]
 
-Cache = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
+Cache = Dict[str, Any]
 
 
-def _require_dense(cfg: ArchConfig) -> None:
+def check_trainable(cfg: ArchConfig) -> None:
+    """Raises ``NotImplementedError`` naming its ROADMAP.md item for a
+    family whose training is not ported (every family but ``dense``)."""
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"repro_torch.models.lm: family {cfg.family!r} ({cfg.name}) is not ported "
-            f"yet; see ROADMAP.md port queue 1, item 14 (LM families: {cfg.family})"
+            f"repro_torch.models.lm: training of family {cfg.family!r} ({cfg.name}) is not "
+            f"ported yet; see ROADMAP.md port queue 1, item 16 (training of the other LM "
+            f"families)"
         )
 
 
@@ -71,93 +87,268 @@ def _param(shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device), requires_grad=False)
 
 
-class Block(nn.Module):
-    """One decoder block: ``ln1``, ``attn`` (wq wk wv wo [bq bk bv]),
-    ``ln2``, ``mlp`` (w_gate w_up w_down) — the JAX block's leaves."""
+def _params(shapes: Dict[str, tuple], dtype: torch.dtype, device, fp32=()) -> nn.ParameterDict:
+    """A ParameterDict of uninitialised leaves in ``dtype``, those named in
+    ``fp32`` in float32."""
+    return nn.ParameterDict({k: _param(s, torch.float32 if k in fp32 else dtype, device)
+                             for k, s in shapes.items()})
 
-    def __init__(self, cfg: ArchConfig, dims: ModelDims, device: torch.device):
+
+def _attn_shapes(cfg: ArchConfig, dims: ModelDims) -> Dict[str, tuple]:
+    d, hd, kvd = cfg.d_model, dims.h * dims.dh, dims.kv * dims.dh
+    shapes = dict(wq=(d, hd), wk=(d, kvd), wv=(d, kvd), wo=(hd, d))
+    if cfg.qkv_bias:
+        shapes.update(bq=(hd,), bk=(kvd,), bv=(kvd,))
+    return shapes
+
+
+def _fill(dst: nn.ParameterDict, src: Dict[str, torch.Tensor]) -> None:
+    """Copies each initialised leaf into its parameter (same names, shapes
+    and dtypes)."""
+    if set(dst) != set(src):
+        raise KeyError(f"leaves {sorted(src)} do not match {sorted(dst)}")
+    for name, t in src.items():
+        if t.shape != dst[name].shape or t.dtype != dst[name].dtype:
+            raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype} into "
+                             f"{tuple(dst[name].shape)} {dst[name].dtype}")
+        dst[name].copy_(t)
+
+
+class Block(nn.Module):
+    """One attention block: ``ln1``, ``attn`` (wq wk wv wo [bq bk bv]),
+    ``ln2``, and ``mlp`` (w_gate w_up w_down) or, in an MoE model, ``moe``
+    (router (fp32), w_gate w_up (E, D, F), w_down (E, F, D)); with
+    ``cross``, also ``ln_x`` and ``xattn`` (whisper's decoder) — the JAX
+    block's leaves."""
+
+    def __init__(self, cfg: ArchConfig, dims: ModelDims, device: torch.device,
+                 cross: bool = False):
         super().__init__()
-        dt, d = _dtype(cfg), cfg.d_model
+        dt, d, f = _dtype(cfg), cfg.d_model, cfg.d_ff
         self.ln1 = _param((d,), dt, device)
-        shapes = dict(wq=(d, dims.h * dims.dh), wk=(d, dims.kv * dims.dh),
-                      wv=(d, dims.kv * dims.dh), wo=(dims.h * dims.dh, d))
-        if cfg.qkv_bias:
-            shapes.update(bq=(dims.h * dims.dh,), bk=(dims.kv * dims.dh,),
-                          bv=(dims.kv * dims.dh,))
-        self.attn = nn.ParameterDict({k: _param(s, dt, device) for k, s in shapes.items()})
+        self.attn = _params(_attn_shapes(cfg, dims), dt, device)
         self.ln2 = _param((d,), dt, device)
-        self.mlp = nn.ParameterDict({
-            "w_gate": _param((d, cfg.d_ff), dt, device),
-            "w_up": _param((d, cfg.d_ff), dt, device),
-            "w_down": _param((cfg.d_ff, d), dt, device),
-        })
+        if cfg.moe:
+            e = cfg.moe.n_experts
+            self.moe = _params(dict(router=(d, e), w_gate=(e, d, f), w_up=(e, d, f),
+                                    w_down=(e, f, d)), dt, device, fp32=("router",))
+        else:
+            self.mlp = _params(dict(w_gate=(d, f), w_up=(d, f), w_down=(f, d)), dt, device)
+        if cross:
+            self.ln_x = _param((d,), dt, device)
+            self.xattn = _params(_attn_shapes(cfg, dims), dt, device)
+
+
+class RwkvBlock(nn.Module):
+    """One RWKV-6 block: ``ln1``, ``att`` (the time mix; ``w0``, ``w_a``,
+    ``w_b``, ``u`` and ``ln_x`` fp32), ``ln2``, ``cm`` (the channel mix)."""
+
+    def __init__(self, cfg: ArchConfig, device: torch.device):
+        super().__init__()
+        dt, d, f = _dtype(cfg), cfg.d_model, cfg.d_ff
+        self.ln1 = _param((d,), dt, device)
+        self.att = _params(dict(
+            mu=(5, d), w0=(d,), w_a=(d, S.RWKV_LORA), w_b=(S.RWKV_LORA, d),
+            u=(cfg.n_heads, cfg.d_head), wr=(d, d), wk=(d, d), wv=(d, d), wg=(d, d),
+            wo=(d, d), ln_x=(d,)), dt, device, fp32=("w0", "w_a", "w_b", "u", "ln_x"))
+        self.ln2 = _param((d,), dt, device)
+        self.cm = _params(dict(mu=(2, d), wk=(d, f), wv=(f, d), wr=(d, d)), dt, device)
+
+
+class MambaBlock(nn.Module):
+    """One Mamba-2 layer: ``ln`` and ``mamba`` (``a_log``, ``dt_bias``,
+    ``d_skip`` and ``norm`` fp32)."""
+
+    def __init__(self, cfg: ArchConfig, device: torch.device):
+        super().__init__()
+        dt, d, h, n = _dtype(cfg), cfg.d_model, cfg.n_heads, cfg.ssm_state
+        d_in = 2 * d
+        self.ln = _param((d,), dt, device)
+        self.mamba = _params(dict(
+            w_z=(d, d_in), w_x=(d, d_in), w_B=(d, n), w_C=(d, n), w_dt=(d, h), a_log=(h,),
+            dt_bias=(h,), d_skip=(h,), norm=(d_in,), w_out=(d_in, d)), dt, device,
+            fp32=("a_log", "dt_bias", "d_skip", "norm"))
 
 
 class LM(nn.Module):
-    """The dense LM's parameters (uninitialised; see :func:`init_params` and
+    """The LM's parameters (uninitialised; see :func:`init_params` and
     :func:`repro_torch.convert.lm_params_from_numpy`): ``embed`` (V, D),
     ``ln_f``, ``head`` (D, V) unless the embeddings are tied (then the head
-    is ``embed.T``), and ``blocks``, one :class:`Block` per layer."""
+    is ``embed.T``), and ``blocks``, one block per layer — a :class:`Block`
+    (dense, moe, vlm; with cross-attention in encdec), an
+    :class:`RwkvBlock` (ssm) or a :class:`MambaBlock` (hybrid). The vlm
+    family adds ``vit_proj`` (D, D); hybrid its one ``shared``
+    :class:`Block`; encdec ``enc_blocks`` (``n_enc_layers`` Blocks) and
+    ``enc_ln_f``."""
 
     def __init__(self, cfg: ArchConfig, tp: int = 1, device=None):
         super().__init__()
-        _require_dense(cfg)
         dev = compat.resolve_device(device)
-        self.dims = model_dims(cfg, tp)
-        dt = _dtype(cfg)
-        self.embed = _param((cfg.vocab, cfg.d_model), dt, dev)
-        self.ln_f = _param((cfg.d_model,), dt, dev)
+        self.dims = dims = model_dims(cfg, tp)
+        dt, d = _dtype(cfg), cfg.d_model
+        self.embed = _param((cfg.vocab, d), dt, dev)
+        self.ln_f = _param((d,), dt, dev)
         if not cfg.tie_embeddings:
-            self.head = _param((cfg.d_model, cfg.vocab), dt, dev)
-        self.blocks = nn.ModuleList(Block(cfg, self.dims, dev) for _ in range(cfg.n_layers))
+            self.head = _param((d, cfg.vocab), dt, dev)
+        fam, n = cfg.family, cfg.n_layers
+        if fam in ("dense", "moe", "vlm"):
+            self.blocks = nn.ModuleList(Block(cfg, dims, dev) for _ in range(n))
+            if fam == "vlm":
+                self.vit_proj = _param((d, d), dt, dev)
+        elif fam == "ssm":
+            self.blocks = nn.ModuleList(RwkvBlock(cfg, dev) for _ in range(n))
+        elif fam == "hybrid":
+            self.blocks = nn.ModuleList(MambaBlock(cfg, dev) for _ in range(n))
+            self.shared = Block(cfg, dims, dev)
+        elif fam == "encdec":
+            self.enc_blocks = nn.ModuleList(Block(cfg, dims, dev)
+                                            for _ in range(cfg.n_enc_layers))
+            self.enc_ln_f = _param((d,), dt, dev)
+            self.blocks = nn.ModuleList(Block(cfg, dims, dev, cross=True) for _ in range(n))
+        else:
+            raise ValueError(f"repro_torch.models.lm: unknown family {fam!r}")
+
+
+def _init_block(blk: Block, cfg: ArchConfig, dims: ModelDims, gen: torch.Generator) -> None:
+    """The JAX ``_init_block`` distributions: norms ones, attention and MLP
+    N(0, 1/fan_in), the MoE as ``layers.init_moe``; under the ``pad`` head
+    policy the padded heads' ``wo`` rows are zero, so they do not change
+    the function."""
+    dt = _dtype(cfg)
+
+    def attention():
+        attn = L.init_attention(gen, cfg.d_model, dims.h, dims.kv, dims.dh, dt, cfg.qkv_bias)
+        if dims.policy == "pad" and cfg.n_heads < dims.h:
+            attn["wo"][cfg.n_heads * dims.dh:] = 0
+        return attn
+
+    blk.ln1.fill_(1)
+    _fill(blk.attn, attention())
+    blk.ln2.fill_(1)
+    if cfg.moe:
+        _fill(blk.moe, L.init_moe(gen, cfg.d_model, cfg.d_ff, cfg.moe.n_experts, dt))
+    else:
+        _fill(blk.mlp, L.init_mlp(gen, cfg.d_model, cfg.d_ff, dt))
+    if hasattr(blk, "xattn"):
+        blk.ln_x.fill_(1)
+        _fill(blk.xattn, attention())
 
 
 @torch.no_grad()
 def init_params(cfg: ArchConfig, generator: torch.Generator, tp: int = 1) -> LM:
     """An :class:`LM` on the generator's device with the JAX ``init_params``
     distributions: embed N(0, 0.02²), dense weights N(0, 1/fan_in), norms
-    ones, QKV biases zeros; under the ``pad`` head policy the padded heads'
-    ``wo`` rows are zero, so they do not change the function."""
+    ones, QKV biases zeros, and the RWKV-6 / Mamba-2 / MoE leaves as
+    ``models.ssm`` and ``layers.init_moe`` draw them."""
     model = LM(cfg, tp, device=generator.device)
-    dt, dims = _dtype(cfg), model.dims
-    model.embed.copy_(L.dense_init(generator, (cfg.vocab, cfg.d_model), dt, scale=0.02))
+    dt, dims, d = _dtype(cfg), model.dims, cfg.d_model
+    model.embed.copy_(L.dense_init(generator, (cfg.vocab, d), dt, scale=0.02))
     model.ln_f.fill_(1)
     if not cfg.tie_embeddings:
-        model.head.copy_(L.dense_init(generator, (cfg.d_model, cfg.vocab), dt))
+        model.head.copy_(L.dense_init(generator, (d, cfg.vocab), dt))
     for blk in model.blocks:
-        blk.ln1.fill_(1)
-        blk.ln2.fill_(1)
-        attn = L.init_attention(generator, cfg.d_model, dims.h, dims.kv, dims.dh, dt,
-                                cfg.qkv_bias)
-        if dims.policy == "pad" and cfg.n_heads < dims.h:
-            attn["wo"][cfg.n_heads * dims.dh:] = 0
-        for name, t in attn.items():
-            blk.attn[name].copy_(t)
-        for name, t in L.init_mlp(generator, cfg.d_model, cfg.d_ff, dt).items():
-            blk.mlp[name].copy_(t)
+        if isinstance(blk, RwkvBlock):
+            blk.ln1.fill_(1)
+            blk.ln2.fill_(1)
+            _fill(blk.att, S.init_rwkv6(generator, d, cfg.n_heads, cfg.d_head, dt))
+            _fill(blk.cm, S.init_rwkv6_cm(generator, d, cfg.d_ff, dt))
+        elif isinstance(blk, MambaBlock):
+            blk.ln.fill_(1)
+            _fill(blk.mamba, S.init_mamba2(generator, d, cfg.n_heads, cfg.ssm_state, dt))
+        else:
+            _init_block(blk, cfg, dims, generator)
+    for blk in getattr(model, "enc_blocks", ()):
+        _init_block(blk, cfg, dims, generator)
+    if cfg.family == "encdec":
+        model.enc_ln_f.fill_(1)
+    if cfg.family == "hybrid":
+        _init_block(model.shared, cfg, dims, generator)
+    if cfg.family == "vlm":
+        model.vit_proj.copy_(L.dense_init(generator, (d, d), dt))
     return model
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, tp: int = 1, device=None) -> Cache:
-    """Zero KV cache ``dict(kv=(k, v))``, each (n_layers, B, KV, S, Dh) in
-    the model's dtype — the JAX layout."""
-    _require_dense(cfg)
+    """The zero cache of ``cfg``'s family on ``device``, in the JAX layout
+    and dtypes:
+
+    - dense, moe: ``kv=(k, v)``, each (n_layers, B, KV, max_seq, Dh);
+    - vlm: the same over ``max_seq + vlm_patches`` positions;
+    - ssm: ``s`` (n_layers, B, H, Dh, Dh) fp32, ``lx_att`` and ``lx_cm``
+      (n_layers, B, D), the token-shift carries;
+    - hybrid: ``s`` (n_layers, B, H, N, 2D/H) fp32 and ``kv``, a list of one
+      (k, v) pair (B, KV, max_seq, Dh) per application of the shared block;
+    - encdec: ``kv`` as dense and ``xkv`` (n_layers, B, KV, max(max_seq // 2,
+      1), Dh), the cross-attention K/V, which prefill replaces.
+    """
     dims = model_dims(cfg, tp)
     dev = compat.resolve_device(device)
-    shape = (cfg.n_layers, batch, dims.kv, max_seq, dims.dh)
-    return dict(kv=(torch.zeros(shape, dtype=_dtype(cfg), device=dev),
-                    torch.zeros(shape, dtype=_dtype(cfg), device=dev)))
+    dt, lg, d = _dtype(cfg), cfg.n_layers, cfg.d_model
+
+    def zeros(*shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    def kv(*lead, s):
+        return (zeros(*lead, batch, dims.kv, s, dims.dh), zeros(*lead, batch, dims.kv, s, dims.dh))
+
+    fam = cfg.family
+    if fam in ("dense", "moe"):
+        return dict(kv=kv(lg, s=max_seq))
+    if fam == "vlm":
+        return dict(kv=kv(lg, s=max_seq + cfg.vlm_patches))
+    if fam == "ssm":
+        return dict(s=zeros(lg, batch, cfg.n_heads, cfg.d_head, cfg.d_head, dtype=torch.float32),
+                    lx_att=zeros(lg, batch, d), lx_cm=zeros(lg, batch, d))
+    if fam == "hybrid":
+        n_apps = cfg.n_layers // cfg.shared_every
+        s = zeros(lg, batch, cfg.n_heads, cfg.ssm_state, 2 * d // cfg.n_heads,
+                  dtype=torch.float32)
+        return dict(s=s, kv=[kv(s=max_seq) for _ in range(n_apps)])
+    if fam == "encdec":
+        return dict(kv=kv(lg, s=max_seq), xkv=kv(lg, s=max(max_seq // 2, 1)))
+    raise ValueError(f"repro_torch.models.lm: unknown family {fam!r}")
 
 
-def _attn_block(blk: Block, x, cfg: ArchConfig, dims: ModelDims, cache=None, pos: int = 0):
-    """Residual attention + FFN block; writes the layer's cache in place
-    (cache-less, causal over the whole sequence, when ``cache`` is None)."""
+def _attn_block(blk: Block, x, cfg: ArchConfig, dims: ModelDims, cache=None, pos: int = 0,
+                causal: bool = True, xattn_kv=None):
+    """Residual attention (+ cross-attention on ``xattn_kv``) + FFN block;
+    writes the layer's cache in place (cache-less over the whole sequence
+    when ``cache`` is None). The MoE's auxiliary loss is dropped, as the
+    JAX package's cached forward drops it."""
     out, _ = L.attention(
         blk.attn, L.rms_norm(x, blk.ln1), h=dims.h, kv=dims.kv, dh=dims.dh,
-        rope_theta=cfg.rope_theta, causal=True, cache=cache, cache_pos=pos,
+        rope_theta=cfg.rope_theta, causal=causal, cache=cache, cache_pos=pos,
     )
     x = x + out
-    return x + L.mlp(blk.mlp, L.rms_norm(x, blk.ln2))
+    # staticcheck: disable=SC002 torch.utils.checkpoint runs eagerly: xattn_kv is None or a pair of tensors, never traced
+    if xattn_kv is not None:
+        out, _ = L.attention(blk.xattn, L.rms_norm(x, blk.ln_x), h=dims.h, kv=dims.kv,
+                             dh=dims.dh, rope_theta=None, causal=False, xattn_kv=xattn_kv)
+        x = x + out
+    h2 = L.rms_norm(x, blk.ln2)
+    # staticcheck: disable=SC002 torch.utils.checkpoint runs eagerly: cfg is a frozen config, never traced
+    if cfg.moe:
+        f, _, _ = L.moe_ffn(blk.moe, h2, n_experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+                            capacity_factor=cfg.moe.capacity_factor)
+    else:
+        f = L.mlp(blk.mlp, h2)
+    return x + f
+
+
+def _rwkv_block(blk: RwkvBlock, x, cfg: ArchConfig, state, lx_att, lx_cm):
+    """Returns (x, the new state, the two new token-shift carries)."""
+    out, s_new, lxa = S.rwkv6_mixer(blk.att, L.rms_norm(x, blk.ln1), n_heads=cfg.n_heads,
+                                    dh=cfg.d_head, state=state, last_x=lx_att)
+    x = x + out
+    out, lxc = S.rwkv6_channel_mix(blk.cm, L.rms_norm(x, blk.ln2), last_x=lx_cm)
+    return x + out, s_new, lxa, lxc
+
+
+def _mamba_block(blk: MambaBlock, x, cfg: ArchConfig, state):
+    """Returns (x, the new state)."""
+    out, s_new = S.mamba2_mixer(blk.mamba, L.rms_norm(x, blk.ln), n_heads=cfg.n_heads,
+                                d_state=cfg.ssm_state, state=state)
+    return x + out, s_new
 
 
 def _head(model: LM, cfg: ArchConfig) -> torch.Tensor:
@@ -181,7 +372,7 @@ def forward_train(
     ``flash_attention`` kernel launches twice per training step. The dense
     family has no auxiliary loss (a zero).
     """
-    _require_dense(cfg)
+    check_trainable(cfg)
     dims = model_dims(cfg, tp)
     x = model.embed[batch["tokens"]]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -256,20 +447,72 @@ def forward_cached(
     tokens: torch.Tensor,  # (B, T) — T = 1 decode, T > 1 prefill from position 0
     pos: int,  # absolute position of tokens[:, 0]
     tp: int = 1,
+    frames: Optional[torch.Tensor] = None,  # (B, S_enc, D): whisper's prefill
+    patches: Optional[torch.Tensor] = None,  # (B, P, D): the vlm's prefill
 ) -> Tuple[torch.Tensor, Cache]:
     """Returns (logits (B, T, V), cache).
 
-    The cache is updated **in place** (each layer's K and V written at
-    ``pos``) and returned as the same object, where the JAX function returns
-    a new one. Each layer's prefill launches ``flash_attention`` once on a
-    CUDA model; decode launches it not at all.
+    The cache is updated **in place** and returned as the same object,
+    where the JAX function returns a new one: each layer's K and V are
+    written at ``pos``, the SSM states and token-shift carries overwritten.
+    One entry is *replaced* rather than written: whisper's prefill
+    (``frames`` given) runs the encoder and sets ``cache["xkv"]`` to a new
+    pair of (n_layers, B, KV, S_enc, Dh) tensors, the encoder output's
+    cross-attention K and V at the frames' length — the zero buffer
+    ``init_cache`` sized at ``max_seq // 2`` would make decode attend zeros,
+    unmasked. A vlm prefill (``patches`` given) prepends ``patches @
+    vit_proj`` to the tokens (the cache holds ``vlm_patches + max_seq``
+    positions; decode positions count the patches) and returns the text
+    positions' logits only.
+
+    On a CUDA model every attention over a fresh segment launches
+    ``flash_attention``: one launch per layer in a dense / moe / vlm
+    prefill, one per application of the shared block in a hybrid prefill,
+    and in encdec one per encoder layer and two per decoder layer (self and
+    cross) in prefill, one per decoder layer (cross) in decode. A decode
+    step's self-attention over the cache is plain torch.
     """
-    _require_dense(cfg)
     dims = model_dims(cfg, tp)
     pos = int(pos)
-    ck, cv = cache["kv"]
     x = model.embed[tokens]
-    for i, blk in enumerate(model.blocks):
-        x = _attn_block(blk, x, cfg, dims, (ck[i], cv[i]), pos)
+    fam = cfg.family
+    if fam == "vlm" and patches is not None:
+        x = torch.cat([(patches @ model.vit_proj).to(x.dtype), x], dim=1)
+
+    if fam in ("dense", "moe", "vlm"):
+        ck, cv = cache["kv"]
+        for i, blk in enumerate(model.blocks):
+            x = _attn_block(blk, x, cfg, dims, (ck[i], cv[i]), pos)
+    elif fam == "ssm":
+        s, lxa, lxc = cache["s"], cache["lx_att"], cache["lx_cm"]
+        for i, blk in enumerate(model.blocks):
+            x, s[i], lxa[i], lxc[i] = _rwkv_block(blk, x, cfg, s[i], lxa[i], lxc[i])
+    elif fam == "hybrid":
+        s, se = cache["s"], cfg.shared_every
+        for i, blk in enumerate(model.blocks):
+            x, s[i] = _mamba_block(blk, x, cfg, s[i])
+            if (i + 1) % se == 0:  # the last n_layers % se layers have no shared block after them
+                x = _attn_block(model.shared, x, cfg, dims, cache["kv"][i // se], pos)
+    elif fam == "encdec":
+        if frames is not None:
+            enc = frames.to(x.dtype)
+            for blk in model.enc_blocks:
+                enc = _attn_block(blk, enc, cfg, dims, causal=False)
+            enc = L.rms_norm(enc, model.enc_ln_f)
+            b, te = enc.shape[:2]
+
+            def proj(w):
+                return (enc @ w).reshape(b, te, dims.kv, dims.dh).transpose(1, 2)
+
+            cache["xkv"] = tuple(torch.stack([proj(blk.xattn[name]) for blk in model.blocks])
+                                 for name in ("wk", "wv"))
+        (ck, cv), (xk, xv) = cache["kv"], cache["xkv"]
+        for i, blk in enumerate(model.blocks):
+            x = _attn_block(blk, x, cfg, dims, (ck[i], cv[i]), pos, xattn_kv=(xk[i], xv[i]))
+    else:
+        raise ValueError(f"repro_torch.models.lm: unknown family {fam!r}")
+
+    if fam == "vlm" and patches is not None:
+        x = x[:, patches.shape[1]:]  # text positions only
     x = L.rms_norm(x, model.ln_f)
     return x @ _head(model, cfg), cache

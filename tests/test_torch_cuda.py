@@ -3,7 +3,7 @@ the CUDA-graph scan driver against the plain CPU loop (ADWISE, the HDRF,
 Greedy, 2PS-L and clustering step-cores, warm passes, z spotlight
 instances in one batched step, traced runs), the file ring (out-of-core
 ``partition_file``) against the CPU ring and the resident path, and the
-dense LM on the card against its CPU path.
+LM families on the card against their CPU path.
 
 Every test here needs a CUDA device; without one it skips. This file
 imports neither ``jax`` nor ``repro``, so it runs where only the port is
@@ -706,8 +706,53 @@ def test_flash_attention_kernel_rejects_bad_input(cuda):
         ops.flash_attention(q, k.cpu(), k)
     with pytest.raises(ValueError, match="Tq <= Tk"):
         ops.flash_attention(torch.zeros(1, 4, 9, 32, device=cuda), k, k)
-    with pytest.raises(ValueError, match="divisible by 128"):
-        ops.flash_attention(q, k, k, causal=False)
+
+
+# b, hq, hkv, tq, tk, dh: non-causal at a Tk no tile divides — what the op
+# refused before (Tk = 8, 200), whisper's encoder (224 frames), its
+# cross-attention in prefill (Tq 448) and decode (Tq = 1), one key — at
+# every head dim, so each body is reached.
+RAGGED_NON_CAUSAL = [
+    (1, 4, 2, 8, 8, 32), (1, 4, 2, 8, 200, 32), (2, 6, 6, 224, 224, 64),
+    (2, 6, 6, 448, 224, 64), (2, 6, 6, 1, 224, 64), (1, 3, 1, 1, 1, 128),
+    (1, 4, 4, 77, 300, 96), (1, 4, 4, 130, 300, 112), (2, 4, 2, 1, 129, 128),
+]
+
+
+@pytest.mark.parametrize("shape", RAGGED_NON_CAUSAL)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_non_causal_any_tk_matches_plain(cuda, shape, dtype):
+    """The kernel masks the columns at or past Tk on every body, so a
+    non-causal call takes any Tk and Tq: one launch of the body
+    ``body_for`` names, within FA_TOL of the plain version."""
+    b, hq, hkv, tq, tk, dh = shape
+    q, k, v = _fa_inputs((b, hq, hkv, tq, tk, dh, False), dtype, cuda)
+    body = fa.body_for(dtype, dh)
+    before = dict(fa.LAUNCHES_BY_BODY)
+    got = ops.flash_attention(q, k, v, causal=False)
+    assert fa.LAUNCHES_BY_BODY[body] - before[body] == 1
+    assert sum(fa.LAUNCHES_BY_BODY.values()) - sum(before.values()) == 1
+    want = ops.flash_attention(q.cpu(), k.cpu(), v.cpu(), causal=False)
+    tol = FA_TOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("shape", [(1, 4, 4, 130, 130, True), (2, 8, 8, 77, 300, True),
+                                   (4, 32, 32, 256, 256, True), (1, 4, 2, 64, 200, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+def test_flash_attention_dh112_matches_plain(cuda, shape, dtype):
+    """Dh 112 (zamba2's): ``mma_sync`` for 16-bit inputs (7 k-steps of
+    m16n8k16), ``fma`` for fp32."""
+    b, hq, hkv, tq, tk, causal = shape
+    q, k, v = _fa_inputs((b, hq, hkv, tq, tk, 112, causal), dtype, cuda)
+    body = "fma" if dtype == torch.float32 else "mma_sync"
+    assert fa.body_for(dtype, 112) == body
+    before = fa.LAUNCHES_BY_BODY[body]
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert fa.LAUNCHES_BY_BODY[body] - before == 1
+    want = ops.flash_attention(q.cpu(), k.cpu(), v.cpu(), causal=causal)
+    tol = FA_TOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().numpy(), rtol=tol, atol=tol)
 
 
 def test_dense_lm_on_the_card_matches_cpu(cuda):
@@ -736,6 +781,67 @@ def test_dense_lm_on_the_card_matches_cpu(cuda):
     assert ops.launch_counts()["flash_attention"] == before
     for x, y in zip(caches[0]["kv"], caches[1]["kv"]):
         np.testing.assert_allclose(y.cpu().numpy(), x.numpy(), rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "internvl2-26b", "rwkv6-7b",
+                                  "zamba2-7b", "whisper-tiny"])
+def test_lm_family_on_the_card_matches_cpu(cuda, arch):
+    """Each family's reduced model (fp32): prefill (whisper's frames, the
+    vlm's patches) + 3 decode steps on the card against the same weights
+    on the CPU, logits and cache within 1e-4 of their scale (fp32 products
+    in another order; the SSM scans scale by exp(±Σ log w)); the flash
+    launches of each phase as ``forward_cached`` states them."""
+    cfg = get_config(arch).reduced()
+    cpu_model = lm.init_params(cfg, torch.Generator().manual_seed(0))
+    gpu_model = lm.LM(cfg, device=cuda)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    rng = np.random.default_rng(0)
+    b, t, n_dec = 2, 45, 3
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (b, t)), dtype=torch.int32)
+    kw = {}
+    if cfg.family == "encdec":
+        kw["frames"] = torch.as_tensor(rng.normal(size=(b, t // 2, cfg.d_model)),
+                                       dtype=torch.float32)
+    if cfg.family == "vlm":
+        kw["patches"] = torch.as_tensor(rng.normal(size=(b, cfg.vlm_patches, cfg.d_model)),
+                                        dtype=torch.float32)
+    offset = cfg.vlm_patches if cfg.family == "vlm" else 0
+    caches = [lm.init_cache(cfg, b, t + n_dec, device=d) for d in ("cpu", cuda)]
+    n_apps = cfg.n_layers // cfg.shared_every
+    prefill_launches = {"moe": cfg.n_layers, "vlm": cfg.n_layers, "ssm": 0, "hybrid": n_apps,
+                        "encdec": cfg.n_enc_layers + 2 * cfg.n_layers}[cfg.family]
+    decode_launches = cfg.n_layers if cfg.family == "encdec" else 0
+
+    def close(got, want):
+        want = want.float()
+        scale = max(1.0, want.abs().max().item())
+        np.testing.assert_allclose(got.float().cpu().numpy(), want.numpy(), rtol=1e-4,
+                                   atol=1e-4 * scale)
+
+    before = ops.launch_counts()["flash_attention"]
+    a, _ = lm.forward_cached(cpu_model, cfg, caches[0], prompts, 0, **kw)
+    g, _ = lm.forward_cached(gpu_model, cfg, caches[1], prompts.to(cuda), 0,
+                             **{k: v.to(cuda) for k, v in kw.items()})
+    assert ops.launch_counts()["flash_attention"] - before == prefill_launches
+    close(g, a)
+    tok = a[:, -1:].argmax(-1).to(torch.int32)
+    before = ops.launch_counts()["flash_attention"]
+    for i in range(n_dec):
+        a, _ = lm.forward_cached(cpu_model, cfg, caches[0], tok, offset + t + i)
+        g, _ = lm.forward_cached(gpu_model, cfg, caches[1], tok.to(cuda), offset + t + i)
+        close(g, a)
+        tok = a[:, -1:].argmax(-1).to(torch.int32)
+    assert ops.launch_counts()["flash_attention"] - before == n_dec * decode_launches
+
+    def leaves(c):
+        if isinstance(c, dict):
+            return [x for k in sorted(c) for x in leaves(c[k])]
+        if isinstance(c, (list, tuple)):
+            return [x for v in c for x in leaves(v)]
+        return [c]
+
+    for x, y in zip(leaves(caches[0]), leaves(caches[1])):
+        close(y, x)
 
 
 # b, hq, hkv, tq, tk, dh, causal: wgmma (bf16, Dh 64/128), mma_sync (Dh 32),

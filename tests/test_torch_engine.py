@@ -156,16 +156,20 @@ def test_launch_prints_the_jax_lines(capsys):
 
 @pytest.mark.parametrize("argv,item", [
     (["--arch", "llama3.2-3b", "--reduced", "--tp", "2"], "item 15"),
-    (["--arch", "granite-moe-1b", "--reduced"], "item 14"),
+    (["--arch", "granite-moe-1b", "--reduced", "--steps", "2"], "item 16"),
 ])
 def test_launch_names_the_roadmap_item_for_unported_paths(argv, item, capsys):
     """What the port still lacks exits or raises naming its ROADMAP.md item
     (the partition launcher has no such path left: graph files run, see
-    test_launch_runs_graph_files_like_jax)."""
+    test_launch_runs_graph_files_like_jax; serving runs every family):
+    ``--tp > 1`` on the serve launcher, and training a non-dense family on
+    the train launcher."""
     from repro_torch.launch.serve import main as serve_main
+    from repro_torch.launch.train import main as train_main
 
+    main = serve_main if "--tp" in argv else train_main
     with pytest.raises((SystemExit, NotImplementedError)) as exc:
-        serve_main(argv + ["--device", "cpu"])
+        main(argv + ["--device", "cpu"])
     said = str(exc.value) + capsys.readouterr().err
     assert f"ROADMAP.md port queue 1, {item}" in said
 

@@ -5,9 +5,12 @@ torch version. It is held here against the JAX package's Pallas kernel in
 interpret mode (``tier="interpret"``, the TPU kernel's own blocks and online
 softmax, run on this CPU) and against its XLA reference (``tier="xla"``), on
 the same numpy inputs: the six shapes of ``tests/test_kernels.py``, plus
-Dh 96, a GQA group of 3 and a Tq that is not a multiple of 128. Tolerances
-are the JAX kernel tests': 2e-3 in fp32, 5e-3 in fp16 (another summation
-and exponent order). The CUDA kernel is held against the plain version on
+Dh 96, Dh 112 (zamba2's head dim), a GQA group of 3 and a Tq that is not a
+multiple of 128. Tolerances are the JAX kernel tests': 2e-3 in fp32, 5e-3
+in fp16 (another summation and exponent order). Non-causal calls at a Tk
+that no 128-row tile divides — whisper's encoder and cross-attention,
+which the Pallas kernel refuses — are held against the function the JAX
+LM computes there, ``repro.models.layers._blocked_softmax_attn``, at 1e-5. The CUDA kernel is held against the plain version on
 the card by ``tests/test_torch_cuda.py``.
 """
 import jax.numpy as jnp
@@ -16,6 +19,7 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro.models import layers as JL
 from repro_torch.kernels import ops
 from repro_torch.kernels import flash_attention as fa
 
@@ -32,6 +36,8 @@ SHAPES = [
     # and what the port's models add
     (1, 6, 2, 200, 200, 96, np.float32),    # Dh 96 (phi-3), GQA group 3
     (2, 6, 2, 77, 300, 128, np.float16),    # group 3, Dh 128, Tq % 128 != 0
+    (1, 4, 2, 130, 130, 112, np.float32),   # Dh 112 (zamba2)
+    (2, 8, 8, 77, 200, 112, np.float16),    # Dh 112, Tq < Tk
 ]
 
 
@@ -85,7 +91,6 @@ def test_bf16_matches_jax_xla_reference():
 @pytest.mark.parametrize("q_shape,k_shape,causal,match", [
     ((1, 4, 8, 32), (1, 3, 8, 32), True, "multiple of Hkv"),
     ((1, 4, 9, 32), (1, 2, 8, 32), True, "Tq <= Tk"),
-    ((1, 4, 8, 32), (1, 2, 200, 32), False, "divisible by 128"),
     ((2, 4, 8, 32), (1, 2, 8, 32), True, "batch or Dh"),
     ((1, 4, 8, 32), (1, 2, 8, 64), True, "batch or Dh"),
     ((4, 8, 32), (1, 2, 8, 32), True, "4-D"),
@@ -94,6 +99,28 @@ def test_op_rejects_shapes_outside_its_contract(q_shape, k_shape, causal, match)
     q, k = torch.zeros(q_shape), torch.zeros(k_shape)
     with pytest.raises(ValueError, match=match):
         ops.flash_attention(q, k, k.clone(), causal=causal)
+
+
+# b, hq, hkv, tq, tk, dh: what the op refused before it took any Tk when
+# non-causal (Tk = 200), whisper's encoder (18 frames of a reduced prompt),
+# its cross-attention in prefill and in decode (Tq = 1), and Dh 112.
+NON_CAUSAL_RAGGED = [
+    (1, 4, 2, 8, 200, 32), (2, 6, 6, 18, 18, 64), (2, 6, 6, 37, 18, 64),
+    (2, 6, 6, 1, 18, 64), (1, 4, 4, 130, 300, 112), (1, 3, 1, 1, 1, 32),
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,tq,tk,dh", NON_CAUSAL_RAGGED)
+def test_non_causal_any_tk_matches_blocked_softmax(b, hq, hkv, tq, tk, dh):
+    """Non-causal at any Tk and Tq against the JAX LM's attention (q given
+    pre-scaled, as the model passes it): 1e-5 in fp32."""
+    q, k, v = _inputs(b, hq, hkv, tq, tk, dh, np.float32)
+    q = q * np.float32(dh**-0.5)
+    want = JL._blocked_softmax_attn(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), False, 0)
+    got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                              causal=False, scale=1.0)
+    assert got.shape == q.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():

@@ -43,7 +43,8 @@ def test_every_module_imports_with_jax_and_repro_blocked():
             "repro_torch.checkpoint.manager", "repro_torch.data", "repro_torch.data.pipeline",
             "repro_torch.runtime", "repro_torch.runtime.fault", "repro_torch.runtime.straggler",
             "repro_torch.runtime.elastic", "repro_torch.launch.train",
-            "repro_torch.models.names"} <= set(mods)
+            "repro_torch.models.names", "repro_torch.models.ssm",
+            "repro_torch.core.moe_balance"} <= set(mods)
     code = textwrap.dedent(
         f"""
         import sys

@@ -254,10 +254,16 @@ def test_bf16_leaves_carry_exactly():
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "rwkv6-7b", "zamba2-7b",
                                   "whisper-tiny", "internvl2-26b"])
 def test_other_families_raise_naming_their_roadmap_item(arch):
+    """Serving is ported for every family (``LM`` and ``init_cache`` build;
+    tests/test_torch_families.py holds them to JAX); training is not:
+    ``forward_train`` and ``loss_fn`` raise naming item 16."""
     cfg = get_config(arch).reduced()
-    for call in (lambda: lm.LM(cfg, device="cpu"),
-                 lambda: lm.init_cache(cfg, 1, 4, device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md port queue 1"):
+    model = lm.init_params(cfg, torch.Generator().manual_seed(0))
+    assert lm.init_cache(cfg, 1, 4, device="cpu")
+    tokens = torch.zeros((1, 5), dtype=torch.int32)
+    for call in (lambda: lm.forward_train(model, cfg, {"tokens": tokens}),
+                 lambda: lm.loss_fn(model, cfg, {"tokens": tokens})):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md port queue 1, item 16"):
             call()
 
 

@@ -239,8 +239,9 @@ def test_chunked_ce_matches_jax(s, n_chunks):
 
 def test_forward_train_refuses_other_families():
     cfg = get_config("granite-moe-1b-a400m").reduced()
-    with pytest.raises(NotImplementedError, match="item 14"):
-        lm.LM(cfg, device="cpu")
+    model = lm.LM(cfg, device="cpu")  # serving builds it
+    with pytest.raises(NotImplementedError, match="item 16"):
+        lm.forward_train(model, cfg, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
 
 
 # ----------------------------------------------------------------------------
