@@ -33,7 +33,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``benchmarks/bench_total_latency.py`` bills pagerank_300. The kernels'
    launch counts are zeroed just before and read just after.
 3. The card against the port's own CPU path on ``brain_like`` at scale
-   0.02: non-lazy ADWISE bit-identical, lazy ADWISE agreement and RD, and
+   0.01: non-lazy ADWISE bit-identical, lazy ADWISE agreement and RD, and
    pagerank on both devices on the same partition.
 4. A torch.profiler trace of a short ADWISE run: kernels and device busy
    time per step, against the step's wall time from phase 2.
@@ -110,7 +110,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    the file bit-equal to phase 9a's; (d) ``adwise-restream`` (2 passes,
    pass 2 adopting the ring: ``h2d_bytes == 12 m``), ``2ps``, ``2ps-l``,
    ``dbh`` and ``hash`` at scale 0.08 from files (chunk 32,768), each
-   bit-equal to the in-memory run on the card; (e) at scale 0.1, ADWISE
+   bit-equal to the in-memory run on the card; (e) at scale 0.05, ADWISE
    with prefetch 0 equal to prefetch 2, the latter traced: ``refill``
    total = ``h2d_wait_s``, ``stage`` total = ``prestage_wall_s``, one scan
    span per scan call, the export (``build/chip_smoke/oocore_trace.json``)
@@ -149,8 +149,29 @@ Phases (any failure exits non-zero, and no result line is printed):
    same weights, logits within ``FAMILY_PARITY_TOL`` of their scale; for
    the MoE the tokens whose top-k experts differ between the devices are
    counted first and the logits compared before the first of them.
+13. The other LM families trained at full width: (a) ``FlashAttentionFn``
+   at Zamba2-7B's training shape (q (1, 32, 4096, 112), causal, the
+   ``mma_sync`` body) and Whisper-tiny's cross-attention (q (8, 6, 448, 64)
+   against k/v (8, 6, 224, 64), non-causal, ``wgmma``), checked as in 11
+   (a); (b) bf16, random weights from seed 0, counts zeroed just before
+   each run and read just after: granite-moe-1b-a400m (batch 1, seq 4,096)
+   and whisper-tiny (batch 8, seq 448, 224 frames) at full depth through
+   ``launch.train.main``, internvl2-26b (6 of 48 layers; 4,096 tokens + 256
+   patches), zamba2-7b (39 of 81 layers: 6 applications of the shared
+   block and a 3-layer remainder) and rwkv6-7b (12 of 32 layers) at seq
+   4,096 through ``build_state`` + ``make_step`` — depth cuts that keep each
+   at <= 3.6 B parameters; flash launches per step by body (48, 24, 12
+   ``wgmma``; 6 ``mma_sync``, the shared block not rematerialised; none)
+   and attention backward calls, every gradient at the first step finite
+   and non-zero, granite's MoE aux positive, the last loss below the first;
+   step wall, tokens/s, the share of the bf16 peak and peak memory; (c)
+   each family cut to 2 full-width layers (zamba2 7, whisper 2 + 2) in fp32
+   (TF32 off), batch 1, seq 128: one ``make_step`` on the card against
+   ``loss_fn`` + ``backward()`` on the CPU from the same weights, the MoE's
+   routes counted first, then the loss, the MoE aux and every gradient
+   leaf.
 
-The kernels' ``launches`` are those of phases 2, 6, 8, 9, 10, 11 and 12 (each
+The kernels' ``launches`` are those of phases 2, 6, 8, 9, 10, 11, 12 and 13 (each
 path's counts zeroed just before it and read just after). Then one JSON line with
 every kernel's numbers, and, last, the
 ``{"ok": true, "device": ...}`` line. It imports nothing of JAX and nothing
@@ -667,12 +688,17 @@ def phase_main_path(edges, n, k, window_max):
         check(np.isfinite(row["t_total_s"]) and row["t_total_s"] > 0, f"{name}: total latency finite")
         log(f"brain_like,pagerank_300,{name},,{row['t_partition_s']:.3f},"
             f"{row['t_process_s']:.3f},{row['t_total_s']:.3f},{row['replication_degree']:.3f}")
-    return counts, rd, results["adwise"][0]
+    return counts, rd
 
 
 # ----------------------------------------------------------------------------
 # Phase 3: the card against the port's CPU path
 # ----------------------------------------------------------------------------
+
+# Phase 3's scale (a depth cut for the smoke's time limit: the CPU's
+# non-lazy ADWISE run leads the phase).
+CPU_PARITY_SCALE = 0.01
+
 
 def phase_cpu_parity(k):
     import numpy as np
@@ -681,7 +707,7 @@ def phase_cpu_parity(k):
     from repro_torch.engine import build_partitioned_graph, pagerank
     from repro_torch.graph import make_graph, replica_sets_from_assignment, replication_degree
 
-    edges, n = make_graph("brain_like", seed=0, scale=0.02)
+    edges, n = make_graph("brain_like", seed=0, scale=CPU_PARITY_SCALE)
     rds = {}
     for lazy in (False, True):
         cfg = AdwiseConfig(k=k, window_max=256, lazy=lazy)
@@ -707,6 +733,12 @@ def phase_cpu_parity(k):
     log(f"parity pagerank: max_abs_err={err}")
 
 
+# Edges of phase 4's profiled run (and per instance of phase 9 (a)'s): 358
+# steps, enough for the per-step means; the profiler's processing of each
+# kernel's events, not the run, sets these profiles' walls.
+PROFILE_EDGES = 100
+
+
 def phase_profile(k):
     """Device busy time per ADWISE step under torch.profiler (CUPTI): kernels
     per step, busy µs per step (the sum of kernel durations, inflated by the
@@ -714,11 +746,11 @@ def phase_profile(k):
     from repro_torch.core import AdwiseConfig, partition_stream
     from repro_torch.graph import make_graph
 
-    # 400 edges of a small brain_like stream: ~660 steps (m + W + 2). The
+    # PROFILE_EDGES edges of a small brain_like stream: m + W + 2 steps. The
     # step's shapes are fixed by W and K, so its kernels are those of the
     # full-size run; the phases before built the kernels and warmed torch.
     edges, n = make_graph("brain_like", seed=0, scale=0.005)
-    edges = edges[:400]
+    edges = edges[:PROFILE_EDGES]
     cfg = AdwiseConfig(k=k, window_max=256)
     res, kern, _ = profiled(lambda: partition_stream(edges, n, cfg, device="cuda"), "profile")
     steps = res.stats["steps_run"] + res.stats["warmup_steps"]
@@ -870,10 +902,10 @@ def phase_comparison(k):
     for name in ("hdrf", "greedy", "2ps-l"):
         per_edge[name] = profile_per_edge(
             lambda m, name=name: registry.run_partitioner(name, prof_edges[:m], n_prof, k, device="cuda"),
-            128, 512)
+            64, 256)
     per_edge["cluster"] = profile_per_edge(
         lambda m: restream.streaming_vertex_clustering(prof_edges[:m], n_prof, k, device="cuda"),
-        128, 512)
+        64, 256)
 
     log("graph,workload,strategy,L,partition_s,process_s,total_s,RD")
     for r in rows:
@@ -968,10 +1000,11 @@ def phase_spotlight(edges, n, k, window_max, rd_z1):
         log(f"spotlight {name} z={z} spread={spread}: RD={rdn:.4f} "
             f"wall_s={r.stats['wall_time_s']:.3f}{extra}")
 
-    # Kernels and busy µs per batched step (profiler) at z = 8, 400 edges per
-    # instance: the step shapes of phase 4's z = 1 profile (W = 256, K = 32).
+    # Kernels and busy µs per batched step (profiler) at z = 8, PROFILE_EDGES
+    # edges per instance: the step shapes of phase 4's z = 1 profile (W = 256,
+    # K = 32).
     small, n_small = make_graph("brain_like", seed=0, scale=0.02)
-    sub = small[: 400 * z]
+    sub = small[: PROFILE_EDGES * z]
     r, kern, _ = profiled(lambda: spotlight_partition(sub, n_small, k, z=z, spread=spread,
                                                       strategy="adwise", cfg=cfg, device="cuda"),
                           f"spotlight profile z={z}")
@@ -1115,6 +1148,13 @@ def phase_tracing(k, untraced):
 # ----------------------------------------------------------------------------
 
 OOC_CHUNK_SMALL = 32768  # phase 10(d): B = 49,152 rows >= m, so restream adopts the ring
+# Phase 10(b)'s depth cut: 105,571 edges, past the 98,304 rows of the
+# default chunk's ring, so the ring still wraps (at full scale, 137.0 s on
+# an NVIDIA H100 80GB HBM3 at 700 W, the smoke's largest phase after 2).
+OOC_FILE_SCALE = 0.3
+# Phase 10(e)'s scale (a depth cut): its stream still wraps the 12,288-row
+# ring of the 8,192-row chunk.
+OOC_PREFETCH_SCALE = 0.05
 
 
 def ooc_dir() -> str:
@@ -1139,15 +1179,17 @@ def ring_line(st: dict) -> str:
             f"io_wall_s={st['io_wall_s']:.6f}")
 
 
-def phase_oocore(edges, n, k, window_max, resident, spot, cmp_res):
+def phase_oocore(edges, n, k, window_max, spot, cmp_res):
     """(a) ingest a SNAP text dump of brain_like, byte-equal to the binary
-    writer; (b) ADWISE at z = 1 from the file, bit-equal to phase 2's
-    resident run (``resident``); (c) z = 8 through the launcher from the
-    text file, bit-equal to phase 9a (``spot``), then pagerank; hdrf at the
+    writer; (b) ADWISE at z = 1 from a file of brain_like at scale
+    ``OOC_FILE_SCALE``, bit-equal to a resident run of the same cut; (c)
+    z = 8 through the launcher from the full-scale text file, bit-equal to
+    phase 9a (``spot``), then pagerank; hdrf at the
     same z; (d) the restreaming set, dbh and hash at scale 0.08 from files,
     bit-equal to the in-memory runs (phase 8's, ``cmp_res``); (e) prefetch
-    0 against 2 at scale 0.1, and a traced file run whose category totals
-    are its counters. Returns the launch counts of (b)-(e)."""
+    0 against 2 at scale ``OOC_PREFETCH_SCALE``, and a traced file run
+    whose category totals are its counters. Returns the launch counts of
+    (b)-(e)."""
     import contextlib
     import io
 
@@ -1179,26 +1221,35 @@ def phase_oocore(edges, n, k, window_max, resident, spot, cmp_res):
         f"parser {rep.parser}); binary {os.path.getsize(binary)} bytes")
 
     ops.reset_launch_counts()
-    # (b) ADWISE from the file at full width, default chunk (65,536).
+    # (b) ADWISE from a file at a depth cut that still wraps the default
+    # chunk's ring (65,536-row chunk, 98,304-row ring), beside a resident run
+    # of the same cut. Phase 2 holds the resident path at full scale, and (c)
+    # the file path at full scale.
+    cut, n_cut = make_graph("brain_like", seed=0, scale=OOC_FILE_SCALE)
+    m_cut = len(cut)
+    cut_path = os.path.join(out_dir, f"brain_like_{OOC_FILE_SCALE}.adw")
+    write_edge_file(cut_path, cut, n_cut)
+    resident = run_partitioner("adwise", cut, n_cut, k, window_max=window_max, device="cuda")
+    torch.cuda.synchronize()
     before = ops.launch_counts()["window_score"]
-    with EdgeFileReader(binary) as r:
+    with EdgeFileReader(cut_path) as r:
         res = partition_file(r, "adwise", k, window_max=window_max, device="cuda",
                              spill_dir=os.path.join(out_dir, "b"))
     torch.cuda.synchronize()
     ws = ops.launch_counts()["window_score"] - before
     st = res.stats
     check(np.array_equal(np.asarray(res.assign), resident.assign),
-          "oocore adwise z=1: the file run equals phase 2's resident run bit for bit")
-    check(st["h2d_rows"] == m and st["h2d_bytes"] == 8 * m,
+          f"oocore adwise z=1 (brain_like {OOC_FILE_SCALE}): the file run equals the resident run bit for bit")
+    check(st["h2d_rows"] == m_cut and st["h2d_bytes"] == 8 * m_cut,
           "oocore adwise z=1: every row shipped once, 8 B/row on a cold pass")
     check(ws == st["steps_run"] + st["warmup_steps"],
           "oocore adwise z=1: one window_score launch per step")
     check(st["ring_addrs"] == 1, "oocore adwise z=1: every refill wrote into the one ring")
-    check(st["buffer_rows"] < m, "oocore adwise z=1: the ring wraps")
+    check(st["buffer_rows"] < m_cut, "oocore adwise z=1: the ring wraps")
     rst = resident.stats
     loop_s = st["wall_time_s"] - st["setup_s"]
-    log(f"oocore adwise z=1 (brain_like 1.0, m={m}, k={k}, W={window_max}, chunk 65536): "
-        f"wall_s={st['wall_time_s']:.3f} (resident, phase 2: {rst['wall_time_s']:.3f}; "
+    log(f"oocore adwise z=1 (brain_like {OOC_FILE_SCALE}, m={m_cut}, k={k}, W={window_max}, chunk 65536): "
+        f"wall_s={st['wall_time_s']:.3f} (resident, same cut: {rst['wall_time_s']:.3f}; "
         f"ratio {st['wall_time_s'] / rst['wall_time_s']:.4f}) setup_s={st['setup_s']:.3f} "
         f"us_per_step={loop_s / st['steps_run'] * 1e6:.2f} resident_steps={rst['steps_run']} "
         f"window_score_launches={ws} {ring_line(st)}")
@@ -1271,8 +1322,8 @@ def phase_oocore(edges, n, k, window_max, resident, spot, cmp_res):
                   "oocore adwise-restream: pass 2 adopts the ring (h2d_bytes == 12 m)")
 
     # (e) The pipeline: prefetch 0 against 2, the second run traced.
-    mid, n_mid = make_graph("brain_like", seed=0, scale=0.1)
-    mid_path = os.path.join(out_dir, "brain_like_0.1.adw")
+    mid, n_mid = make_graph("brain_like", seed=0, scale=OOC_PREFETCH_SCALE)
+    mid_path = os.path.join(out_dir, f"brain_like_{OOC_PREFETCH_SCALE}.adw")
     write_edge_file(mid_path, mid, n_mid)
     runs = {}
     tr = Tracer()
@@ -1282,7 +1333,7 @@ def phase_oocore(edges, n, k, window_max, resident, spot, cmp_res):
                                       prefetch=pf, trace=trace, device="cuda",
                                       spill_dir=os.path.join(out_dir, f"e{pf}"))
     check(np.array_equal(np.asarray(runs[0].assign), np.asarray(runs[2].assign)),
-          "oocore adwise (brain_like 0.1): prefetch 0 equals prefetch 2 bit for bit")
+          f"oocore adwise (brain_like {OOC_PREFETCH_SCALE}): prefetch 0 equals prefetch 2 bit for bit")
     est = runs[2].stats
     cats = tr.summary().categories
     check(abs(cats.get("refill", {}).get("wall_s", 0.0) - est["h2d_wait_s"]) < 1e-6,
@@ -1296,7 +1347,7 @@ def phase_oocore(edges, n, k, window_max, resident, spot, cmp_res):
         problems = validate_chrome_trace(json.load(f))
     check(problems == [], f"oocore trace export validates ({problems[:3]})")
     for pf in (0, 2):
-        log(f"oocore adwise prefetch={pf} (brain_like 0.1, m={len(mid)}, chunk 8192"
+        log(f"oocore adwise prefetch={pf} (brain_like {OOC_PREFETCH_SCALE}, m={len(mid)}, chunk 8192"
             f"{', traced' if pf else ''}): wall_s={runs[pf].stats['wall_time_s']:.3f} "
             f"{ring_line(runs[pf].stats)}")
     log(f"oocore trace: events={n_events} "
@@ -1434,9 +1485,10 @@ def phase_flash():
     gc.collect()
     torch.cuda.empty_cache()
     # Whisper-tiny at batch 8, prompt 448: the encoder over 224 frames, the
-    # cross-attention in prefill and in decode (Tq = 1) — non-causal at a Tk
-    # no 128-row tile divides.
+    # decoder's causal self-attention, the cross-attention in prefill and in
+    # decode (Tq = 1) — non-causal at a Tk no 128-row tile divides.
     measure("whisper encoder", (8, 6, 6, 224, 224, 64), torch.bfloat16, causal=False)
+    measure("whisper self", (8, 6, 6, 448, 448, 64), torch.bfloat16)
     measure("whisper cross", (8, 6, 6, 448, 224, 64), torch.bfloat16, causal=False)
     measure("whisper cross decode", (8, 6, 6, 1, 224, 64), torch.bfloat16, causal=False)
     return row
@@ -1615,23 +1667,31 @@ BF16_LOSS_TOL = 2e-4
 BF16_GRAD_TOL = 6e-2
 
 
-def attn_bwd_work(b, hq, hkv, tq, tk, dh, itemsize):
+# (tag, (b, hq, hkv, tq, tk, dh), causal) of phase 11 (a): Llama-3.2-3B's
+# training shape, and the same at Dh 64.
+TRAIN_ATTN_SHAPES = [
+    ("train", (1, 24, 8, TRAIN_SEQ, TRAIN_SEQ, 128), True),
+    ("train Dh=64", (1, 24, 8, TRAIN_SEQ, TRAIN_SEQ, 64), True),
+]
+
+
+def attn_bwd_work(b, hq, hkv, tq, tk, dh, itemsize, causal=True):
     """(bytes, operations) of attention's backward: q, k, v, out and dout
     read once, dq, dk, dv written once; five products per live pair (the
     logits again, dP, dV, dQ, dK) against the forward's two."""
     nbytes = itemsize * (4 * b * hq * tq * dh + 4 * b * hkv * tk * dh)
-    return nbytes, fa_work(b, hq, hkv, tq, tk, dh, itemsize, True)[1] * 5 // 2
+    return nbytes, fa_work(b, hq, hkv, tq, tk, dh, itemsize, causal)[1] * 5 // 2
 
 
-def phase_train_attention():
-    """(a) The autograd Function at the training shape and at Dh 64: the
-    forward against the plain version (FA_TOL) and bit-equal to the bare
-    kernel call, dq/dk/dv against autograd through the plain version;
-    times of the kernel, the backward and SDPA's forward + backward. The
-    Function's backward is plain code (no kernel), so its check holds the
-    backward's 512-row blocking against the unblocked plain version; the
-    kernel is held by the forward check. Returns the backward's ms per call
-    at the training shape."""
+def phase_train_attention(shapes=TRAIN_ATTN_SHAPES):
+    """(a) The autograd Function at each of ``shapes`` (bf16; phase 11: the
+    training shape and Dh 64): the forward on the body ``body_for`` names,
+    against the plain version (FA_TOL) and bit-equal to the bare kernel
+    call, dq/dk/dv against autograd through the plain version; times of the
+    kernel, the backward and SDPA's forward + backward. The Function's
+    backward is plain code (no kernel), so its check holds the backward's
+    512-row blocking against the unblocked plain version; the kernel is
+    held by the forward check. Returns the times at the first shape."""
     import gc
 
     import numpy as np
@@ -1643,22 +1703,22 @@ def phase_train_attention():
 
     rng = np.random.default_rng(19)
     out_row = None
-    for tag, shape in (("train", (1, 24, 8, TRAIN_SEQ, TRAIN_SEQ, 128)),
-                       ("train Dh=64", (1, 24, 8, TRAIN_SEQ, TRAIN_SEQ, 64))):
+    for tag, shape, causal in shapes:
         b, hq, hkv, tq, tk, dh = shape
+        body = fa.body_for(torch.bfloat16, dh)
         q, k, v = (torch.as_tensor(rng.normal(size=sh).astype(np.float32) * 0.5)
                    .to(device="cuda", dtype=torch.bfloat16).requires_grad_(True)
                    for sh in ((b, hq, tq, dh), (b, hkv, tk, dh), (b, hkv, tk, dh)))
         dout = torch.as_tensor(rng.normal(size=(b, hq, tq, dh)).astype(np.float32)).to(
             device="cuda", dtype=torch.bfloat16)
-        before, bwd0 = fa.LAUNCHES_BY_BODY["wgmma"], fa.BACKWARD_CALLS
-        out = ops.flash_attention(q, k, v, scale=1.0)
-        check(out.grad_fn is not None and fa.LAUNCHES_BY_BODY["wgmma"] - before == 1,
-              f"train attention {tag}: the Function's forward launched the wgmma body, with a grad_fn")
+        before, bwd0 = fa.LAUNCHES_BY_BODY[body], fa.BACKWARD_CALLS
+        out = ops.flash_attention(q, k, v, causal=causal, scale=1.0)
+        check(out.grad_fn is not None and fa.LAUNCHES_BY_BODY[body] - before == 1,
+              f"train attention {tag}: the Function's forward launched the {body} body, with a grad_fn")
         with torch.no_grad():
-            bare = fa.flash_attention(q, k, v, scale=1.0)
+            bare = fa.flash_attention(q, k, v, causal=causal, scale=1.0)
         check(torch.equal(out, bare), f"train attention {tag}: the Function's forward equals the bare kernel bit for bit")
-        want_out = ref.flash_attention_ref(q, k, v, scale=1.0)
+        want_out = ref.flash_attention_ref(q, k, v, causal=causal, scale=1.0)
         out_tol = FA_TOL["bfloat16"]
         out_err = (out.float() - want_out.float()).abs().max().item()
         check(torch.allclose(out.float(), want_out.float(), rtol=out_tol, atol=out_tol),
@@ -1680,19 +1740,22 @@ def phase_train_attention():
             check(bool(torch.isfinite(g).all()) and bool((g != 0).any()), f"train attention {tag}: d{name} finite, non-zero")
         del want, got, want_out
         qd, kd, vd = (t.detach() for t in (q, k, v))
-        fwd_ms = cuda_ms(lambda: ops.flash_attention(qd, kd, vd, scale=1.0), iters=10)
-        bwd_ms = eager_ms(lambda: fa.attention_backward_plain(qd, kd, vd, dout, scale=1.0), iters=3)
+        fwd_ms = cuda_ms(lambda: ops.flash_attention(qd, kd, vd, causal=causal, scale=1.0), iters=10)
+        bwd_ms = eager_ms(lambda: fa.attention_backward_plain(qd, kd, vd, dout, causal=causal, scale=1.0),
+                          iters=3)
 
         def sdpa_fwd_bwd():
-            o = F.scaled_dot_product_attention(q, k, v, is_causal=True, scale=1.0, enable_gqa=True)
+            o = F.scaled_dot_product_attention(q, k, v, is_causal=causal, scale=1.0, enable_gqa=True)
             return torch.autograd.grad(o, (q, k, v), dout)
 
         sdpa_ms = eager_ms(sdpa_fwd_bwd, iters=5)
-        nbytes, nops = attn_bwd_work(*shape, 2)
+        nbytes, nops = attn_bwd_work(*shape, 2, causal)
         bms, by = bound(nbytes, nops, BF16_OPS_PER_S)
-        log(f"train attention {tag} q=({b},{hq},{tq},{dh}) kv=({b},{hkv},{tk},{dh}) bf16 causal: "
+        n_blocks = -(-tq // fa.BACKWARD_Q_BLOCK)
+        log(f"train attention {tag} q=({b},{hq},{tq},{dh}) kv=({b},{hkv},{tk},{dh}) bf16 "
+            f"{'causal' if causal else 'non-causal'} body={body}: "
             f"max_abs_err out={out_err} (rtol=atol={out_tol}) dq/dk/dv={errs} kernel_fwd_ms={fwd_ms:.5f} plain_bwd_ms={bwd_ms:.3f} "
-            f"(eager, 8 blocks of 512 rows) sdpa_fwd_bwd_ms={sdpa_ms:.3f} "
+            f"(eager, {n_blocks} blocks of {fa.BACKWARD_Q_BLOCK} rows) sdpa_fwd_bwd_ms={sdpa_ms:.3f} "
             f"bwd_bound_ms={bms:.5f} ({by}) bwd_ops={nops}")
         if out_row is None:
             out_row = dict(fwd_ms=fwd_ms, bwd_ms=bwd_ms, sdpa_fwd_bwd_ms=sdpa_ms, bwd_bound_ms=bms)
@@ -1952,7 +2015,9 @@ FAMILY_RUNS = [
     ("rwkv6-7b", 4, 2048, 16, {}, {}),
     ("whisper-tiny", 8, 448, 16, {"wgmma": 12}, {"wgmma": 4}),
 ]
-FAMILY_PROFILE_STEPS = 4
+# Decode steps under the profiler (the profiler's processing of ~7,000
+# kernels' events a zamba2 step, not the steps, sets the session's wall).
+FAMILY_PROFILE_STEPS = 2
 
 
 def phase_families():
@@ -2047,6 +2112,95 @@ def phase_families():
     return total
 
 
+def family_parity_cfg(arch, dtype="float32"):
+    """``arch`` at full width cut to 2 layers (the hybrid to
+    ``shared_every`` + 1, so its shared block runs after the 6th and a
+    remainder layer follows; whisper to 2 encoder and 2 decoder layers), in
+    ``dtype``: the depth of phases 12 (b) and 13 (c)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    base = get_config(arch)
+    cut = dict(n_layers=base.shared_every + 1 if base.family == "hybrid" else 2, dtype=dtype)
+    if base.family == "encdec":
+        cut["n_enc_layers"] = 2
+    return dataclasses.replace(base, **cut)
+
+
+def family_models(cfg, *copies):
+    """``cfg``'s model from seed 0 on the card, then one model per
+    ``(device, dtype)`` of ``copies`` holding the same weights (a bf16
+    model's weights are exact in fp32; its fp32 leaves are fp32 in both)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import lm
+
+    first = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    out = [first]
+    for dev, dtype in copies:
+        model = lm.LM(dataclasses.replace(cfg, dtype=dtype), device=dev)
+        model.load_state_dict(first.state_dict())
+        out.append(model)
+    return out
+
+
+class MoeRoutes:
+    """While entered, every ``layers.moe_ffn`` call records its tokens' top-k
+    experts (sorted; the router's fp32 softmax, stable-sorted as the layer
+    sorts it) in ``routes[key]`` and the first input of each key in
+    ``inputs[key]``, where key is the input's device type and, if it is not
+    fp32, its dtype ("cpu", "cuda", "cuda bfloat16")."""
+
+    def __init__(self):
+        self.routes, self.inputs = {}, {}
+
+    @staticmethod
+    def key(x):
+        import torch
+
+        return x.device.type + ("" if x.dtype == torch.float32 else " " + str(x.dtype).split(".")[1])
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import layers
+
+        self.real = real = layers.moe_ffn
+
+        def recording_moe(params, x, **kw):
+            key = self.key(x)
+            self.inputs.setdefault(key, x.detach().float().cpu())
+            logits = x.detach().reshape(-1, x.shape[-1]).float() @ params["router"].detach()
+            top = torch.sort(torch.softmax(logits, -1), dim=-1, descending=True, stable=True).indices
+            self.routes.setdefault(key, []).append(top[:, :kw["top_k"]].sort(-1).values.cpu())
+            return real(params, x, **kw)
+
+        layers.moe_ffn = recording_moe
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers
+
+        layers.moe_ffn = self.real
+
+    def clear(self):
+        self.routes.clear()
+        self.inputs.clear()
+
+    def differing(self, a, b, since=0):
+        """(tokens,) bool: the tokens whose top-k experts differ between the
+        runs ``a`` and ``b`` (keys) in any MoE call from the ``since``-th on."""
+        import torch
+
+        pairs = list(zip(self.routes.get(a, [])[since:], self.routes.get(b, [])[since:]))
+        if not pairs:
+            return torch.zeros(0, dtype=torch.bool)
+        return torch.stack([(ra != rb).any(-1) for ra, rb in pairs]).any(0)
+
+
 # Phase 12 (b): the card against the port's CPU path, each family at full
 # width with a depth cut, fp32 (TF32 off). Tolerance on logits, relative to
 # their largest magnitude: three times the largest error of a sound run
@@ -2071,64 +2225,31 @@ def phase_families_parity():
     none in the prompt's first half. The first MoE layer's input (the
     attention sublayer's output, normed, which no route can change) is
     compared at every position."""
-    import dataclasses
     import gc
 
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.launch import serve
-    from repro_torch.models import layers, lm
-
-    routes = {"cpu": [], "cuda": []}
-    moe_inputs = {"cpu": [], "cuda": []}
-    real_moe = layers.moe_ffn
-
-    def recording_moe(params, x, **kw):
-        if not moe_inputs[x.device.type]:
-            moe_inputs[x.device.type].append(x.float().cpu())
-        logits = x.reshape(-1, x.shape[-1]).float() @ params["router"]
-        top = torch.sort(torch.softmax(logits, -1), dim=-1, descending=True, stable=True).indices
-        routes[x.device.type].append(top[:, :kw["top_k"]].sort(-1).values.cpu())
-        return real_moe(params, x, **kw)
+    from repro_torch.models import lm
 
     b, t, n_dec = 1, 128, 4
-    layers.moe_ffn = recording_moe
-    try:
+    with MoeRoutes() as rec:
         for arch, *_ in FAMILY_RUNS:
-            base = get_config(arch)
-            cut = dict(n_layers=2, dtype="float32")
-            if base.family == "hybrid":
-                cut["n_layers"] = base.shared_every + 1
-            if base.family == "encdec":
-                cut["n_enc_layers"] = 2
-            cfg = dataclasses.replace(base, **cut)
+            cfg = family_parity_cfg(arch)
             t0 = time.perf_counter()
-            gpu_model = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
-            cpu_model = lm.LM(cfg, device="cpu")
-            cpu_model.load_state_dict(gpu_model.state_dict())
+            gpu_model, cpu_model = family_models(cfg, ("cpu", "float32"))
             prompts, kw, offset = serve.family_inputs(cfg, b, t, np.random.default_rng(1), "cpu")
             caches = [lm.init_cache(cfg, b, t + n_dec, device=d) for d in ("cpu", "cuda")]
-            for v in (*routes.values(), *moe_inputs.values()):
-                v.clear()
-
-            def differing(since):
-                """(B·T,) bool: the tokens whose top-k experts differ
-                between the devices in any MoE layer run since ``since``."""
-                pairs = list(zip(routes["cpu"][since:], routes["cuda"][since:]))
-                if not pairs:
-                    return torch.zeros(0, dtype=torch.bool)
-                return torch.stack([(ra != rg).any(-1) for ra, rg in pairs]).any(0)
-
+            rec.clear()
             a, _ = lm.forward_cached(cpu_model, cfg, caches[0], prompts, 0, **kw)
             g, _ = lm.forward_cached(gpu_model, cfg, caches[1], prompts.cuda(), 0,
                                      **{k: v.cuda() for k, v in kw.items()})
-            flipped = differing(0)
+            flipped = rec.differing("cpu", "cuda")
             first = int(flipped.nonzero()[0]) if flipped.any() else t  # b = 1: token = position
             route_note = ""
             if cfg.moe:
-                xa, xg = moe_inputs["cpu"][0], moe_inputs["cuda"][0]
+                xa, xg = rec.inputs["cpu"], rec.inputs["cuda"]
                 x_scale = max(1.0, xa.abs().max().item())
                 x_err = (xg - xa).abs().max().item()
                 check(x_err <= FAMILY_PARITY_TOL * x_scale,
@@ -2147,10 +2268,10 @@ def phase_families_parity():
             same = int(torch.equal(a[:, -1].argmax(-1), g[:, -1].cpu().argmax(-1)))
             for i in range(n_dec if first == t else 0):
                 tok = a[:, -1:].argmax(-1).to(torch.int32)  # the CPU's token feeds both
-                since = len(routes["cpu"])
+                since = len(rec.routes.get("cpu", []))
                 a, _ = lm.forward_cached(cpu_model, cfg, caches[0], tok, offset + t + i)
                 g, _ = lm.forward_cached(gpu_model, cfg, caches[1], tok.cuda(), offset + t + i)
-                if differing(since).any():
+                if rec.differing("cpu", "cuda", since).any():
                     break
                 errs.append((g.cpu() - a).abs().max().item())
                 check(errs[-1] <= FAMILY_PARITY_TOL * scale,
@@ -2163,8 +2284,329 @@ def phase_families_parity():
             del gpu_model, cpu_model, caches, a, g
             gc.collect()
             torch.cuda.empty_cache()
-    finally:
-        layers.moe_ffn = real_moe
+
+
+# ----------------------------------------------------------------------------
+# Phase 13: the other LM families, trained at full width
+# ----------------------------------------------------------------------------
+
+# (a) The Function at every shape (b) launches: Zamba2-7B's shared attention
+# (Dh 112, the mma_sync body), Granite-MoE's (GQA group 2, Dh 64),
+# InternVL2's over 256 patches + 4,096 tokens (GQA group 6, Dh 128), and
+# Whisper-tiny's decoder self-attention and cross-attention (448 decoder
+# positions over 224 frames, non-causal) on wgmma. Whisper's encoder
+# (224 frames over themselves, non-causal) is the cross shape's Tk; phase 5
+# holds its forward.
+FAMILY_TRAIN_ATTN_SHAPES = [
+    ("zamba2 Dh=112", (1, 32, 32, TRAIN_SEQ, TRAIN_SEQ, 112), True),
+    ("granite", (1, 16, 8, TRAIN_SEQ, TRAIN_SEQ, 64), True),
+    ("internvl", (1, 48, 8, TRAIN_SEQ + 256, TRAIN_SEQ + 256, 128), True),
+    ("whisper self", (8, 6, 6, 448, 448, 64), True),
+    ("whisper cross", (8, 6, 6, 448, 224, 64), False),
+]
+# (b) arch, batch, seq, depth cut (None: full depth through launch.train.main;
+# else build_state + make_step on dataclasses.replace(cfg, **cut)), steps,
+# peak learning rate (the launcher's schedule: linear warm-up over a tenth
+# of the steps, at least one, then a cosine to 0), flash launches per step
+# by body, attention backward calls per step. The cuts keep each model at
+# <= 3.6 B parameters: AdamW's fp32 moments and the fp32 residual take 12 B
+# a parameter beside 2 each for the bf16 weights and gradients, and
+# Llama-3.2-3B's 3.21 B peaked at 52.4 GiB in phase 11. Zamba2 keeps 6
+# applications of its shared block and a 3-layer remainder. The peak rates
+# of the cut runs come from a sweep under this schedule over 6 steps (NVIDIA
+# H100 80GB HBM3 at 700 W): at 1e-3 internvl's loss climbed 11.94 -> 12.48
+# before it fell and rwkv6's wandered, so both take 3e-4 (falls of 0.96 and
+# 0.71); zamba2's moves slowly at any rate (3e-4 rose 0.016, 1e-3 fell
+# 0.026, 3e-3 fell 0.074), so it takes 3e-3. Granite's bf16 routes, and so
+# its losses, differ from run to run: at 1e-3 it fell by 0.002-0.05 over 6
+# steps and 0.004-0.05 over 10, at 2e-3 by 0.45-0.59 over 10, so it takes
+# 2e-3 and 10 steps. Each family's bf16 step is held to fp32 in (c) and to
+# the JAX package's bf16 step in the CPU tests.
+FAMILY_TRAIN_RUNS = [
+    ("granite-moe-1b-a400m", 1, TRAIN_SEQ, None, 10, 2e-3, {"wgmma": 48}, 24),
+    ("whisper-tiny", 8, 448, None, 6, 1e-3, {"wgmma": 24}, 12),
+    ("internvl2-26b", 1, TRAIN_SEQ, dict(n_layers=6), 6, 3e-4, {"wgmma": 12}, 6),
+    ("zamba2-7b", 1, TRAIN_SEQ, dict(n_layers=39), 6, 3e-3, {"mma_sync": 6}, 6),
+    ("rwkv6-7b", 1, TRAIN_SEQ, dict(n_layers=12), 6, 3e-4, {}, 0),
+]
+
+
+def family_train_flops(cfg, numels, b, s):
+    """Model FLOPs of one training step of ``cfg`` at batch ``b``, ``s``
+    tokens: 8 per parameter and position it acts on (forward 2, its remat
+    2, backward 4; 6 for the hybrid's shared block, which is not
+    rematerialised, once per application), MoE experts at top_k / n_experts
+    of theirs, the embedding only where it is the head; the encoder and the
+    cross K/V projections at the frames (s // 2), the vlm's blocks at patches
+    + tokens and ``vit_proj`` at the patches. Plus 4 × the attention
+    forward's operations (3 × for the shared block). The SSM scans are not
+    counted."""
+    se, p = s // 2, cfg.vlm_patches
+    n_apps = cfg.n_layers // cfg.shared_every
+    total = 0.0
+    for name, k in numels.items():
+        if name == "embed" and not cfg.tie_embeddings:
+            continue
+        per, pos = 8, b * s
+        if cfg.moe and ".moe.w_" in name:
+            k = k * cfg.moe.top_k / cfg.moe.n_experts
+        if name.startswith("enc_blocks.") or ".xattn.wk" in name or ".xattn.wv" in name:
+            pos = b * se
+        elif name == "vit_proj":
+            pos = b * p
+        elif cfg.family == "vlm" and name.startswith("blocks."):
+            pos = b * (s + p)
+        elif name.startswith("shared."):
+            per, pos = 6, b * s * n_apps
+        total += per * k * pos
+
+    def attn(tq, tk, causal):
+        return fa_work(b, cfg.n_heads, cfg.n_kv, tq, tk, cfg.d_head, 2, causal)[1]
+
+    fam, n = cfg.family, cfg.n_layers
+    if fam in ("dense", "moe"):
+        total += 4 * n * attn(s, s, True)
+    elif fam == "vlm":
+        total += 4 * n * attn(s + p, s + p, True)
+    elif fam == "encdec":
+        total += 4 * cfg.n_enc_layers * attn(se, se, False)
+        total += 4 * n * (attn(s, s, True) + attn(s, se, False))
+    elif fam == "hybrid":
+        total += 3 * n_apps * attn(s, s, True)
+    return total
+
+
+def phase_family_train():
+    """(b) Each family trained at full width in bf16 (random weights from
+    seed 0): granite and whisper at full depth through
+    ``launch.train.main``, internvl, zamba2 and rwkv6 cut in depth through
+    ``build_state`` + ``make_step`` under the launcher's schedule (the
+    launcher has no depth option),
+    counts zeroed just before each run and read just after: the flash
+    launches per step by body and the attention backward calls, every
+    parameter's gradient at the first step finite and non-zero (the patch
+    projection, the encoder, the shared block and the fp32 leaves
+    included), granite's MoE aux finite and positive, the last loss below
+    the first; step wall, tokens/s, the share of the bf16 peak, peak
+    memory. Returns the summed launch counts of the runs."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.optim import cosine_schedule
+
+    total = None
+    for arch, b, s, cut, n_steps, lr, bodies, n_bwd in FAMILY_TRAIN_RUNS:
+        cfg = get_config(arch) if cut is None else dataclasses.replace(get_config(arch), **cut)
+        # The parameters' sizes and dtypes, from an uninitialised host model.
+        shapes = lm.LM(cfg, device="cpu")
+        numels = {n: p.numel() for n, p in shapes.named_parameters()}
+        fp32 = [n for n, p in shapes.named_parameters() if p.dtype == torch.float32]
+        del shapes
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        if cut is None:
+            info = {}
+            train.main(["--arch", arch, "--batch", str(b), "--seq", str(s), "--steps",
+                        str(n_steps), "--lr", str(lr), "--device", "cuda"], info=info)
+        else:
+            model, state = train.build_state(cfg, torch.device("cuda"), seed=0)
+            step = train.make_step(model, cfg, cosine_schedule(lr, max(n_steps // 10, 1), n_steps))
+            data = SyntheticTokens(cfg, ShapeConfig("cli", s, b, "train"), seed=0)
+            hist, flags = [], None
+            for i in range(n_steps):
+                batch = {k: torch.as_tensor(v).cuda() for k, v in data.batch_at(i).items()}
+                t1 = time.perf_counter()
+                state, m = step(state, batch)
+                m["step_time_s"] = time.perf_counter() - t1
+                hist.append(m)
+                if flags is None:
+                    flags = train._grad_flags(state["params"])
+            info = dict(train.history_info(hist), grad_flags=flags,
+                        peak_bytes=torch.cuda.max_memory_allocated())
+            del model, state, step, batch
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        total = counts if total is None else {k: total[k] + counts[k] for k in counts}
+        losses = info["losses"]
+        per_step = sum(bodies.values())
+        want_bodies = {body: bodies.get(body, 0) for body in fa.BODIES}
+        tag = f"family train {arch}" + ("" if cut is None else f" ({cfg.n_layers} layers)")
+        check(len(losses) == n_steps and all(np.isfinite(losses)), f"{tag}: {n_steps} finite losses")
+        check(losses[-1] < losses[0], f"{tag}: the last loss below the first ({losses[0]:.4f} -> {losses[-1]:.4f})")
+        check(info["flash_bodies"] == [want_bodies] * n_steps,
+              f"{tag}: flash launches per step by body {info['flash_bodies'][0]} == {want_bodies}")
+        check(info["flash_launches"] == [per_step] * n_steps and counts["flash_attention"] == per_step * n_steps,
+              f"{tag}: {per_step} flash launches per step, every one counted")
+        check(info["attn_backward_calls"] == [n_bwd] * n_steps, f"{tag}: {n_bwd} attention backward calls per step")
+        flags = info["grad_flags"]
+        bad = [n for n, (finite, nonzero) in flags.items() if not (finite and nonzero)]
+        check(set(flags) == set(numels) and not bad,
+              f"{tag}: every parameter's gradient at step 0 finite and non-zero, the "
+              f"{len(fp32)} fp32 leaves included ({bad[:6]})")
+        if cfg.moe:
+            check(all(np.isfinite(a) and a > 0 for a in info["moe_aux"]),
+                  f"{tag}: moe_aux finite and positive at every step ({info['moe_aux']})")
+        n_params = sum(numels.values())
+        step_s = float(np.median(info["step_s"][1:]))  # the first step pays the warm-up
+        flops = family_train_flops(cfg, numels, b, s)
+        log(f"{tag} B={b} seq={s} steps={n_steps} lr={lr}: losses={[round(x, 4) for x in losses]} "
+            f"moe_aux={[round(x, 4) for x in info['moe_aux']]}")
+        log(f"{tag} step_s={[round(x, 4) for x in info['step_s']]} median_step_ms={step_s * 1e3:.3f} "
+            f"(steps 1-{n_steps - 1}) tok_per_s={b * s / step_s:.1f} model_flops={flops:.4e} "
+            f"(family_train_flops; N={n_params}) bf16_peak_share={flops / step_s / BF16_OPS_PER_S:.4f} "
+            f"peak_mem_GiB={info['peak_bytes'] / 2**30:.3f} wall_s={wall:.3f} "
+            f"flash_per_step={info['flash_bodies'][0]} attn_backward_per_step={n_bwd} "
+            f"fp32_leaves={len(fp32)}")
+        del info, flags
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
+# Phase 13 (c): one step of each family cut to 2 full-width layers, on the
+# card in fp32 (TF32 off) and in bf16, against the CPU's fp32 from the same
+# weights. fp32 tolerances: the loss and the MoE aux within 1e-5 relative (a
+# sound run: at most 1.8e-7, granite's aux), every gradient leaf within 1e-4
+# relative norm, three times the worst leaf of a sound run from fp32
+# weights (zamba2's Mamba-2 dt_bias, 3.24e-5; the others <= 8.1e-6) and 2.3
+# times that from these bf16-valued ones (4.37e-5; the others <= 8.2e-6) on
+# an NVIDIA H100 80GB HBM3 at 700 W. Both are tighter than phase 11 (c)'s
+# 1e-4 / 1e-3 for Llama-3.2-3B's layers.
+FAMILY_TRAIN_LOSS_TOL = 1e-5
+FAMILY_TRAIN_GRAD_TOL = 1e-4
+# bf16 against the CPU's fp32, by family: (loss, MoE aux, both relative;
+# the worst gradient leaf, relative norm), three times a sound run's errors
+# on an NVIDIA H100 80GB HBM3 at 700 W. Internvl (3.2e-5, 2.14e-2), rwkv6
+# (4.4e-5, 2.31e-2) and whisper (1.6e-5, 2.21e-2) sit where Llama's layers
+# do (phase 11 c). Granite (3.4e-4, aux 1.17e-3, 0.255 on a router: 16 of
+# 128 tokens route differently in bf16) and zamba2 (7.9e-4, 0.174 on a
+# Mamba-2 dt_bias, a sum of cancelling terms) are far from fp32 by nature:
+# the JAX package's own bf16 step is as far from its fp32 one, and
+# tests/test_torch_train_families.py holds each family's bf16 step to
+# JAX's, leaf by leaf.
+FAMILY_BF16_TOL = {
+    "granite-moe-1b-a400m": (1e-3, 3.5e-3, 0.8),
+    "internvl2-26b": (BF16_LOSS_TOL, None, 7e-2),
+    "zamba2-7b": (2.5e-3, None, 0.55),
+    "rwkv6-7b": (BF16_LOSS_TOL, None, 7e-2),
+    "whisper-tiny": (BF16_LOSS_TOL, None, 7e-2),
+}
+
+
+def phase_family_train_parity():
+    """(c) Each family at full width cut to 2 layers (``family_parity_cfg``),
+    batch 1, seq 128 (+ 256 patches; 64 frames, from ``SyntheticTokens``),
+    from the same weights (seed 0 drawn in bf16, which fp32 holds exactly):
+    ``loss_fn`` + ``backward()`` on the CPU in fp32 (what the step runs
+    before its AdamW, which is family-agnostic and phase 11 (c) holds), and
+    one ``make_step`` on the card in fp32 (the fma body) and in bf16 (the
+    body the full-width run launches). fp32: the MoE's tokens routed
+    differently are counted first (a route that differs changes every
+    gradient, so none may), then the loss, the MoE aux and every gradient
+    leaf. bf16: the same, at bf16's tolerances, so that a fault of a
+    family's bf16 path shows; its routes differ from fp32's where bf16
+    rounding moves a token across an expert's boundary, and are counted.
+    Each family is freed before the next."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw_init
+
+    b, s = 1, 128
+    with MoeRoutes() as rec:
+        for arch, *_ in FAMILY_RUNS:
+            cfgs = {"cpu": family_parity_cfg(arch), "cuda": family_parity_cfg(arch),
+                    "cuda bfloat16": family_parity_cfg(arch, "bfloat16")}
+            cfg = cfgs["cpu"]
+            t0 = time.perf_counter()
+            batch = SyntheticTokens(cfg, ShapeConfig("cli", s, b, "train"), seed=1).batch_at(0)
+            models = dict(zip(("cuda bfloat16", "cpu", "cuda"), family_models(
+                cfgs["cuda bfloat16"], ("cpu", "float32"), ("cuda", "float32"))))
+            rec.clear()
+            res, walls = {}, {}
+            for key in ("cpu", "cuda", "cuda bfloat16"):
+                model, dev = models.pop(key), key.split()[0]
+                model.requires_grad_(True)
+                params = dict(model.named_parameters())
+                t1 = time.perf_counter()
+                if dev == "cpu":
+                    loss, aux = lm.loss_fn(model, cfg, {k: torch.as_tensor(v) for k, v in batch.items()})
+                    loss.backward()
+                    metrics = {k: v.item() for k, v in dict(aux, loss=loss).items()}
+                    del loss, aux
+                else:
+                    state = dict(params=params, opt=adamw_init(params), residual={})
+                    _, metrics = train.make_step(model, cfgs[key], lambda _: 1e-3)(
+                        state, {k: torch.as_tensor(v).to(dev) for k, v in batch.items()})
+                    del state
+                walls[key] = time.perf_counter() - t1
+                res[key] = dict(metrics=metrics, grads={n: p.grad.float().cpu() for n, p in params.items()})
+                del params, model
+                gc.collect()
+                torch.cuda.empty_cache()
+            a = res.pop("cpu")
+            launches, n_bwd = lm.attention_calls(cfg)
+            notes = []
+            tols = {"cuda": (FAMILY_TRAIN_LOSS_TOL, FAMILY_TRAIN_LOSS_TOL, FAMILY_TRAIN_GRAD_TOL),
+                    "cuda bfloat16": FAMILY_BF16_TOL[arch]}
+            for key, (loss_tol, aux_tol, grad_tol) in tols.items():
+                g = res.pop(key)
+                body = fa.body_for(torch.bfloat16 if key.endswith("bfloat16") else torch.float32, cfg.d_head)
+                tag = f"family train parity {arch} ({cfg.n_layers} layers, {key} vs cpu fp32)"
+                note = ""
+                if cfg.moe:
+                    flipped = rec.differing("cpu", key)
+                    check(len(rec.routes["cpu"]) == len(rec.routes[key]) > 0, f"{tag}: the MoE ran on both")
+                    if key == "cuda":
+                        check(not flipped.any(), f"{tag}: {int(flipped.sum())} of {b * s} tokens route "
+                              f"differently in some layer (none may: a sound run reads 0)")
+                    note = f" routes: {int(flipped.sum())} of {b * s} tokens differ;"
+                am, gm = a["metrics"], g["metrics"]
+                check(gm["flash_bodies"][body] == gm["flash_launches"] == launches
+                      and gm["attn_backward_calls"] == n_bwd,
+                      f"{tag}: {launches} flash launches on the {body} body, {n_bwd} backward calls")
+                loss_err = abs(gm["loss"] - am["loss"]) / abs(am["loss"])
+                aux_err = abs(gm["moe_aux"] - am["moe_aux"]) / max(abs(am["moe_aux"]), 1e-30)
+                rels = {n: ((g["grads"][n] - y).norm() / y.norm().clamp_min(1e-30)).item()
+                        for n, y in a["grads"].items()}
+                worst = max(rels, key=rels.get)
+                check(loss_err <= loss_tol,
+                      f"{tag}: loss within {loss_tol} relative ({gm['loss']} vs {am['loss']})")
+                if cfg.moe:
+                    check(am["moe_aux"] > 0 and aux_err <= aux_tol,
+                          f"{tag}: moe_aux within {aux_tol} relative ({gm['moe_aux']} vs {am['moe_aux']})")
+                check(rels[worst] <= grad_tol,
+                      f"{tag}: every gradient leaf within {grad_tol} relative norm ({worst} {rels[worst]:.2e})")
+                top = sorted(rels, key=rels.get, reverse=True)[:3]
+                notes.append(f"{key}: loss={gm['loss']:.6f} rel_err={loss_err:.3e} moe_aux rel_err="
+                             f"{aux_err:.3e};{note} worst grad rel_norm "
+                             + ", ".join(f"{n} {rels[n]:.3e}" for n in top) + f"; step={walls[key]:.1f}s")
+            check(all(y.abs().max() > 0 for y in a["grads"].values()),
+                  f"family train parity {arch}: every CPU gradient non-zero")
+            log(f"family train parity {arch} ({cfg.n_layers} layers), B={b} seq={s}: loss cpu fp32="
+                f"{a['metrics']['loss']:.6f} over {len(a['grads'])} leaves; " + "; ".join(notes)
+                + f"; wall cpu loss+backward={walls['cpu']:.1f}s total {time.perf_counter() - t0:.1f}s")
+            del a, res
+            gc.collect()
 
 
 def main() -> int:
@@ -2210,7 +2652,7 @@ def main() -> int:
         kernel_rows = phase_kernels(edges, n)
         log(f"phase 1 (kernels vs plain): {time.perf_counter() - t0:.1f}s")
         t0 = time.perf_counter()
-        counts, rd_z1, resident = phase_main_path(edges, n, k=32, window_max=256)
+        counts, rd_z1 = phase_main_path(edges, n, k=32, window_max=256)
         log(f"phase 2 (main path): {time.perf_counter() - t0:.1f}s launches={counts}")
         for name in ("window_score", "segment_sum"):
             check(counts[name] > 0, f"{name} launched on the main path")
@@ -2252,7 +2694,7 @@ def main() -> int:
             check(spot_counts[name] > 0, f"{name} launched on the spotlight path")
             counts[name] += spot_counts[name]
         t0 = time.perf_counter()
-        ooc_counts = phase_oocore(edges, n, 32, 256, resident, spot, cmp_res)
+        ooc_counts = phase_oocore(edges, n, 32, 256, spot, cmp_res)
         log(f"phase 10 (out-of-core): {time.perf_counter() - t0:.1f}s launches={ooc_counts}")
         for name in ("window_score", "segment_sum"):
             check(ooc_counts[name] > 0, f"{name} launched on the out-of-core path")
@@ -2277,6 +2719,16 @@ def main() -> int:
             f"b {time.perf_counter() - t0 - t_a:.1f}s) launches={fam_counts}")
         check(fam_counts["flash_attention"] > 0, "flash_attention launched on the families' path")
         counts["flash_attention"] += fam_counts["flash_attention"]
+        t0 = time.perf_counter()
+        phase_train_attention(FAMILY_TRAIN_ATTN_SHAPES)
+        t_a = time.perf_counter() - t0
+        fam_train_counts = phase_family_train()
+        t_b = time.perf_counter() - t0 - t_a
+        phase_family_train_parity()
+        log(f"phase 13 (LM families, training): {time.perf_counter() - t0:.1f}s (a {t_a:.1f}s, "
+            f"b {t_b:.1f}s, c {time.perf_counter() - t0 - t_a - t_b:.1f}s) launches={fam_train_counts}")
+        check(fam_train_counts["flash_attention"] > 0, "flash_attention launched on the families' training path")
+        counts["flash_attention"] += fam_train_counts["flash_attention"]
         sources = {"window_score": ws_mod, "segment_sum": ss_mod, "flash_attention": fa_mod}
         kernels = []
         for name, row in kernel_rows.items():

@@ -15,9 +15,9 @@ fault-tolerant loop, the straggler monitor and optional top-k gradient
 compression; the same printed lines, and it returns the losses. A step is
 ``lm.loss_fn`` + ``backward()`` (blocks and CE chunks rematerialised) →
 optional ``topk_compress_allreduce`` → ``adamw_update``, which updates the
-parameters and moments in place. One device: ``--tp`` above 1 exits naming
-its ROADMAP.md item. The dense family only; another family raises
-``NotImplementedError`` naming its ROADMAP.md item before anything is built.
+parameters and moments in place. Every family trains; the vlm's patches
+and whisper's frames come with each batch, as ``SyntheticTokens`` draws
+them. One device: ``--tp`` above 1 exits naming its ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -38,7 +38,7 @@ from repro_torch.models import lm
 from repro_torch.optim import adamw_init, adamw_update, cosine_schedule, topk_compress_allreduce
 from repro_torch.runtime import FaultTolerantLoop, StepFailure, StragglerMonitor
 
-__all__ = ["build_state", "make_step", "main"]
+__all__ = ["build_state", "make_step", "history_info", "main"]
 
 
 def build_state(cfg, device, tp: int = 1, seed: int = 0):
@@ -60,13 +60,15 @@ def make_step(model, cfg, lr_fn, compress: float = 0.0, tp: int = 1):
     place on ``state``. The gradients stay in the parameters' ``.grad``
     until the next step starts. ``metrics`` holds ``loss``, ``ce`` and
     ``moe_aux`` (host floats: the step ends in a device sync), and the
-    ``flash_attention`` kernel launches and backward calls it made."""
+    ``flash_attention`` kernel launches it made (``flash_launches``; by body,
+    ``flash_bodies``) and its backward calls."""
 
     def step(state, batch):
         params = state["params"]
         for p in params.values():
             p.grad = None
         launches0, backward0 = ops.launch_counts()["flash_attention"], fa.BACKWARD_CALLS
+        bodies0 = dict(fa.LAUNCHES_BY_BODY)
         loss, metrics = lm.loss_fn(model, cfg, batch, tp=tp)
         loss.backward()
         grads = {n: p.grad for n, p in params.items()}
@@ -76,6 +78,7 @@ def make_step(model, cfg, lr_fn, compress: float = 0.0, tp: int = 1):
         # staticcheck: disable=SC003 the step hands host metrics to the loop, as JAX's step_fn does
         out = {k: v.item() for k, v in dict(metrics, loss=loss).items()}
         out["flash_launches"] = ops.launch_counts()["flash_attention"] - launches0
+        out["flash_bodies"] = {b: fa.LAUNCHES_BY_BODY[b] - bodies0[b] for b in fa.BODIES}
         out["attn_backward_calls"] = fa.BACKWARD_CALLS - backward0
         return state, out
 
@@ -92,12 +95,24 @@ def _grad_flags(params) -> dict:
     return {n: tuple(f) for n, f in zip(params, flags)}
 
 
+def history_info(history) -> dict:
+    """The per-step lists of :func:`main`'s ``info`` from the metrics of the
+    steps run, in order (each a :func:`make_step` metrics dict with its
+    ``step_time_s``)."""
+    return {key: [m[k] for m in history] for key, k in (
+        ("losses", "loss"), ("moe_aux", "moe_aux"), ("step_s", "step_time_s"),
+        ("flash_launches", "flash_launches"), ("flash_bodies", "flash_bodies"),
+        ("attn_backward_calls", "attn_backward_calls"))}
+
+
 def main(argv=None, info: Optional[dict] = None):
     """Run the launcher on ``argv``; returns the losses, one per step run.
 
-    A dict passed as ``info`` receives the run's measurements: ``losses``,
-    ``step_s`` (each step's wall, host clock around a step that ends in a
-    device sync), ``flash_launches`` and ``attn_backward_calls`` per step,
+    A dict passed as ``info`` receives the run's measurements: ``losses``
+    and ``moe_aux`` per step, ``step_s`` (each step's wall, host clock
+    around a step that ends in a device sync), ``flash_launches``,
+    ``flash_bodies`` (the launches by kernel body, a dict) and
+    ``attn_backward_calls`` per step,
     ``grad_flags`` of the first step run (see :func:`_grad_flags`),
     ``tokens_per_step``, ``n_params``, ``start_step``, the loop's
     ``retries`` and ``restores`` and, on the card, ``peak_bytes``.
@@ -127,7 +142,6 @@ def main(argv=None, info: Optional[dict] = None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    lm.check_trainable(cfg)
     dev = compat.resolve_device(args.device)
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
     if dev.type == "cuda":
@@ -194,10 +208,7 @@ def main(argv=None, info: Optional[dict] = None):
     )
     if info is not None:
         info.update(
-            losses=losses,
-            step_s=[m["step_time_s"] for _, m in history],
-            flash_launches=[m["flash_launches"] for _, m in history],
-            attn_backward_calls=[m["attn_backward_calls"] for _, m in history],
+            history_info([m for _, m in history]),
             tokens_per_step=args.batch * args.seq,
             n_params=n_params,
             peak_bytes=peak,

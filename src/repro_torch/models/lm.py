@@ -15,6 +15,9 @@ every family of the JAX package:
   forward_train(model, cfg, batch, tp)             — logits for the next-token
                                                      loss (or the hidden states)
   loss_fn(model, cfg, batch, tp)                   — chunked cross-entropy
+  attention_calls(cfg, remat)                      — flash_attention launches
+                                                     and backward calls of
+                                                     one training step
   init_cache(cfg, batch, max_seq, tp, device) +
   forward_cached(model, cfg, cache, tokens, pos,
                  frames=, patches=)                — prefill / decode
@@ -29,11 +32,10 @@ bonus leaves and ``ln_x``, Mamba-2's ``a_log``, ``dt_bias``, ``d_skip`` and
 ``norm``) are fp32 here too. They are created with ``requires_grad=False``;
 a trainer turns gradients on (``model.requires_grad_(True)``). Training
 remats each block and each cross-entropy chunk with
-``torch.utils.checkpoint`` where the JAX package uses ``jax.checkpoint``;
-the cache-less attention of the training forward goes through
-``ops.flash_attention``, which is differentiable. Training is ported for the
-dense family only: ``forward_train`` and ``loss_fn`` of another family raise
-``NotImplementedError`` naming ROADMAP.md port queue 1, item 16.
+``torch.utils.checkpoint`` where the JAX package uses ``jax.checkpoint``
+(the hybrid's shared block excepted, as there); the cache-less attention of
+the training forward goes through ``ops.flash_attention``, which is
+differentiable.
 """
 from __future__ import annotations
 
@@ -50,20 +52,9 @@ from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 
 __all__ = ["ModelDims", "model_dims", "Block", "RwkvBlock", "MambaBlock", "LM", "init_params",
-           "check_trainable", "forward_train", "loss_fn", "init_cache", "forward_cached"]
+           "forward_train", "loss_fn", "attention_calls", "init_cache", "forward_cached"]
 
 Cache = Dict[str, Any]
-
-
-def check_trainable(cfg: ArchConfig) -> None:
-    """Raises ``NotImplementedError`` naming its ROADMAP.md item for a
-    family whose training is not ported (every family but ``dense``)."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"repro_torch.models.lm: training of family {cfg.family!r} ({cfg.name}) is not "
-            f"ported yet; see ROADMAP.md port queue 1, item 16 (training of the other LM "
-            f"families)"
-        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -310,16 +301,26 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, tp: int = 1, device=No
 
 
 def _attn_block(blk: Block, x, cfg: ArchConfig, dims: ModelDims, cache=None, pos: int = 0,
-                causal: bool = True, xattn_kv=None):
-    """Residual attention (+ cross-attention on ``xattn_kv``) + FFN block;
-    writes the layer's cache in place (cache-less over the whole sequence
-    when ``cache`` is None). The MoE's auxiliary loss is dropped, as the
-    JAX package's cached forward drops it."""
+                causal: bool = True, xattn_kv=None, enc_out=None):
+    """Residual attention (+ cross-attention) + FFN block; writes the
+    layer's cache in place (cache-less over the whole sequence when
+    ``cache`` is None). Returns (x, the MoE's auxiliary loss (), or None
+    without an MoE).
+
+    The cross-attention reads ``xattn_kv`` (the cached encoder K/V) or, in
+    training, ``enc_out``, which it projects to K/V itself, as the JAX
+    block does: under remat the projection is then recomputed with the
+    block, and the gradient reaches the encoder through it."""
     out, _ = L.attention(
         blk.attn, L.rms_norm(x, blk.ln1), h=dims.h, kv=dims.kv, dh=dims.dh,
         rope_theta=cfg.rope_theta, causal=causal, cache=cache, cache_pos=pos,
     )
     x = x + out
+    # staticcheck: disable=SC002 torch.utils.checkpoint runs eagerly: enc_out is None or a tensor, never traced
+    if xattn_kv is None and enc_out is not None:
+        b, te = enc_out.shape[:2]
+        xattn_kv = tuple((enc_out @ blk.xattn[w]).reshape(b, te, dims.kv, dims.dh).transpose(1, 2)
+                         for w in ("wk", "wv"))
     # staticcheck: disable=SC002 torch.utils.checkpoint runs eagerly: xattn_kv is None or a pair of tensors, never traced
     if xattn_kv is not None:
         out, _ = L.attention(blk.xattn, L.rms_norm(x, blk.ln_x), h=dims.h, kv=dims.kv,
@@ -328,15 +329,16 @@ def _attn_block(blk: Block, x, cfg: ArchConfig, dims: ModelDims, cache=None, pos
     h2 = L.rms_norm(x, blk.ln2)
     # staticcheck: disable=SC002 torch.utils.checkpoint runs eagerly: cfg is a frozen config, never traced
     if cfg.moe:
-        f, _, _ = L.moe_ffn(blk.moe, h2, n_experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
-                            capacity_factor=cfg.moe.capacity_factor)
+        f, aux, _ = L.moe_ffn(blk.moe, h2, n_experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+                              capacity_factor=cfg.moe.capacity_factor)
     else:
-        f = L.mlp(blk.mlp, h2)
-    return x + f
+        f, aux = L.mlp(blk.mlp, h2), None
+    return x + f, aux
 
 
-def _rwkv_block(blk: RwkvBlock, x, cfg: ArchConfig, state, lx_att, lx_cm):
-    """Returns (x, the new state, the two new token-shift carries)."""
+def _rwkv_block(blk: RwkvBlock, x, cfg: ArchConfig, state=None, lx_att=None, lx_cm=None):
+    """Returns (x, the new state, the two new token-shift carries); training
+    starts from no state and no carries (zeros)."""
     out, s_new, lxa = S.rwkv6_mixer(blk.att, L.rms_norm(x, blk.ln1), n_heads=cfg.n_heads,
                                     dh=cfg.d_head, state=state, last_x=lx_att)
     x = x + out
@@ -344,11 +346,19 @@ def _rwkv_block(blk: RwkvBlock, x, cfg: ArchConfig, state, lx_att, lx_cm):
     return x + out, s_new, lxa, lxc
 
 
-def _mamba_block(blk: MambaBlock, x, cfg: ArchConfig, state):
-    """Returns (x, the new state)."""
+def _mamba_block(blk: MambaBlock, x, cfg: ArchConfig, state=None):
+    """Returns (x, the new state); training starts from no state (zeros)."""
     out, s_new = S.mamba2_mixer(blk.mamba, L.rms_norm(x, blk.ln), n_heads=cfg.n_heads,
                                 d_state=cfg.ssm_state, state=state)
     return x + out, s_new
+
+
+def _patch_prefix(model: LM, patches: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The vlm's ``patches @ vit_proj`` in the promoted dtype (fp32 patches
+    against a bf16 projection multiply in fp32, as JAX promotes them), cast
+    to the model's dtype."""
+    ct = torch.promote_types(patches.dtype, model.vit_proj.dtype)
+    return (patches.to(ct) @ model.vit_proj.to(ct)).to(dtype)
 
 
 def _head(model: LM, cfg: ArchConfig) -> torch.Tensor:
@@ -366,22 +376,57 @@ def forward_train(
     """Returns (logits (B, S, V), moe_aux_loss ()); the final-normed hidden
     states (B, S, D) in place of the logits if asked.
 
-    ``batch["tokens"]``: (B, S) int. With ``remat`` each block runs under
-    ``torch.utils.checkpoint`` (non-reentrant): its activations are
-    recomputed in the backward, so on the card each layer's
-    ``flash_attention`` kernel launches twice per training step. The dense
-    family has no auxiliary loss (a zero).
+    ``batch["tokens"]``: (B, S) int; the vlm's ``batch["patches"]`` (B, P,
+    D) and whisper's ``batch["frames"]`` (B, S_enc, D), of any float dtype.
+    With ``remat`` each block runs under ``torch.utils.checkpoint``
+    (non-reentrant): its activations are recomputed in the backward, so on
+    the card each of its attentions launches ``flash_attention`` twice per
+    training step. As in the JAX package, the hybrid's shared block (after
+    every ``shared_every`` Mamba layers, none after the remainder) is not
+    rematerialised, whisper's encoder blocks are, and each decoder block
+    projects the normed encoder output to its cross K/V inside the block.
+    The vlm's patch prefix is dropped after the final norm (text positions
+    only). The auxiliary loss is the MoE's, summed over the layers of a
+    dense / moe / vlm model (a zero without an MoE).
     """
-    check_trainable(cfg)
     dims = model_dims(cfg, tp)
     x = model.embed[batch["tokens"]]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for blk in model.blocks:
+    fam = cfg.family
+
+    def run(fn, *args, **kw):
         if remat:
-            x = checkpoint(_attn_block, blk, x, cfg, dims, use_reentrant=False)
-        else:
-            x = _attn_block(blk, x, cfg, dims)
+            return checkpoint(fn, *args, use_reentrant=False, **kw)
+        return fn(*args, **kw)
+
+    if fam == "vlm":
+        x = torch.cat([_patch_prefix(model, batch["patches"], x.dtype), x], dim=1)
+    if fam in ("dense", "moe", "vlm"):
+        for blk in model.blocks:
+            x, a = run(_attn_block, blk, x, cfg, dims)
+            if cfg.moe:
+                aux = aux + a
+    elif fam == "ssm":
+        for blk in model.blocks:
+            x = run(_rwkv_block, blk, x, cfg)[0]
+    elif fam == "hybrid":
+        for i, blk in enumerate(model.blocks):
+            x = run(_mamba_block, blk, x, cfg)[0]
+            if (i + 1) % cfg.shared_every == 0:
+                x, _ = _attn_block(model.shared, x, cfg, dims)
+    elif fam == "encdec":
+        enc = batch["frames"].to(x.dtype)
+        for blk in model.enc_blocks:
+            enc, _ = run(_attn_block, blk, enc, cfg, dims, causal=False)
+        enc = L.rms_norm(enc, model.enc_ln_f)
+        for blk in model.blocks:
+            x, _ = run(_attn_block, blk, x, cfg, dims, enc_out=enc)
+    else:
+        raise ValueError(f"repro_torch.models.lm: unknown family {fam!r}")
+
     x = L.rms_norm(x, model.ln_f)
+    if fam == "vlm":
+        x = x[:, batch["patches"].shape[1]:]  # text positions only
     if return_hidden:
         return x, aux
     return x @ _head(model, cfg), aux
@@ -396,12 +441,26 @@ def loss_fn(
     aux_weight: float = 0.01,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross-entropy (+ MoE aux): (loss, dict(ce, moe_aux)), the
-    JAX keys. ``batch["tokens"]``: (B, S+1)."""
+    JAX keys. ``batch["tokens"]``: (B, S+1); ``patches`` / ``frames`` as
+    :func:`forward_train` takes them."""
     tokens = batch["tokens"]
     hidden, aux = forward_train(model, cfg, dict(batch, tokens=tokens[:, :-1]), tp=tp,
                                 remat=remat, return_hidden=True)
     ce = _chunked_ce(hidden, _head(model, cfg), tokens[:, 1:], remat=remat)
     return ce + aux_weight * aux, dict(ce=ce, moe_aux=aux)
+
+
+def attention_calls(cfg: ArchConfig, remat: bool = True) -> Tuple[int, int]:
+    """(flash_attention launches, attention backward calls) of one training
+    step of ``cfg`` (:func:`loss_fn` + ``backward()``): one backward call
+    per attention; one launch per attention, and one more for each that
+    ``remat`` recomputes — every attention but the hybrid's shared block.
+    Whisper's decoder layers each hold a self- and a cross-attention."""
+    if cfg.family == "hybrid":
+        n = cfg.n_layers // cfg.shared_every
+        return n, n
+    n = {"encdec": cfg.n_enc_layers + 2 * cfg.n_layers, "ssm": 0}.get(cfg.family, cfg.n_layers)
+    return (2 if remat else 1) * n, n
 
 
 def _chunk_loss(x_c: torch.Tensor, head: torch.Tensor, y_c: torch.Tensor) -> torch.Tensor:
@@ -477,12 +536,12 @@ def forward_cached(
     x = model.embed[tokens]
     fam = cfg.family
     if fam == "vlm" and patches is not None:
-        x = torch.cat([(patches @ model.vit_proj).to(x.dtype), x], dim=1)
+        x = torch.cat([_patch_prefix(model, patches, x.dtype), x], dim=1)
 
     if fam in ("dense", "moe", "vlm"):
         ck, cv = cache["kv"]
         for i, blk in enumerate(model.blocks):
-            x = _attn_block(blk, x, cfg, dims, (ck[i], cv[i]), pos)
+            x, _ = _attn_block(blk, x, cfg, dims, (ck[i], cv[i]), pos)
     elif fam == "ssm":
         s, lxa, lxc = cache["s"], cache["lx_att"], cache["lx_cm"]
         for i, blk in enumerate(model.blocks):
@@ -492,12 +551,12 @@ def forward_cached(
         for i, blk in enumerate(model.blocks):
             x, s[i] = _mamba_block(blk, x, cfg, s[i])
             if (i + 1) % se == 0:  # the last n_layers % se layers have no shared block after them
-                x = _attn_block(model.shared, x, cfg, dims, cache["kv"][i // se], pos)
+                x, _ = _attn_block(model.shared, x, cfg, dims, cache["kv"][i // se], pos)
     elif fam == "encdec":
         if frames is not None:
             enc = frames.to(x.dtype)
             for blk in model.enc_blocks:
-                enc = _attn_block(blk, enc, cfg, dims, causal=False)
+                enc, _ = _attn_block(blk, enc, cfg, dims, causal=False)
             enc = L.rms_norm(enc, model.enc_ln_f)
             b, te = enc.shape[:2]
 
@@ -508,7 +567,7 @@ def forward_cached(
                                  for name in ("wk", "wv"))
         (ck, cv), (xk, xv) = cache["kv"], cache["xkv"]
         for i, blk in enumerate(model.blocks):
-            x = _attn_block(blk, x, cfg, dims, (ck[i], cv[i]), pos, xattn_kv=(xk[i], xv[i]))
+            x, _ = _attn_block(blk, x, cfg, dims, (ck[i], cv[i]), pos, xattn_kv=(xk[i], xv[i]))
     else:
         raise ValueError(f"repro_torch.models.lm: unknown family {fam!r}")
 

@@ -916,3 +916,53 @@ def test_train_step_on_the_card_matches_cpu(cuda):
         assert rel(x, y) <= 1e-4
     for x, y, s in zip(g["params"], a["params"], a["start"]):
         assert rel(x - s, y - s) <= 1e-2
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "internvl2-26b", "whisper-tiny",
+                                  "rwkv6-7b", "zamba2-7b"])
+def test_family_train_step_on_the_card_matches_cpu(cuda, arch):
+    """Each family's reduced model (fp32): one ``make_step`` on the card
+    against the same weights and batch (whisper's frames, the vlm's
+    patches) on the CPU — loss and moe_aux within 1e-5, every gradient
+    within 1e-4 relative norm (the SSM families: 1e-4 of the leaf's largest
+    element, as tests/test_torch_train_families.py holds them to JAX); the
+    flash launches (each rematerialised attention twice, the hybrid's
+    shared block once) and attention backward calls of the step."""
+    from repro_torch.launch import train
+
+    cfg = get_config(arch).reduced()
+    rng = np.random.default_rng(2)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (2, 71)), dtype=torch.int32)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.as_tensor(rng.normal(size=(2, 35, cfg.d_model)), dtype=torch.float32)
+    if cfg.family == "vlm":
+        batch["patches"] = torch.as_tensor(rng.normal(size=(2, cfg.vlm_patches, cfg.d_model)),
+                                           dtype=torch.float32)
+    runs = {}
+    for dev in ("cpu", cuda):
+        model, state = train.build_state(cfg, torch.device(dev), seed=0)
+        if dev != "cpu":
+            with torch.no_grad():
+                for p, q in zip(model.parameters(), runs["cpu"]["start"]):
+                    p.copy_(q)
+        start = [p.detach().cpu().clone() for p in model.parameters()]
+        _, metrics = train.make_step(model, cfg, lambda s: 1e-2)(
+            state, {k: v.to(dev) for k, v in batch.items()})
+        runs["cpu" if dev == "cpu" else "cuda"] = dict(
+            start=start, metrics=metrics,
+            grads={n: p.grad.cpu() for n, p in model.named_parameters()})
+    a, g = runs["cpu"], runs["cuda"]
+    launches, attentions = lm.attention_calls(cfg)
+    assert g["metrics"]["flash_launches"] == launches
+    assert g["metrics"]["flash_bodies"]["fma"] == launches
+    assert g["metrics"]["attn_backward_calls"] == attentions
+    for k in ("loss", "ce", "moe_aux"):
+        np.testing.assert_allclose(g["metrics"][k], a["metrics"][k], rtol=1e-5, atol=1e-5)
+    for n, y in a["grads"].items():
+        x = g["grads"][n]
+        if cfg.family in ("ssm", "hybrid"):
+            err = ((x - y).abs().max() / y.abs().max().clamp_min(1e-30)).item()
+        else:
+            err = ((x - y).norm() / y.norm().clamp_min(1e-30)).item()
+        assert err <= 1e-4, (n, err)
+        assert y.abs().max() > 0, n

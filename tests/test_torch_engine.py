@@ -156,20 +156,24 @@ def test_launch_prints_the_jax_lines(capsys):
 
 @pytest.mark.parametrize("argv,item", [
     (["--arch", "llama3.2-3b", "--reduced", "--tp", "2"], "item 15"),
-    (["--arch", "granite-moe-1b", "--reduced", "--steps", "2"], "item 16"),
+    (["--arch", "granite-moe-1b", "--reduced", "--steps", "2"], None),
 ])
 def test_launch_names_the_roadmap_item_for_unported_paths(argv, item, capsys):
-    """What the port still lacks exits or raises naming its ROADMAP.md item
-    (the partition launcher has no such path left: graph files run, see
-    test_launch_runs_graph_files_like_jax; serving runs every family):
-    ``--tp > 1`` on the serve launcher, and training a non-dense family on
-    the train launcher."""
+    """What the port still lacks exits naming its ROADMAP.md item (the
+    partition launcher has no such path left: graph files run, see
+    test_launch_runs_graph_files_like_jax; serving and training run every
+    family): ``--tp > 1`` on the serve launcher. Training a non-dense family
+    (``item`` None) runs: two finite losses."""
     from repro_torch.launch.serve import main as serve_main
     from repro_torch.launch.train import main as train_main
 
-    main = serve_main if "--tp" in argv else train_main
-    with pytest.raises((SystemExit, NotImplementedError)) as exc:
-        main(argv + ["--device", "cpu"])
+    if item is None:
+        losses = train_main(argv + ["--batch", "2", "--seq", "8", "--device", "cpu"])
+        assert len(losses) == 2 and np.isfinite(losses).all()
+        assert "ROADMAP" not in capsys.readouterr().out
+        return
+    with pytest.raises(SystemExit) as exc:
+        serve_main(argv + ["--device", "cpu"])
     said = str(exc.value) + capsys.readouterr().err
     assert f"ROADMAP.md port queue 1, {item}" in said
 

@@ -254,17 +254,29 @@ def test_bf16_leaves_carry_exactly():
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "rwkv6-7b", "zamba2-7b",
                                   "whisper-tiny", "internvl2-26b"])
 def test_other_families_raise_naming_their_roadmap_item(arch):
-    """Serving is ported for every family (``LM`` and ``init_cache`` build;
-    tests/test_torch_families.py holds them to JAX); training is not:
-    ``forward_train`` and ``loss_fn`` raise naming item 16."""
+    """Every family is ported, serving and training (no ROADMAP.md item is
+    left to name): ``LM`` and ``init_cache`` build, ``forward_train`` gives
+    finite logits of the right shape and ``loss_fn`` two finite losses
+    (tests/test_torch_train_families.py holds them to JAX)."""
     cfg = get_config(arch).reduced()
     model = lm.init_params(cfg, torch.Generator().manual_seed(0))
     assert lm.init_cache(cfg, 1, 4, device="cpu")
-    tokens = torch.zeros((1, 5), dtype=torch.int32)
-    for call in (lambda: lm.forward_train(model, cfg, {"tokens": tokens}),
-                 lambda: lm.loss_fn(model, cfg, {"tokens": tokens})):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md port queue 1, item 16"):
-            call()
+    rng = np.random.default_rng(0)
+
+    def batch(t):
+        out = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (1, t)).astype(np.int32))}
+        if cfg.family == "encdec":
+            out["frames"] = torch.from_numpy(rng.normal(size=(1, 3, cfg.d_model)).astype(np.float32))
+        if cfg.family == "vlm":
+            out["patches"] = torch.from_numpy(
+                rng.normal(size=(1, cfg.vlm_patches, cfg.d_model)).astype(np.float32))
+        return out
+
+    with torch.no_grad():
+        logits, aux = lm.forward_train(model, cfg, batch(5))
+        losses = [lm.loss_fn(model, cfg, batch(6))[0].item() for _ in range(2)]
+    assert logits.shape == (1, 5, cfg.vocab) and torch.isfinite(logits).all()
+    assert torch.isfinite(aux) and np.isfinite(losses).all()
 
 
 def test_serve_cli_generates_on_the_cpu(capsys):

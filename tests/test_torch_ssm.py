@@ -7,7 +7,11 @@ inside a chunk, fill whole chunks, cross chunk boundaries and decode one
 token (T = 1, padded to one chunk as in the JAX package): output, final
 state and carry within 1e-5 of the tensor's scale (the chunked scans
 multiply by exp(±Σ log w) over a chunk; see tests/test_torch_families.py).
+Their gradients (training runs them under autograd) are held to ``jax.grad``
+of the same functions across chunk boundaries, within 2e-5 of each
+gradient's scale (``GRAD_TOL``).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -154,3 +158,103 @@ def test_init_leaves_follow_jax():
             if float(jnp.std(w.astype(jnp.float32))) == 0:  # a constant leaf
                 np.testing.assert_array_equal(ours[k].float().numpy(),
                                               np.asarray(w, np.float32), err_msg=k)
+
+
+# ----------------------------------------------------------------------------
+# Gradients (training runs the mixers under autograd)
+# ----------------------------------------------------------------------------
+
+# Gradients of both mixers within 2e-5 of each gradient's largest element:
+# measured at most 3.5e-6 (Mamba-2's a_log; the chunked scans' exp(±Σ log w)
+# products, as in the forward, summed again by the backward), and the
+# forward's own tolerance is 1e-5 of the scale.
+GRAD_TOL = 2e-5
+
+
+def _grads_match_jax(jax_fn, torch_fn, p, x, extra):
+    """The gradients of the scalar ``fn(params, x, extra)`` with respect to
+    every parameter, x and every entry of ``extra`` (an incoming state or
+    carry), by ``jax.grad`` and by torch autograd, each within GRAD_TOL of
+    its largest element."""
+    want = jax.grad(jax_fn, argnums=(0, 1, 2))(
+        {k: jnp.asarray(a) for k, a in p.items()}, jnp.asarray(x),
+        {k: jnp.asarray(a) for k, a in extra.items()})
+    tp, te = ({k: torch.from_numpy(a).requires_grad_(True) for k, a in d.items()} for d in (p, extra))
+    tx = torch.from_numpy(x).requires_grad_(True)
+    torch_fn(tp, tx, te).backward()
+    got = {**{k: v.grad for k, v in tp.items()}, "x": tx.grad,
+           **{f"in_{k}": v.grad for k, v in te.items()}}
+    want = {**want[0], "x": want[1], **{f"in_{k}": v for k, v in want[2].items()}}
+    assert set(got) == set(want)
+    for k, w in want.items():
+        w, g = np.asarray(w), got[k].numpy()
+        assert g.shape == w.shape, k
+        err = np.abs(g - w).max() / max(np.abs(w).max(), 1e-30)
+        assert err <= GRAD_TOL, (k, err)
+
+
+@pytest.mark.parametrize("t", [45, 100])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_rwkv6_mixer_grads_match_jax(t, with_state):
+    """The gradient of Σ out·d_out + Σ state·d_state with respect to x, every
+    parameter and the incoming state and carry, against ``jax.grad`` of
+    ``repro.models.ssm.rwkv6_mixer``, across 32-token chunk boundaries (a
+    ragged last chunk at T = 45 and 100)."""
+    rng = np.random.default_rng(t + 10 * with_state)
+    p = _rwkv_params(rng)
+    x = _rand(rng, (2, t, D))
+    extra = dict(state=_rand(rng, (2, H, DH, DH), 0.5), last_x=_rand(rng, (2, D))) if with_state else {}
+    d_out, d_state = _rand(rng, (2, t, D)), _rand(rng, (2, H, DH, DH))
+    kw = dict(n_heads=H, dh=DH)
+
+    def jax_fn(p_, x_, extra_):
+        out, s, _ = JS.rwkv6_mixer(p_, x_, **extra_, **kw)
+        return jnp.sum(out * d_out) + jnp.sum(s * d_state)
+
+    def torch_fn(p_, x_, extra_):
+        out, s, _ = S.rwkv6_mixer(p_, x_, **extra_, **kw)
+        return torch.sum(out * torch.from_numpy(d_out)) + torch.sum(s * torch.from_numpy(d_state))
+
+    _grads_match_jax(jax_fn, torch_fn, p, x, extra)
+
+
+@pytest.mark.parametrize("t", [70, 150])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_mamba2_mixer_grads_match_jax(t, with_state):
+    """As above for ``mamba2_mixer``, across 64-token chunk boundaries."""
+    rng = np.random.default_rng(t + 10 * with_state + 1)
+    n_state = 16
+    p = _mamba_params(rng, n_state)
+    x = _rand(rng, (2, t, D))
+    sshape = (2, H, n_state, 2 * D // H)
+    extra = dict(state=_rand(rng, sshape, 0.5)) if with_state else {}
+    d_out, d_state = _rand(rng, (2, t, D)), _rand(rng, sshape)
+    kw = dict(n_heads=H, d_state=n_state)
+
+    def jax_fn(p_, x_, extra_):
+        out, s = JS.mamba2_mixer(p_, x_, **extra_, **kw)
+        return jnp.sum(out * d_out) + jnp.sum(s * d_state)
+
+    def torch_fn(p_, x_, extra_):
+        out, s = S.mamba2_mixer(p_, x_, **extra_, **kw)
+        return torch.sum(out * torch.from_numpy(d_out)) + torch.sum(s * torch.from_numpy(d_state))
+
+    _grads_match_jax(jax_fn, torch_fn, p, x, extra)
+
+
+@pytest.mark.parametrize("with_last", [False, True])
+def test_rwkv6_channel_mix_grads_match_jax(with_last):
+    rng = np.random.default_rng(21 + with_last)
+    p = dict(mu=rng.random((2, D)).astype(np.float32), wk=_rand(rng, (D, FF), D**-0.5),
+             wv=_rand(rng, (FF, D), FF**-0.5), wr=_rand(rng, (D, D), D**-0.5))
+    x = _rand(rng, (2, 40, D))
+    extra = dict(last_x=_rand(rng, (2, D))) if with_last else {}
+    d_out = _rand(rng, (2, 40, D))
+
+    def jax_fn(p_, x_, extra_):
+        return jnp.sum(JS.rwkv6_channel_mix(p_, x_, **extra_)[0] * d_out)
+
+    def torch_fn(p_, x_, extra_):
+        return torch.sum(S.rwkv6_channel_mix(p_, x_, **extra_)[0] * torch.from_numpy(d_out))
+
+    _grads_match_jax(jax_fn, torch_fn, p, x, extra)

@@ -145,6 +145,42 @@ def test_checkpoint_roundtrip_bitexact(tmp_path, async_write):
     assert manifest["shapes"]["opt/step"] == []
 
 
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "zamba2-7b"])
+def test_checkpoint_roundtrip_of_a_bf16_family_model(tmp_path, arch):
+    """A bf16 family model's train state — bf16 weights beside the fp32
+    leaves JAX keeps (the MoE router; Mamba-2's ``a_log`` and its other
+    decay leaves), fp32 moments and residual — comes back bit for bit, each
+    leaf in its own dtype, into a state built from another seed."""
+    import dataclasses
+
+    from repro_torch.launch import train
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="bfloat16")
+    _, state = train.build_state(cfg, "cpu", seed=0)
+    fp32 = {"granite-moe-1b-a400m": "blocks.0.moe.router", "zamba2-7b": "blocks.0.mamba.a_log"}[arch]
+    assert state["params"][fp32].dtype == torch.float32
+    assert state["params"]["embed"].dtype == torch.bfloat16
+    g = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        for n, p in state["params"].items():  # values bf16 cannot hold in the fp32 leaves
+            p.copy_(torch.randn(p.shape, generator=g))
+        for tree in (state["opt"]["m"], state["opt"]["v"], state["residual"]):
+            for t in tree.values():
+                t.copy_(torch.randn(t.shape, generator=g))
+    state["opt"]["step"].fill_(5)
+    saved = _clone(state)
+    ckpt = CheckpointManager(str(tmp_path), keep=1, async_write=False)
+    ckpt.save(5, state)
+    _, template = train.build_state(cfg, "cpu", seed=1)
+    restored, manifest = ckpt.restore(template)
+    assert manifest["dtypes"][f"params/{fp32}"] == "float32"
+    assert manifest["dtypes"]["params/embed"] == "bfloat16"
+    for (key, a), (_, b) in zip(_leaves(saved), _leaves(restored)):
+        assert a.dtype == b.dtype, key
+        bits = {torch.bfloat16: torch.int16}.get(a.dtype)
+        assert torch.equal(a.view(bits), b.view(bits)) if bits else torch.equal(a, b), key
+
+
 def test_checkpoint_save_then_inplace_update_restores_saved_values(tmp_path):
     """save() takes its host copy before it returns: updating the tensors in
     place right after (as the train step does) cannot reach the file."""

@@ -238,10 +238,17 @@ def test_chunked_ce_matches_jax(s, n_chunks):
 
 
 def test_forward_train_refuses_other_families():
+    """Nothing is refused any more: a reduced MoE model (built as serving
+    builds it) trains, with finite logits of the right shape and two finite
+    losses (tests/test_torch_train_families.py holds every family to JAX)."""
     cfg = get_config("granite-moe-1b-a400m").reduced()
-    model = lm.LM(cfg, device="cpu")  # serving builds it
-    with pytest.raises(NotImplementedError, match="item 16"):
-        lm.forward_train(model, cfg, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+    model = lm.init_params(cfg, torch.Generator().manual_seed(0))
+    logits, aux = lm.forward_train(model, cfg, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+    assert logits.shape == (1, 4, cfg.vocab) and torch.isfinite(logits).all()
+    assert aux.item() > 0  # the MoE's auxiliary loss
+    losses = [lm.loss_fn(model, cfg, {"tokens": _t(_tokens(cfg, 2, 9, s))})[0].item()
+              for s in (1, 2)]
+    assert np.isfinite(losses).all()
 
 
 # ----------------------------------------------------------------------------
