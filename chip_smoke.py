@@ -48,9 +48,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    256, Zamba2-7B's shared attention (q (4, 32, 2048, 112), causal) on the
    ``mma_sync`` (bf16) and ``fma`` (fp32) bodies, and Whisper-tiny's
    non-causal shapes at batch 8 (the encoder over 224 frames, the
-   cross-attention of 448 queries and of one decoded query over them); at
-   each, kernel / plain / SDPA times and the bound (SDPA is timed as a
-   yardstick only; the port never calls it).
+   cross-attention of 448 queries and of one decoded query over them), and
+   phase 14's prefills at one tp 2 rank's heads (llama 12 over 4, granite 8
+   over 4, prompt 512); at each, kernel / plain / SDPA times and the bound
+   (SDPA is timed as a yardstick only; the port never calls it).
 6. LM serving at full width: ``repro_torch.launch.serve.main`` on
    Llama-3.2-3B (28 layers, bf16, random weights from the seed), batch 4,
    prompt 2048, 64 generated tokens — 28 flash launches in the prefill,
@@ -170,9 +171,26 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``loss_fn`` + ``backward()`` on the CPU from the same weights, the MoE's
    routes counted first, then the loss, the MoE aux and every gradient
    leaf.
+14. Tensor-parallel serving: (a) llama3.2-3b (the ``shard`` head policy,
+   the vocab split) and granite-moe-1b-a400m (its 32 experts split, its
+   vocab of 49,155 whole) at full width, bf16, batch 4, prompt 512, 8
+   tokens, served at tp 1 in this process, then by ``launch.serve --tp 2``
+   as two ranks on cuda:0 over gloo (``torch.multiprocessing`` spawn, a
+   file store under ``build/chip_smoke/tp``, joined with a timeout; each
+   rank's counts zeroed just before its run and read just after): the
+   first-token logits and every step's within ``TP_LOGIT_TOL`` of tp 1's
+   scale while both runs hold the same tokens and MoE routes (granite's
+   route flips counted first), a greedy token different only at a near
+   tie, every prefill's ``flash_attention`` launches on the ``wgmma`` body
+   at the rank's local head counts, each rank's peak memory below tp 1's;
+   prefill ms, decode ms per step and collectives per decode step; (b)
+   llama at world 1 over NCCL through the same distributed path: tokens
+   and logits bit-equal to tp 1's; (c) with two cards, llama at tp 2 over
+   NCCL on cuda:0-1: (a)'s tokens (logged as not run on one card).
 
-The kernels' ``launches`` are those of phases 2, 6, 8, 9, 10, 11, 12 and 13 (each
-path's counts zeroed just before it and read just after). Then one JSON line with
+The kernels' ``launches`` are those of phases 2, 6, 8, 9, 10, 11, 12, 13 and 14
+(each path's counts zeroed just before it and read just after; phase 14's
+are its ranks'). Then one JSON line with
 every kernel's numbers, and, last, the
 ``{"ok": true, "device": ...}`` line. It imports nothing of JAX and nothing
 of the JAX package.
@@ -579,17 +597,27 @@ def profiled(fn, what: str, tries: int = 3):
     return out, kern, wall
 
 
-def ss_kernels_per_call(fn, calls: int = 5) -> float:
+def ss_kernels_per_call(fn, calls: int = 5, tries: int = 3) -> float:
     """Device kernels per call of ``fn`` under torch.profiler; fails if any
-    of them is not the segment_sum kernel."""
+    of them is not the segment_sum kernel. Every call launches the kernel
+    (its launch counter says so), so a session with fewer kernel records
+    than calls has lost records, as CUPTI now and then does (seen on the
+    H100: 4 of 5): it is logged and the calls are profiled again, up to
+    ``tries`` sessions. More records than calls are returned at once."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    _, kern, _ = profiled(lambda: [fn() for _ in range(calls)], "segment_sum kernels per call")
+    for session in range(1, tries + 1):
+        _, kern, _ = profiled(lambda: [fn() for _ in range(calls)], "segment_sum kernels per call")
+        n = sum(e.count for e in kern)
+        if n >= calls:
+            break
+        log(f"segment_sum kernels per call: the profiler recorded {n} kernels for {calls} calls "
+            f"(session {session} of {tries})")
     check(all("segsum_" in e.key for e in kern),
           f"segment_sum: only its kernel on the device ({[e.key[:60] for e in kern]})")
-    return sum(e.count for e in kern) / calls
+    return n / calls
 
 
 # ----------------------------------------------------------------------------
@@ -1491,6 +1519,10 @@ def phase_flash():
     measure("whisper self", (8, 6, 6, 448, 448, 64), torch.bfloat16)
     measure("whisper cross", (8, 6, 6, 448, 224, 64), torch.bfloat16, causal=False)
     measure("whisper cross decode", (8, 6, 6, 1, 224, 64), torch.bfloat16, causal=False)
+    # Phase 14's prefills at tp 2: each rank's local heads (llama 12 q over
+    # 4 KV heads, granite 8 over 4) at prompt 512, wgmma.
+    measure("llama tp 2 rank", (4, 12, 4, 512, 512, 128), torch.bfloat16)
+    measure("granite tp 2 rank", (4, 8, 4, 512, 512, 64), torch.bfloat16)
     return row
 
 
@@ -2150,12 +2182,15 @@ def family_models(cfg, *copies):
 class MoeRoutes:
     """While entered, every ``layers.moe_ffn`` call records its tokens' top-k
     experts (sorted; the router's fp32 softmax, stable-sorted as the layer
-    sorts it) in ``routes[key]`` and the first input of each key in
-    ``inputs[key]``, where key is the input's device type and, if it is not
-    fp32, its dtype ("cpu", "cuda", "cuda bfloat16")."""
+    sorts it) in ``routes[key]`` and the first input and output of each key
+    in ``inputs[key]`` and ``outputs[key]``, where key is the input's device
+    type and, if it is not fp32, its dtype ("cpu", "cuda", "cuda
+    bfloat16"). ``first_input`` (an array of the first call's shape), if
+    given, replaces the input of the first call."""
 
-    def __init__(self):
-        self.routes, self.inputs = {}, {}
+    def __init__(self, first_input=None):
+        self.routes, self.inputs, self.outputs = {}, {}, {}
+        self.first_input = first_input
 
     @staticmethod
     def key(x):
@@ -2171,12 +2206,20 @@ class MoeRoutes:
         self.real = real = layers.moe_ffn
 
         def recording_moe(params, x, **kw):
+            if self.first_input is not None:
+                x = torch.as_tensor(self.first_input).to(x.device, x.dtype)
+                self.first_input = None
             key = self.key(x)
-            self.inputs.setdefault(key, x.detach().float().cpu())
+            first = key not in self.inputs
+            if first:
+                self.inputs[key] = x.detach().float().cpu()
             logits = x.detach().reshape(-1, x.shape[-1]).float() @ params["router"].detach()
             top = torch.sort(torch.softmax(logits, -1), dim=-1, descending=True, stable=True).indices
             self.routes.setdefault(key, []).append(top[:, :kw["top_k"]].sort(-1).values.cpu())
-            return real(params, x, **kw)
+            out = real(params, x, **kw)
+            if first:
+                self.outputs[key] = out[0].detach().float().cpu()
+            return out
 
         layers.moe_ffn = recording_moe
         return self
@@ -2189,6 +2232,7 @@ class MoeRoutes:
     def clear(self):
         self.routes.clear()
         self.inputs.clear()
+        self.outputs.clear()
 
     def differing(self, a, b, since=0):
         """(tokens,) bool: the tokens whose top-k experts differ between the
@@ -2609,6 +2653,358 @@ def phase_family_train_parity():
             gc.collect()
 
 
+# ----------------------------------------------------------------------------
+# Phase 14: tensor-parallel serving, two ranks on one card
+# ----------------------------------------------------------------------------
+
+TP_BATCH, TP_PROMPT, TP_GEN = 4, 512, 8
+TP_ARGS = ["--batch", str(TP_BATCH), "--prompt-len", str(TP_PROMPT), "--gen", str(TP_GEN)]
+TP_RUNS = ["llama3.2-3b", "granite-moe-1b-a400m"]
+# bf16 logits of the tp 2 run against tp 1's, relative to their largest
+# magnitude, while both runs have taken the same tokens. The row-split
+# products are summed in fp32 and cast once, but the column-split GEMMs
+# and the one-device bf16 GEMMs round their fp32 sums in other orders, so
+# hidden states differ by a bf16 rounding here and there, layer after
+# layer; the decode merge casts each slice's own softmax to bf16 (JAX's
+# rounding, per slice). Readings (tools/tp_readings.py, llama3.2-3b at
+# prompt 512, NVIDIA H100 80GB HBM3 at 700 W): a sound run 0.0208-0.0210 of
+# the scale at its worst step; bf16 partial sums (GSPMD's rounding) 0.0225;
+# decode's merge without its rescale 0.359, and tokens changed where tp 1's
+# logits lay 0.34 and 0.75 apart. The tolerance sits 2.9 times above the
+# first and 6 times below the last. A greedy token may differ only where
+# tp 1's two logits lie within the same tolerance, and a row is compared no
+# further after it.
+TP_LOGIT_TOL = 6e-2
+# The MoE (granite: 32 experts, top 8, random weights) routes chaotically
+# in bf16: a change of one bf16 ulp in a few of a layer's inputs flips a few
+# routes, a flipped route changes that token's output by its whole scale,
+# and attention spreads it to the later tokens, layer after layer. So the
+# experts are checked where the routes are still equal: the first MoE
+# layer's input (the attention sublayer's output, normed) within
+# TP_MOE_INPUT_TOL of its scale at every position, at most
+# TP_ROUTE_FLIP_MAX of the tokens routed differently there, and its output
+# (the experts' combine, all-reduced over the ranks) within
+# TP_MOE_OUTPUT_TOL of its scale on the tokens before the first one routed
+# differently (all of them in a sound run). The later
+# layers' flips are held to a floor measured in the same run: tp 1 fed tp
+# 2's first MoE input, which differs from tp 1's only by the roundings
+# there, flips routes in the later layers by itself. tp 2 may flip at most
+# TP_FLIPS_OVER_FLOOR more of the prefill's (layer, token) decisions than
+# that floor, and at most TP_SECOND_LAYER_FLIPS of the tokens at the second
+# MoE layer, the first whose input went through the experts. Logits are
+# compared only on rows whose prompt routes equal tp 1's in every layer.
+# Readings (tools/tp_readings.py, NVIDIA H100 80GB HBM3 at 700 W): a sound
+# run's output lies 0.0038 of its scale from tp 1's (one bf16 ulp at 64),
+# flips 0.0049 of the tokens at the second layer and 0.355 of the
+# decisions against the floor's 0.357; with the combine's all-reduce
+# dropped, or each rank on the other's capacity rows, the output is 0.98
+# and 1.48 of its scale off and 0.98-1.0 of the tokens flip at the second
+# layer, 0.96 of the decisions in all.
+TP_MOE_INPUT_TOL = 2e-2
+TP_ROUTE_FLIP_MAX = 0.02
+TP_MOE_OUTPUT_TOL = 2e-2
+TP_FLIPS_OVER_FLOOR = 0.10
+TP_SECOND_LAYER_FLIPS = 0.05
+TP_TIMEOUT = 240.0
+
+
+def tp_dir() -> str:
+    path = os.path.join(HERE, "build", "chip_smoke", "tp")
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def tp_store(name: str) -> str:
+    path = os.path.join(tp_dir(), name)
+    if os.path.exists(path):
+        os.remove(path)
+    return path
+
+
+class FlashShapes:
+    """While entered, records each ``ops.flash_attention`` call's (q shape,
+    k shape) — the shapes the wrapper launches the kernel at."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+
+        self.shapes, self.real = [], ops.flash_attention
+
+        def recording(q, k, v, **kw):
+            self.shapes.append((tuple(q.shape), tuple(k.shape)))
+            return self.real(q, k, v, **kw)
+
+        ops.flash_attention = recording
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+
+        ops.flash_attention = self.real
+
+
+def tp_serve(argvs, first_input=None):
+    """Run ``serve.main`` on each argv in this process with its counts
+    zeroed just before and read just after; returns per run (tokens, info,
+    each step's logits, flash shapes, MoE routes: a list of (tokens, k)
+    int16 arrays, one per MoE call, or None). ``info`` holds an MoE's first
+    input and output (``moe_input``, ``moe_output``); ``first_input``
+    replaces that input (``MoeRoutes``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    out = []
+    for argv in argvs:
+        info = {}
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with FlashShapes() as fl, MoeRoutes(first_input) as rec:
+            ops.reset_launch_counts()
+            gen = serve.main(argv, info=info, keep_logits=True)
+            info["counts"] = ops.launch_counts()
+        info["peak_bytes"] -= base  # what the run itself held at its peak
+        routes = next(iter(rec.routes.values()), None)
+        if routes is not None:
+            info["moe_input"] = next(iter(rec.inputs.values())).numpy()
+            info["moe_output"] = next(iter(rec.outputs.values())).numpy()
+        out.append((gen, info, info.pop("logits"), sorted(set(fl.shapes)),
+                    None if routes is None else [r.numpy().astype(np.int16) for r in routes]))
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank(rank, argvs):
+    """One rank of phase 14 (a spawned process): ``tp_serve``."""
+    sys.path.insert(0, SRC)
+    return tp_serve(argvs)
+
+
+def route_flips(routes1, routes2, b):
+    """(share of tokens whose top-k differ at the first MoE layer, share of
+    the prefill's (layer, token) decisions that differ, per-call (tokens,)
+    differ flags, the prefill's MoE call count)."""
+    import numpy as np
+
+    n_layers = sum(r.shape[0] > b for r in routes1)  # the prefill's calls, (B·T, k) each
+    differs = [(r1 != r2).any(-1) for r1, r2 in zip(routes1, routes2)]
+    return (float(differs[0].mean()), float(np.stack(differs[:n_layers]).mean()), differs,
+            n_layers)
+
+
+def tp_diff(want, got):
+    """How far a run's logits, tokens and MoE routes lie from another's
+    (``want``), as ``tp_compare`` holds them: a row whose prompt routes
+    differ in any layer is not compared; a row is compared no further after
+    its token differs (that step's tp 1 logit gap is kept) or its decode
+    routes differ."""
+    import numpy as np
+
+    gen1, info1, logits1, _, routes1 = want
+    gen2, info2, logits2, _, routes2 = got
+    b = gen1.shape[0]
+    d = dict(scale=max(1.0, float(np.abs(logits1[0]).max())), errs=[], rows=[], ties=[],
+             equal=bool((gen1 == gen2).all()))
+    live = np.ones(b, bool)
+    n_layers, differs = 0, []
+    if routes1 is not None:
+        d["calls"] = (len(routes1), len(routes2))
+        d["first"], d["flips"], differs, n_layers = route_flips(routes1, routes2, b)
+        d["by_layer"] = [round(float(x.mean()), 4) for x in differs[:n_layers]]
+        x1, x2 = info1["moe_input"], info2["moe_input"]
+        d["x_scale"] = max(1.0, float(np.abs(x1).max()))
+        d["x_err"] = float(np.abs(x2 - x1).max())
+        d["x_differ"] = (int((x2 != x1).sum()), x1.size)
+        # A token keeps its capacity slots (so its drops) while every token
+        # before it routes alike: the expert queues fill in token order.
+        y1, y2 = info1["moe_output"], info2["moe_output"]
+        upto = int(np.argmax(differs[0])) if differs[0].any() else differs[0].size
+        alike = (np.arange(differs[0].size) < upto).reshape(y1.shape[:-1])
+        d["y_scale"] = max(1.0, float(np.abs(y1).max()))
+        d["y_err"] = float(np.abs(y2 - y1)[alike].max()) if alike.any() else float("inf")
+        live &= ~np.stack(differs[:n_layers]).any(0).reshape(b, -1).any(1)
+    for i, (l1, l2) in enumerate(zip(logits1, logits2)):
+        if i and differs:  # decode step i - 1's routes
+            live &= ~np.stack(differs[n_layers * i:n_layers * (i + 1)]).any(0)
+        if not live.any():
+            break
+        d["errs"].append(float(np.abs(l2[live] - l1[live]).max()))
+        d["rows"].append(int(live.sum()))
+        for r in np.nonzero(live & (gen1[:, i] != gen2[:, i]))[0]:
+            d["ties"].append(abs(float(l1[r, gen1[r, i]] - l1[r, gen2[r, i]])))
+            live[r] = False
+    return d
+
+
+def tp_diff_line(d) -> str:
+    line = (f"logits max_abs_err per step={[round(e, 5) for e in d['errs']]} (scale "
+            f"{d['scale']:.3f}) rows compared per step={d['rows']} tokens changed at tp 1 logit "
+            f"gaps={d['ties']} tokens equal={int(d['equal'])}")
+    if "first" in d:
+        line += (f" first MoE layer: input max_abs_err={d['x_err']:.5f} (scale {d['x_scale']:.3f}; "
+                 f"{d['x_differ'][0]} of {d['x_differ'][1]} elements differ), {d['first']:.5f} of "
+                 f"tokens route differently, output max_abs_err before the first token routed "
+                 f"differently="
+                 f"{d['y_err']:.5f} (scale {d['y_scale']:.3f}); prefill decisions differing over "
+                 f"all layers={d['flips']:.5f}, by layer={d['by_layer']}")
+    return line
+
+
+def tp_compare(arch, want, got, what, floor=None):
+    """Holds a run's logits and tokens to tp 1's (``want``, ``tp_diff``):
+    the MoE's first layer's input, routes and output within
+    ``TP_MOE_INPUT_TOL``, ``TP_ROUTE_FLIP_MAX`` and ``TP_MOE_OUTPUT_TOL``,
+    its later layers' flips within ``TP_SECOND_LAYER_FLIPS`` and
+    ``TP_FLIPS_OVER_FLOOR`` of the ``floor`` run's (``tp_diff`` of tp 1 fed
+    this run's first MoE input); every step's logits on the rows compared
+    within ``TP_LOGIT_TOL`` of their scale (every step, without an MoE); a
+    token that differs only at a near tie of tp 1's logits (within the same
+    tolerance). Logs the numbers before it checks them."""
+    d = tp_diff(want, got)
+    log(f"tp {what} {arch} vs tp 1 (tolerance {TP_LOGIT_TOL} x scale): {tp_diff_line(d)}")
+    if "first" in d:
+        check(d["calls"][0] == d["calls"][1], f"tp {what} {arch}: as many MoE calls as tp 1")
+        check(d["x_err"] <= TP_MOE_INPUT_TOL * d["x_scale"],
+              f"tp {what} {arch}: the first MoE layer's input within {TP_MOE_INPUT_TOL} of its scale")
+        check(d["first"] <= TP_ROUTE_FLIP_MAX,
+              f"tp {what} {arch}: at most {TP_ROUTE_FLIP_MAX} of the tokens route differently "
+              "at the first MoE layer")
+        check(d["y_err"] <= TP_MOE_OUTPUT_TOL * d["y_scale"],
+              f"tp {what} {arch}: the first MoE layer's output within {TP_MOE_OUTPUT_TOL} of its "
+              "scale before the first token routed differently")
+        check(len(d["by_layer"]) > 1 and d["by_layer"][1] <= TP_SECOND_LAYER_FLIPS,
+              f"tp {what} {arch}: at most {TP_SECOND_LAYER_FLIPS} of the tokens route differently "
+              "at the second MoE layer")
+        check(d["flips"] <= floor["flips"] + TP_FLIPS_OVER_FLOOR,
+              f"tp {what} {arch}: prefill decisions differing {d['flips']:.4f} within "
+              f"{TP_FLIPS_OVER_FLOOR} of the floor's {floor['flips']:.4f}")
+    else:
+        check(len(d["errs"]) == len(want[2]), f"tp {what} {arch}: every step compared")
+    check(all(e <= TP_LOGIT_TOL * d["scale"] for e in d["errs"]),
+          f"tp {what} {arch}: logits within {TP_LOGIT_TOL} of their scale")
+    check(all(g <= TP_LOGIT_TOL * d["scale"] for g in d["ties"]),
+          f"tp {what} {arch}: a token differs only at a near tie")
+
+
+def phase_tp():
+    """(a) llama3.2-3b and granite-moe-1b-a400m at full width (bf16) served
+    at tp 1 in this process, then by ``launch.serve --tp 2`` as two gloo
+    ranks on cuda:0 (spawned; a file store; joined with a timeout): logits
+    and tokens against tp 1's (``tp_compare``; granite's later routes
+    against tp 1 fed tp 2's first MoE input, run after), every prefill's
+    ``flash_attention`` launches on the ``wgmma`` body at the rank's local
+    head counts, each rank's peak memory below tp 1's; (b) llama at world 1
+    over NCCL through the distributed path: tokens and every step's logits
+    bit-equal to tp 1's; (c) with two cards, llama at tp 2 over NCCL on
+    cuda:0-1: (a)'s tokens. Returns the ranks' launch counts (both ranks,
+    every run of (a)-(c))."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as meshes
+
+    import numpy as np
+
+    base = {arch: ["--arch", arch] + TP_ARGS for arch in TP_RUNS}
+    steps = TP_GEN - 1
+    t0 = time.perf_counter()
+    ref = dict(zip(TP_RUNS, tp_serve([base[a] for a in TP_RUNS])))
+    log(f"tp phase: tp 1 runs {time.perf_counter() - t0:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    t0 = time.perf_counter()
+    argvs = [base[a] + ["--tp", "2", "--dist-backend", "gloo",
+                        "--dist-init", f"file://{tp_store('gloo-' + a)}"] for a in TP_RUNS]
+    ranks = meshes.spawn(tp_rank, 2, (argvs,), timeout=TP_TIMEOUT)
+    log(f"tp phase: (a) two gloo ranks on cuda:0, {time.perf_counter() - t0:.1f}s (spawn included)")
+    for i, arch in enumerate(TP_RUNS):
+        cfg = get_config(arch)
+        want = ref[arch]
+        floor = None
+        if want[4] is not None:  # the MoE's floor: tp 1 fed tp 2's first MoE input
+            t1 = time.perf_counter()
+            (fed,) = tp_serve([base[arch]], first_input=ranks[0][i][1]["moe_input"])
+            floor = tp_diff(want, fed)
+            log(f"tp (a) {arch} floor, tp 1 fed tp 2's first MoE layer input "
+                f"({time.perf_counter() - t1:.1f}s): {tp_diff_line(floor)}")
+            del fed
+        h, kv, _ = cfg.padded_heads(2)
+        for r, runs in enumerate(ranks):
+            got = runs[i]
+            gen, info = got[0], got[1]
+            add(info["counts"])
+            check(gen.shape == want[0].shape, f"tp (a) {arch} rank {r}: ({gen.shape}) tokens")
+            check(info["prefill_flash_bodies"].get("wgmma", 0) == cfg.n_layers
+                  and sum(info["prefill_flash_bodies"].values()) == cfg.n_layers,
+                  f"tp (a) {arch} rank {r}: {cfg.n_layers} prefill flash launches, all wgmma")
+            check(sum(info["decode_flash_bodies"].values()) == 0,
+                  f"tp (a) {arch} rank {r}: no flash launch in decode")
+            b, t = TP_BATCH, TP_PROMPT
+            local = ((b, h // 2, t, cfg.d_head), (b, kv // 2, t, cfg.d_head))
+            check(got[3] == [local], f"tp (a) {arch} rank {r}: flash at the local heads {got[3]} == {[local]}")
+            check(info["peak_bytes"] < want[1]["peak_bytes"],
+                  f"tp (a) {arch} rank {r}: peak memory {info['peak_bytes'] / 2**30:.3f} GiB below "
+                  f"tp 1's {want[1]['peak_bytes'] / 2**30:.3f}")
+            tp_compare(arch, want, got, f"(a) rank {r}", floor)
+            if r == 0:
+                dec = info["decode_collectives"]
+                per_step = {op: [n / steps, nbytes / steps] for op, (n, nbytes) in dec.items()}
+                log(f"tp (a) {arch} tp=2 gloo B={b} prompt={t} gen={steps + 1}: "
+                    f"prefill_ms={info['prefill_s'] * 1e3:.3f} (tp 1: {want[1]['prefill_s'] * 1e3:.3f}) "
+                    f"decode_ms_per_step={info['decode_s'] / steps * 1e3:.3f} "
+                    f"(tp 1: {want[1]['decode_s'] / steps * 1e3:.3f}) "
+                    f"peak_GiB per rank={[round(x / 2**30, 3) for x in info['peak_bytes_per_rank']]} "
+                    f"(tp 1: {want[1]['peak_bytes'] / 2**30:.3f}) flash shapes={got[3]}")
+                log(f"tp (a) {arch} collectives per decode step (count, bytes per rank): "
+                    + ", ".join(f"{op} {n:.0f} {nb:.0f}" for op, (n, nb) in sorted(per_step.items()))
+                    + "; prefill: " + ", ".join(f"{op} {n} {nb}" for op, (n, nb)
+                                                in sorted(info["prefill_collectives"].items())))
+        check(np.array_equal(ranks[0][i][0], ranks[1][i][0]), f"tp (a) {arch}: both ranks' tokens equal")
+    tokens_a = ranks[0][0][0]
+    del ranks
+    gc.collect()
+
+    t0 = time.perf_counter()
+    arch = TP_RUNS[0]
+    (one,) = meshes.spawn(tp_rank, 1, ([base[arch] + ["--dist-backend", "nccl", "--dist-init",
+                                                       f"file://{tp_store('nccl-1')}"]],),
+                          timeout=TP_TIMEOUT)
+    gen, info, logits = one[0][:3]
+    add(info["counts"])
+    check(info["backend"] == "nccl" and info["world"] == 1, "tp (b): the NCCL group of one rank ran")
+    check(np.array_equal(gen, ref[arch][0]) and all(
+        np.array_equal(a, c) for a, c in zip(logits, ref[arch][2])),
+        "tp (b): NCCL at world 1 gives tp 1's tokens and logits bit for bit")
+    log(f"tp (b) {arch} NCCL world 1: tokens and {len(logits)} steps' logits bit-equal to the "
+        f"non-distributed run; {time.perf_counter() - t0:.1f}s (spawn included)")
+
+    if torch.cuda.device_count() >= 2:
+        t0 = time.perf_counter()
+        ranks = meshes.spawn(tp_rank, 2, ([base[arch] + ["--tp", "2", "--dist-backend", "nccl",
+                                                          "--dist-init", f"file://{tp_store('nccl-2')}"]],),
+                             timeout=TP_TIMEOUT)
+        for r, runs in enumerate(ranks):
+            add(runs[0][1]["counts"])
+            check(np.array_equal(runs[0][0], tokens_a),
+                  f"tp (c) rank {r}: NCCL on two cards gives (a)'s tokens")
+        log(f"tp (c) {arch} NCCL on cuda:0-1: tokens equal (a)'s; "
+            f"decode_ms_per_step={ranks[0][0][1]['decode_s'] / steps * 1e3:.3f}; "
+            f"{time.perf_counter() - t0:.1f}s")
+    else:
+        log(f"tp (c): not run: {torch.cuda.device_count()} card(s), two needed")
+    return total
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch not found beside this script; run it "
@@ -2729,6 +3125,11 @@ def main() -> int:
             f"b {t_b:.1f}s, c {time.perf_counter() - t0 - t_a - t_b:.1f}s) launches={fam_train_counts}")
         check(fam_train_counts["flash_attention"] > 0, "flash_attention launched on the families' training path")
         counts["flash_attention"] += fam_train_counts["flash_attention"]
+        t0 = time.perf_counter()
+        tp_counts = phase_tp()
+        log(f"phase 14 (tensor-parallel serving): {time.perf_counter() - t0:.1f}s launches={tp_counts}")
+        check(tp_counts["flash_attention"] > 0, "flash_attention launched on the tensor-parallel path")
+        counts["flash_attention"] += tp_counts["flash_attention"]
         sources = {"window_score": ws_mod, "segment_sum": ss_mod, "flash_attention": fa_mod}
         kernels = []
         for name, row in kernel_rows.items():

@@ -27,8 +27,10 @@ from repro_torch import compat
 from repro_torch.core.adwise import Carry
 from repro_torch.configs.base import ArchConfig
 from repro_torch.engine import partitioned
+from repro_torch.launch import sharding
 from repro_torch.models import lm
 from repro_torch.models.names import jax_leaf, jax_leaves
+from repro_torch.models.tp import NO_SHARD, Shard
 
 __all__ = [
     "carry_from_numpy",
@@ -131,7 +133,8 @@ def _per_param(tree: Mapping[str, Any], model: lm.LM, cfg: ArchConfig, what: str
     nested dict in the JAX ``init_params`` layout (stacked ``blocks`` and
     ``enc_blocks`` leaves split per layer). Every leaf must be present with
     the port's shape, and nothing else may be: a missing, extra or
-    mis-shaped leaf raises."""
+    mis-shaped leaf raises. A sharded model's leaves are read whole and
+    cut to the rank's part (``LM.tp_layout``)."""
     src = _leaves(tree)
     want = {name: jax_leaf(name) for name, _ in model.named_parameters()}
     missing = {key for key, _ in want.values()} - set(src)
@@ -147,17 +150,19 @@ def _per_param(tree: Mapping[str, Any], model: lm.LM, cfg: ArchConfig, what: str
             if a.shape[0] != n:
                 raise ValueError(f"{what}: {key} stacks {a.shape[0]} layers, the config {n}")
             a = a[layer]
-        if tuple(a.shape) != tuple(p.shape):
+        full, idx = model.tp_layout.get(name, (tuple(p.shape), None))
+        if tuple(a.shape) != full:
             raise ValueError(
-                f"{what}: {name} has shape {tuple(a.shape)}, expected {tuple(p.shape)}"
+                f"{what}: {name} has shape {tuple(a.shape)}, expected {full}"
             )
-        out[name] = a
+        out[name] = a if idx is None else a[idx]
     return out
 
 
 @torch.no_grad()
 def lm_params_from_numpy(
     params: Mapping[str, Any], cfg: ArchConfig, device=None, tp: int = 1,
+    shard: Shard = NO_SHARD,
 ) -> lm.LM:
     """The port's :class:`~repro_torch.models.lm.LM` on ``device`` from the
     nested dict of JAX ``lm.init_params`` leaves as numpy arrays, for every
@@ -171,8 +176,13 @@ def lm_params_from_numpy(
     package keeps in fp32 in a bf16 model (the MoE router, RWKV-6's ``w0``
     ``w_a`` ``w_b`` ``u`` ``ln_x``, Mamba-2's ``a_log`` ``dt_bias``
     ``d_skip`` ``norm``) stay fp32, unrounded.
+
+    ``tp`` is the model-parallel degree the JAX parameters were drawn for
+    (their heads padded by ``ArchConfig.padded_heads(tp)``); under a
+    ``shard`` of that degree each parameter receives the rank's slice of its
+    leaf, as ``launch.sharding.param_specs(mode="serve")`` places it.
     """
-    model = lm.LM(cfg, tp, device=device)
+    model = lm.LM(cfg, tp, device=device, shard=shard)
     arrays = _per_param(params, model, cfg, "lm_params_from_numpy")
     for name, p in model.named_parameters():
         p.copy_(_as_torch(arrays[name], p.dtype, p.device))
@@ -246,14 +256,22 @@ def _map_tree(tree: Any, fn) -> Any:
     return fn(tree)
 
 
-def cache_from_numpy(cache: Mapping[str, Any], device=None) -> lm.Cache:
+def cache_from_numpy(cache: Mapping[str, Any], device=None, shard: Shard = NO_SHARD) -> lm.Cache:
     """A port cache on ``device`` from the JAX ``init_cache`` /
     ``forward_cached`` cache of any family as numpy arrays, in the same
     structure (dicts, tuples and lists kept: dense / moe / vlm ``kv=(k, v)``;
     ssm ``s``, ``lx_att``, ``lx_cm``; hybrid ``s`` and a ``kv`` list of
     (k, v) pairs; encdec ``kv`` and ``xkv``), each leaf in its own dtype
-    (the fp32 SSM states of a bf16 model stay fp32)."""
+    (the fp32 SSM states of a bf16 model stay fp32).
+
+    Under a ``shard`` each leaf is cut to the rank's part
+    (``shard.cache_index``, from ``launch.sharding.cache_spec``); a rank's
+    cache goes back with :func:`cache_to_numpy`, and the ranks' parts tile
+    the whole (``launch.sharding.local_slice``)."""
     dev = compat.resolve_device(device)
+    if shard.mesh.size > 1:
+        cache = sharding.tree_map_with_path(
+            lambda path, a: np.asarray(a)[shard.cache_index(path, np.shape(a))], cache)
     return _map_tree(cache, lambda a: _as_torch(a, None, dev))
 
 

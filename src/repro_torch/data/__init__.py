@@ -1,5 +1,5 @@
 """Deterministic synthetic data pipeline (shard-aware, resumable) — the
 port's copy of ``repro.data``."""
-from repro_torch.data.pipeline import SyntheticTokens
+from repro_torch.data.pipeline import SyntheticTokens, make_batch_spec
 
-__all__ = ["SyntheticTokens"]
+__all__ = ["SyntheticTokens", "make_batch_spec"]

@@ -13,18 +13,20 @@ Token sequences are Zipf-distributed (vocab skew like natural text) with a
 deterministic per-example offset so the loss is learnable (next-token
 structure exists: tokens follow arithmetic progressions modulo vocab).
 The batches are numpy arrays; the trainer moves them to its device.
-``make_batch_spec`` (the dry-run's shape stand-ins) is not ported: see
-ROADMAP.md port queue 1, item 15 (multi-device LM).
+``make_batch_spec`` gives a batch's stand-ins as ``meta``-device tensors
+(shapes and dtypes, no storage), where the JAX package gives
+``ShapeDtypeStruct``s.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 
-__all__ = ["SyntheticTokens"]
+__all__ = ["SyntheticTokens", "make_batch_spec"]
 
 _K1 = np.uint64(0x9E3779B97F4A7C15)
 _K2 = np.uint64(0xBF58476D1CE4E5B9)
@@ -118,3 +120,22 @@ class SyntheticTokens:
         while True:
             yield self.batch_at(step)
             step += 1
+
+
+def make_batch_spec(
+    cfg: ArchConfig, shape: ShapeConfig, extra_token: bool = True
+) -> Dict[str, torch.Tensor]:
+    """A global batch's stand-ins on the ``meta`` device (no allocation):
+    ``tokens`` (B, S [+ 1]) int32, whisper's ``frames`` (B, max(S // 2, 1),
+    D) and the vlm's ``patches`` (B, vlm_patches, D) float32."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def meta(*dims, dtype=torch.float32):
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    spec = {"tokens": meta(b, s + (1 if extra_token else 0), dtype=torch.int32)}
+    if cfg.family == "encdec":
+        spec["frames"] = meta(b, max(s // 2, 1), cfg.d_model)
+    if cfg.family == "vlm":
+        spec["patches"] = meta(b, cfg.vlm_patches, cfg.d_model)
+    return spec

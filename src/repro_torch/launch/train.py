@@ -17,7 +17,7 @@ compression; the same printed lines, and it returns the losses. A step is
 optional ``topk_compress_allreduce`` → ``adamw_update``, which updates the
 parameters and moments in place. Every family trains; the vlm's patches
 and whisper's frames come with each batch, as ``SyntheticTokens`` draws
-them. One device: ``--tp`` above 1 exits naming its ROADMAP.md item.
+them. One device: ``--tp`` above 1 exits naming ROADMAP.md item 15c.
 """
 from __future__ import annotations
 
@@ -136,8 +136,8 @@ def main(argv=None, info: Optional[dict] = None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if args.tp != 1:
-        ap.exit(2, "repro_torch.launch.train: --tp > 1 is not ported (one device); see "
-                   "ROADMAP.md port queue 1, item 15 (multi-device LM)\n")
+        ap.exit(2, "repro_torch.launch.train: --tp > 1 is not ported (tensor-parallel and "
+                   "FSDP training); see ROADMAP.md port queue 1, item 15c\n")
 
     cfg = get_config(args.arch)
     if args.reduced:

@@ -23,6 +23,19 @@ in plain torch: the routing, the stable sorts, the capacity drops and the
 fp32 combine are tensor code, and the expert products are batched matrix
 products (``torch.bmm``), which the JAX package leaves to XLA's einsums
 outside any Pallas kernel.
+
+Tensor parallelism (``shard=``, a :class:`repro_torch.models.tp.Shard`;
+the default :data:`~repro_torch.models.tp.NO_SHARD` changes nothing). Each
+weight holds this rank's slice as ``launch.sharding.param_specs(mode=
+"serve")`` gives it, and the layer reads the split from its shape against
+the full size: a weight split on its output (column) dimension gives a
+local output; one split on its input (row) dimension (``wo``, ``w_down``,
+the experts) gives a partial sum, taken in fp32 and summed over the model
+group in fp32, then cast once — the single device's one rounding of an
+fp32-accumulated product, to within the order of the fp32 sums; a weight
+the rules left whole (a dimension tp does not divide) is used whole, with
+no collective. The KV cache holds this rank's slice of the sequence, all
+KV heads (``launch.sharding.cache_specs``); see :func:`attention`.
 """
 from __future__ import annotations
 
@@ -32,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.models.tp import NO_SHARD, Shard
 
 __all__ = [
     "NEG_INF",
@@ -115,6 +129,7 @@ def attention(
     cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # (k, v): (B, KV, S, Dh)
     cache_pos: int = 0,  # write offset into the cache
     xattn_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # cross-attention K/V
+    shard: Shard = NO_SHARD,
 ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
     """GQA attention. Returns (out (B, T, D), the cache or None).
 
@@ -122,7 +137,12 @@ def attention(
     place** at ``cache_pos`` and the same two tensors are returned. T > 1
     with a cache is prefill from position 0 (chunked prefill is not
     supported, as in the JAX package): it attends within the fresh segment.
+    ``h``, ``kv`` and ``dh`` are the model's (padded) head counts; under a
+    ``shard`` with a model axis above 1, see :func:`_attention_tp`.
     """
+    if shard.tp > 1:
+        return _attention_tp(params, x, h=h, kv=kv, dh=dh, rope_theta=rope_theta, causal=causal,
+                             cache=cache, cache_pos=cache_pos, xattn_kv=xattn_kv, shard=shard)
     b, t, _ = x.shape
     q = x @ params["wq"]
     if "bq" in params:
@@ -189,6 +209,135 @@ def attention(
     return out @ params["wo"], new_cache
 
 
+def _fp32_product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w`` (``w`` 2-D, or both 3-D: a batched product) with an fp32
+    result. A 16-bit product on the card keeps its operands and takes
+    cuBLAS's fp32 accumulator as the result (``out_dtype``: the tensor-core
+    rate, no fp32 copy of the weight); elsewhere the operands are taken to
+    fp32, which holds them exactly (the CPU has no such kernel)."""
+    if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16):
+        if w.dim() == 3:
+            return torch.bmm(a, w, out_dtype=torch.float32)
+        out = torch.mm(a.reshape(-1, a.shape[-1]), w, out_dtype=torch.float32)
+        return out.reshape(*a.shape[:-1], w.shape[-1])
+    return torch.matmul(a.float(), w.float())
+
+
+def _row_split_product(a: torch.Tensor, w: torch.Tensor, shard: Shard) -> torch.Tensor:
+    """``a @ w`` where ``w`` holds this rank's rows (and ``a`` the matching
+    columns): the partial product in fp32, summed over the model group in
+    fp32, cast once to ``a.dtype``."""
+    return shard.all_reduce(_fp32_product(a, w)).to(a.dtype)
+
+
+def _kv_heads_of(k: torch.Tensor, h0: int, hl: int, group: int) -> torch.Tensor:
+    """The KV heads that q heads h0 .. h0 + hl - 1 read (head j reads
+    j // group): a slice when the local heads read whole, equal groups of
+    consecutive KV heads, else one KV head per q head (gathered)."""
+    idx = [(h0 + j) // group for j in range(hl)]
+    first, n = idx[0], idx[-1] - idx[0] + 1
+    if hl % n == 0 and idx == [first + j // (hl // n) for j in range(hl)]:
+        return k[:, first:first + n]
+    return k[:, idx]
+
+
+def _attention_tp(params, x, *, h, kv, dh, rope_theta, causal, cache, cache_pos, xattn_kv,
+                  shard: Shard):
+    """Attention on one rank of a model axis above 1 (serving, a cache
+    given; the training forward and cross-attention are not sharded).
+
+    ``wq`` holds the rank's q heads (all of them under the 'replicate'
+    policy), ``wk`` / ``wv`` its KV heads under 'shard' (all of them under
+    'shard_q', 'pad' and 'replicate'); the cache (B, KV, S / tp, Dh) holds
+    its slice of the sequence, positions [r·S/tp, (r+1)·S/tp), all KV heads.
+
+    Prefill (T > 1 from position 0): ``ops.flash_attention`` runs the
+    rank's q heads against the KV heads they read — its own under 'shard',
+    the replicated K/V sliced (or, where the heads straddle a KV boundary,
+    expanded per head) under 'shard_q' / 'pad', all heads under
+    'replicate'. The fresh K/V, gathered over heads under 'shard', are then
+    written where they fall in the rank's slice.
+
+    Decode (T = 1): q is gathered to all heads (and the new K/V under
+    'shard'); the rank whose slice holds ``pos`` writes the new K/V. Each
+    rank then attends its slice for every head, as the single device
+    attends the whole cache, with its roundings: fp32 logits, positions at
+    or past ``pos + 1`` masked with the finite -1e30, a softmax over the
+    slice (running max m, sum l), probs cast to the cache dtype before the
+    second product, an fp32 output o. The merge, the one new step: M =
+    all_reduce_max(m); then one all_reduce_sum of the packed (w, o·w) with
+    w = l·exp(m − M); out = Σ(o·w) / Σw. A slice wholly past ``pos`` has m
+    = -1e30 and weight 0 (no NaN, as an -inf mask would give). The rank
+    keeps its own heads' rows for its rows of ``wo``.
+
+    The output projection is a row-split product (summed over the model
+    group) when ``wo`` holds the rank's rows, whole otherwise."""
+    if cache is None or xattn_kv is not None:
+        raise NotImplementedError(
+            "repro_torch.models.layers.attention: a sharded call needs a KV cache (serving); "
+            "sharded training and cross-attention are ROADMAP.md port queue 1, items 15b-15c")
+    b, t, _ = x.shape
+    hl, kvl = params["wq"].shape[1] // dh, params["wk"].shape[1] // dh
+    q_split, kv_split = hl < h, kvl < kv
+    h0 = shard.model_rank * hl if q_split else 0
+    q = x @ params["wq"]
+    kx = x @ params["wk"]
+    vx = x @ params["wv"]
+    if "bq" in params:
+        q = q + params["bq"]
+    if "bk" in params:
+        kx, vx = kx + params["bk"], vx + params["bv"]
+    q = q.reshape(b, t, hl, dh)
+    kx = kx.reshape(b, t, kvl, dh)
+    vx = vx.reshape(b, t, kvl, dh).transpose(1, 2)  # (B, KVl, T, Dh)
+    pos = int(cache_pos)
+    if rope_theta:
+        kx = rope(kx, pos + torch.arange(t, device=x.device), rope_theta)
+        q = rope(q, pos + torch.arange(t, device=x.device), rope_theta)
+    kx = kx.transpose(1, 2)
+    q = (q * (dh**-0.5)).transpose(1, 2)  # (B, Hl, T, Dh)
+
+    ck, cv = cache
+    s_l = ck.shape[2]
+    s0 = shard.model_rank * s_l
+    if t > 1:
+        if kv_split or hl == h:  # 'shard': the rank's own KV heads; 'replicate': all
+            k_att, v_att = kx, vx
+        else:
+            group = h // kv
+            k_att, v_att = (_kv_heads_of(z, h0, hl, group) for z in (kx, vx))
+        out = ops.flash_attention(q, k_att, v_att, causal=causal, scale=1.0)
+    if kv_split:
+        kx, vx = shard.all_gather(kx, 1), shard.all_gather(vx, 1)
+    lo, hi = max(pos, s0), min(pos + t, s0 + s_l)
+    if lo < hi:
+        ck[:, :, lo - s0:hi - s0] = kx[:, :, lo - pos:hi - pos]
+        cv[:, :, lo - s0:hi - s0] = vx[:, :, lo - pos:hi - pos]
+
+    if t == 1:
+        qa = shard.all_gather(q, 1) if q_split else q  # (B, H, 1, Dh)
+        group = h // kv
+        live = (s0 + torch.arange(s_l, device=x.device)) < pos + t
+        logits = torch.einsum("bkgqd,bksd->bkgqs", qa.reshape(b, kv, group, t, dh).float(),
+                              ck.float())
+        logits = logits + torch.where(live, 0.0, NEG_INF)
+        m = logits.amax(dim=-1, keepdim=True)
+        e = torch.exp(logits - m)
+        l_sum = e.sum(dim=-1, keepdim=True)
+        probs = e / l_sum
+        o = torch.einsum("bkgqs,bksd->bkgqd", probs.to(cv.dtype).float(), cv.float())
+        big_m = shard.all_reduce(m.clone(), "max")
+        w = l_sum * torch.exp(m - big_m)
+        packed = shard.all_reduce(torch.cat([w, o * w], dim=-1))
+        out = (packed[..., 1:] / packed[..., :1]).reshape(b, h, t, dh).to(x.dtype)
+        if q_split:
+            out = out[:, h0:h0 + hl]
+    out = out.transpose(1, 2).reshape(b, t, hl * dh)
+    if params["wo"].shape[0] < h * dh:
+        return _row_split_product(out, params["wo"], shard), cache
+    return out @ params["wo"], cache
+
+
 def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype: torch.dtype) -> dict:
     return dict(
         w_gate=dense_init(gen, (d_model, d_ff), dtype),
@@ -197,9 +346,21 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype: torch.dtype) 
     )
 
 
-def mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU: (silu(x @ w_gate) * (x @ w_up)) @ w_down."""
-    return (F.silu(x @ params["w_gate"]) * (x @ params["w_up"])) @ params["w_down"]
+def mlp(params: Params, x: torch.Tensor, shard: Shard = NO_SHARD,
+        d_ff: Optional[int] = None) -> torch.Tensor:
+    """SwiGLU: (silu(x @ w_gate) * (x @ w_up)) @ w_down. Under a shard,
+    ``d_ff`` (the full width) tells a ``w_down`` that holds this rank's rows
+    (a row-split product) from a whole one."""
+    hidden = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+    if shard.tp > 1 and params["w_down"].shape[0] < _full(d_ff, "mlp"):
+        return _row_split_product(hidden, params["w_down"], shard)
+    return hidden @ params["w_down"]
+
+
+def _full(d_ff: Optional[int], what: str) -> int:
+    if d_ff is None:
+        raise ValueError(f"repro_torch.models.layers.{what}: a sharded call needs d_ff, the full width")
+    return d_ff
 
 
 def init_moe(gen: torch.Generator, d_model: int, d_ff: int, n_experts: int,
@@ -224,6 +385,8 @@ def moe_ffn(
     top_k: int,
     capacity_factor: float = 1.25,
     router_bias: Optional[torch.Tensor] = None,  # (E,): the ADWISE-balance hook
+    shard: Shard = NO_SHARD,
+    d_ff: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Sort-based capacity-constrained top-k MoE (token drop on overflow).
 
@@ -239,6 +402,15 @@ def moe_ffn(
     pairs past it sent to a dump row, and the combine summed in fp32 per
     token (``index_add_``, whose order on the card differs from XLA's
     scatter-add: equal within fp32 rounding, not bit for bit).
+
+    Under a shard every rank computes the whole router, sort, capacity and
+    ``dest`` plan (the router is replicated, so ``aux`` and the load are
+    equal on every rank). With the experts split (EP: ``w_gate`` holds this
+    rank's E / tp experts) a rank runs ``bmm`` over its experts' capacity
+    rows only; with ``d_ff`` split (each expert's columns) it runs every
+    expert on its slice, the last product in fp32. Either way it combines
+    its partial rows into the fp32 ``out``, which is summed over the model
+    group before the cast.
     """
     b, t, d = x.shape
     n_tok = b * t
@@ -272,11 +444,26 @@ def moe_ffn(
     xs = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
     xs[dest] = xf[st_]
     xs = xs[:-1].reshape(e, cap, d)
+    el = params["w_gate"].shape[0]
+    ep = shard.tp > 1 and el < e
+    ff_split = shard.tp > 1 and params["w_down"].shape[1] < _full(d_ff, "moe_ffn")
+    if ep:
+        xs = xs[shard.model_rank * el:(shard.model_rank + 1) * el]
     hidden = F.silu(torch.bmm(xs, params["w_gate"])) * torch.bmm(xs, params["w_up"])
-    ys = torch.bmm(hidden, params["w_down"])  # (E, C, D)
+    if ff_split:
+        ys = _fp32_product(hidden, params["w_down"])  # (E, C, D), a partial sum
+    else:
+        ys = torch.bmm(hidden, params["w_down"])  # (E, C, D)
 
-    y_rows = ys.reshape(e * cap, d)
-    gathered = torch.where(keep[:, None], y_rows[dest.clamp_max(e * cap - 1)], 0.0)
+    if ep:  # the pairs routed to this rank's experts, rows counted from its first
+        y_rows, lo = ys.reshape(el * cap, d), shard.model_rank * el * cap
+        mine = keep & (dest >= lo) & (dest < lo + el * cap)
+        gathered = torch.where(mine[:, None], y_rows[(dest - lo).clamp(0, el * cap - 1)], 0.0)
+    else:
+        y_rows = ys.reshape(e * cap, d)
+        gathered = torch.where(keep[:, None], y_rows[dest.clamp_max(e * cap - 1)], 0.0)
     out = torch.zeros((n_tok, d), dtype=torch.float32, device=x.device)
     out.index_add_(0, st_, gathered.float() * sw[:, None])
+    if ep or ff_split:
+        shard.all_reduce(out)
     return out.reshape(b, t, d).to(x.dtype), aux, counts.float()

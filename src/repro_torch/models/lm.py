@@ -36,6 +36,19 @@ remats each block and each cross-entropy chunk with
 (the hybrid's shared block excepted, as there); the cache-less attention of
 the training forward goes through ``ops.flash_attention``, which is
 differentiable.
+
+Tensor-parallel serving (``shard=``, a :class:`repro_torch.models.tp.Shard`
+of a mesh with more than one rank; dense, moe and vlm only, built by the
+launcher with ``launch.sharding.shard_for``, which resolves the layout from
+the sharding rules): :class:`LM` allocates this rank's slice of each
+parameter (``shard.param_index``; ``LM.tp_layout``: name -> (full shape,
+index)), :func:`init_params` draws every leaf whole, as one device draws
+it, and keeps the slice, :func:`init_cache` allocates the rank's slice of
+the cache (``shard.cache_index``: the sequence over ``model``, the batch
+over ``data`` when it divides), and
+:func:`forward_cached` takes the rank's rows of the batch and returns the
+whole logits. The default :data:`~repro_torch.models.tp.NO_SHARD` changes
+nothing.
 """
 from __future__ import annotations
 
@@ -50,6 +63,7 @@ from repro_torch import compat
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
+from repro_torch.models.tp import NO_SHARD, Shard
 
 __all__ = ["ModelDims", "model_dims", "Block", "RwkvBlock", "MambaBlock", "LM", "init_params",
            "forward_train", "loss_fn", "attention_calls", "init_cache", "forward_cached"]
@@ -74,6 +88,24 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
+def _sharded(cfg: ArchConfig, tp: int, shard: Shard) -> bool:
+    """Whether ``shard`` splits anything (a mesh of more than one rank);
+    raises for a family the sharded path does not serve, or a ``tp`` that
+    is not the mesh's model size."""
+    if shard.mesh.size == 1:
+        return False
+    if cfg.family not in ("dense", "moe", "vlm"):
+        raise NotImplementedError(
+            f"repro_torch.models.lm: tensor-parallel serving of the {cfg.family} family is not "
+            "ported; see ROADMAP.md port queue 1, item 15b")
+    if shard.tp != tp:
+        raise ValueError(f"repro_torch.models.lm: tp={tp} but the mesh's model axis is {shard.tp}")
+    if not shard.param_index or shard.cache_index is None:
+        raise ValueError("repro_torch.models.lm: the shard has no layout; build it with "
+                         "repro_torch.launch.sharding.shard_for")
+    return True
+
+
 def _param(shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device), requires_grad=False)
 
@@ -93,12 +125,13 @@ def _attn_shapes(cfg: ArchConfig, dims: ModelDims) -> Dict[str, tuple]:
     return shapes
 
 
-def _fill(dst: nn.ParameterDict, src: Dict[str, torch.Tensor]) -> None:
-    """Copies each initialised leaf into its parameter (same names, shapes
-    and dtypes)."""
+def _fill(dst: nn.ParameterDict, src: Dict[str, torch.Tensor], local, prefix: str) -> None:
+    """Copies each initialised leaf (its part ``local(prefix.name, leaf)``)
+    into its parameter (same names, shapes and dtypes)."""
     if set(dst) != set(src):
         raise KeyError(f"leaves {sorted(src)} do not match {sorted(dst)}")
     for name, t in src.items():
+        t = local(f"{prefix}.{name}", t)
         if t.shape != dst[name].shape or t.dtype != dst[name].dtype:
             raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype} into "
                              f"{tuple(dst[name].shape)} {dst[name].dtype}")
@@ -172,9 +205,11 @@ class LM(nn.Module):
     :class:`Block`; encdec ``enc_blocks`` (``n_enc_layers`` Blocks) and
     ``enc_ln_f``."""
 
-    def __init__(self, cfg: ArchConfig, tp: int = 1, device=None):
+    def __init__(self, cfg: ArchConfig, tp: int = 1, device=None, shard: Shard = NO_SHARD):
         super().__init__()
-        dev = compat.resolve_device(device)
+        final = torch.device("meta") if str(device) == "meta" else compat.resolve_device(device)
+        sharded = _sharded(cfg, tp, shard)
+        dev = torch.device("meta") if sharded else final  # whole shapes first, then the slices
         self.dims = dims = model_dims(cfg, tp)
         dt, d = _dtype(cfg), cfg.d_model
         self.embed = _param((cfg.vocab, d), dt, dev)
@@ -198,13 +233,38 @@ class LM(nn.Module):
             self.blocks = nn.ModuleList(Block(cfg, dims, dev, cross=True) for _ in range(n))
         else:
             raise ValueError(f"repro_torch.models.lm: unknown family {fam!r}")
+        self.tp_layout: Dict[str, Tuple[tuple, tuple]] = {}
+        if sharded:
+            self._localize(shard, final)
+
+    def _localize(self, shard: Shard, device: torch.device) -> None:
+        """Replaces every (meta, whole) parameter by an empty one of this
+        rank's slice (``shard.param_index``) on ``device``."""
+        for name, p in list(self.named_parameters()):
+            idx = shard.param_index[name]
+            local = _param(tuple(s.stop - s.start for s in idx), p.dtype, device)
+            owner, _, leaf = name.rpartition(".")
+            mod = self.get_submodule(owner) if owner else self
+            if isinstance(mod, nn.ParameterDict):
+                mod[leaf] = local
+            else:
+                setattr(mod, leaf, local)
+            self.tp_layout[name] = (tuple(p.shape), idx)
+
+    def local(self, name: str, full: torch.Tensor) -> torch.Tensor:
+        """The part of ``full`` (the whole leaf of parameter ``name``) that
+        this model holds: ``full`` itself when the model is not sharded."""
+        layout = self.tp_layout.get(name)
+        return full if layout is None else full[layout[1]]
 
 
-def _init_block(blk: Block, cfg: ArchConfig, dims: ModelDims, gen: torch.Generator) -> None:
+def _init_block(blk: Block, cfg: ArchConfig, dims: ModelDims, gen: torch.Generator,
+                local, prefix: str) -> None:
     """The JAX ``_init_block`` distributions: norms ones, attention and MLP
     N(0, 1/fan_in), the MoE as ``layers.init_moe``; under the ``pad`` head
     policy the padded heads' ``wo`` rows are zero, so they do not change
-    the function."""
+    the function. Each leaf is drawn whole; ``local`` gives the part the
+    parameter keeps (by its name: ``prefix`` is the block's)."""
     dt = _dtype(cfg)
 
     def attention():
@@ -214,52 +274,61 @@ def _init_block(blk: Block, cfg: ArchConfig, dims: ModelDims, gen: torch.Generat
         return attn
 
     blk.ln1.fill_(1)
-    _fill(blk.attn, attention())
+    _fill(blk.attn, attention(), local, f"{prefix}.attn")
     blk.ln2.fill_(1)
     if cfg.moe:
-        _fill(blk.moe, L.init_moe(gen, cfg.d_model, cfg.d_ff, cfg.moe.n_experts, dt))
+        _fill(blk.moe, L.init_moe(gen, cfg.d_model, cfg.d_ff, cfg.moe.n_experts, dt), local,
+              f"{prefix}.moe")
     else:
-        _fill(blk.mlp, L.init_mlp(gen, cfg.d_model, cfg.d_ff, dt))
+        _fill(blk.mlp, L.init_mlp(gen, cfg.d_model, cfg.d_ff, dt), local, f"{prefix}.mlp")
     if hasattr(blk, "xattn"):
         blk.ln_x.fill_(1)
-        _fill(blk.xattn, attention())
+        _fill(blk.xattn, attention(), local, f"{prefix}.xattn")
 
 
 @torch.no_grad()
-def init_params(cfg: ArchConfig, generator: torch.Generator, tp: int = 1) -> LM:
+def init_params(cfg: ArchConfig, generator: torch.Generator, tp: int = 1,
+                shard: Shard = NO_SHARD) -> LM:
     """An :class:`LM` on the generator's device with the JAX ``init_params``
     distributions: embed N(0, 0.02²), dense weights N(0, 1/fan_in), norms
     ones, QKV biases zeros, and the RWKV-6 / Mamba-2 / MoE leaves as
-    ``models.ssm`` and ``layers.init_moe`` draw them."""
-    model = LM(cfg, tp, device=generator.device)
+    ``models.ssm`` and ``layers.init_moe`` draw them. Under a ``shard``
+    every leaf is drawn whole, in the same order, from the same generator,
+    and the rank keeps its slice: the weights of the one-device model,
+    split."""
+    model = LM(cfg, tp, device=generator.device, shard=shard)
     dt, dims, d = _dtype(cfg), model.dims, cfg.d_model
-    model.embed.copy_(L.dense_init(generator, (cfg.vocab, d), dt, scale=0.02))
+    model.embed.copy_(model.local("embed", L.dense_init(generator, (cfg.vocab, d), dt, scale=0.02)))
     model.ln_f.fill_(1)
     if not cfg.tie_embeddings:
-        model.head.copy_(L.dense_init(generator, (d, cfg.vocab), dt))
-    for blk in model.blocks:
+        model.head.copy_(model.local("head", L.dense_init(generator, (d, cfg.vocab), dt)))
+    for i, blk in enumerate(model.blocks):
+        name = f"blocks.{i}"
         if isinstance(blk, RwkvBlock):
             blk.ln1.fill_(1)
             blk.ln2.fill_(1)
-            _fill(blk.att, S.init_rwkv6(generator, d, cfg.n_heads, cfg.d_head, dt))
-            _fill(blk.cm, S.init_rwkv6_cm(generator, d, cfg.d_ff, dt))
+            _fill(blk.att, S.init_rwkv6(generator, d, cfg.n_heads, cfg.d_head, dt), model.local,
+                  f"{name}.att")
+            _fill(blk.cm, S.init_rwkv6_cm(generator, d, cfg.d_ff, dt), model.local, f"{name}.cm")
         elif isinstance(blk, MambaBlock):
             blk.ln.fill_(1)
-            _fill(blk.mamba, S.init_mamba2(generator, d, cfg.n_heads, cfg.ssm_state, dt))
+            _fill(blk.mamba, S.init_mamba2(generator, d, cfg.n_heads, cfg.ssm_state, dt),
+                  model.local, f"{name}.mamba")
         else:
-            _init_block(blk, cfg, dims, generator)
-    for blk in getattr(model, "enc_blocks", ()):
-        _init_block(blk, cfg, dims, generator)
+            _init_block(blk, cfg, dims, generator, model.local, name)
+    for i, blk in enumerate(getattr(model, "enc_blocks", ())):
+        _init_block(blk, cfg, dims, generator, model.local, f"enc_blocks.{i}")
     if cfg.family == "encdec":
         model.enc_ln_f.fill_(1)
     if cfg.family == "hybrid":
-        _init_block(model.shared, cfg, dims, generator)
+        _init_block(model.shared, cfg, dims, generator, model.local, "shared")
     if cfg.family == "vlm":
-        model.vit_proj.copy_(L.dense_init(generator, (d, d), dt))
+        model.vit_proj.copy_(model.local("vit_proj", L.dense_init(generator, (d, d), dt)))
     return model
 
 
-def init_cache(cfg: ArchConfig, batch: int, max_seq: int, tp: int = 1, device=None) -> Cache:
+def init_cache(cfg: ArchConfig, batch: int, max_seq: int, tp: int = 1, device=None,
+               shard: Shard = NO_SHARD) -> Cache:
     """The zero cache of ``cfg``'s family on ``device``, in the JAX layout
     and dtypes:
 
@@ -271,9 +340,28 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, tp: int = 1, device=No
       (k, v) pair (B, KV, max_seq, Dh) per application of the shared block;
     - encdec: ``kv`` as dense and ``xkv`` (n_layers, B, KV, max(max_seq // 2,
       1), Dh), the cross-attention K/V, which prefill replaces.
+
+    Under a ``shard`` (``batch`` is the global batch) each leaf is this
+    rank's slice as ``shard.cache_index`` places it: positions
+    [r·S/tp, (r+1)·S/tp) of the sequence for model coordinate r, and rows
+    of the batch by data coordinate when the data axis divides it (every
+    row otherwise). S (``max_seq``, plus ``vlm_patches`` in the vlm) must
+    divide by tp.
     """
+    if _sharded(cfg, tp, shard):
+        whole = init_cache(cfg, batch, max_seq, tp, "meta")
+        s = whole["kv"][0].shape[3]
+        if s % tp:
+            raise ValueError(
+                f"repro_torch.models.lm.init_cache: the cache's {s} positions (max_seq {max_seq}"
+                + (f" + vlm_patches {cfg.vlm_patches}" if cfg.family == "vlm" else "")
+                + f") do not split over tp={tp}")
+        dev = compat.resolve_device(device)
+        return {k: tuple(torch.zeros([s.stop - s.start for s in shard.cache_index(f"{k}/{i}", t.shape)],
+                                     dtype=t.dtype, device=dev) for i, t in enumerate(leaves))
+                for k, leaves in whole.items()}
     dims = model_dims(cfg, tp)
-    dev = compat.resolve_device(device)
+    dev = torch.device("meta") if str(device) == "meta" else compat.resolve_device(device)
     dt, lg, d = _dtype(cfg), cfg.n_layers, cfg.d_model
 
     def zeros(*shape, dtype=dt):
@@ -301,7 +389,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, tp: int = 1, device=No
 
 
 def _attn_block(blk: Block, x, cfg: ArchConfig, dims: ModelDims, cache=None, pos: int = 0,
-                causal: bool = True, xattn_kv=None, enc_out=None):
+                causal: bool = True, xattn_kv=None, enc_out=None, shard: Shard = NO_SHARD):
     """Residual attention (+ cross-attention) + FFN block; writes the
     layer's cache in place (cache-less over the whole sequence when
     ``cache`` is None). Returns (x, the MoE's auxiliary loss (), or None
@@ -313,7 +401,7 @@ def _attn_block(blk: Block, x, cfg: ArchConfig, dims: ModelDims, cache=None, pos
     block, and the gradient reaches the encoder through it."""
     out, _ = L.attention(
         blk.attn, L.rms_norm(x, blk.ln1), h=dims.h, kv=dims.kv, dh=dims.dh,
-        rope_theta=cfg.rope_theta, causal=causal, cache=cache, cache_pos=pos,
+        rope_theta=cfg.rope_theta, causal=causal, cache=cache, cache_pos=pos, shard=shard,
     )
     x = x + out
     # staticcheck: disable=SC002 torch.utils.checkpoint runs eagerly: enc_out is None or a tensor, never traced
@@ -330,9 +418,9 @@ def _attn_block(blk: Block, x, cfg: ArchConfig, dims: ModelDims, cache=None, pos
     # staticcheck: disable=SC002 torch.utils.checkpoint runs eagerly: cfg is a frozen config, never traced
     if cfg.moe:
         f, aux, _ = L.moe_ffn(blk.moe, h2, n_experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
-                              capacity_factor=cfg.moe.capacity_factor)
+                              capacity_factor=cfg.moe.capacity_factor, shard=shard, d_ff=cfg.d_ff)
     else:
-        f, aux = L.mlp(blk.mlp, h2), None
+        f, aux = L.mlp(blk.mlp, h2, shard=shard, d_ff=cfg.d_ff), None
     return x + f, aux
 
 
@@ -508,6 +596,7 @@ def forward_cached(
     tp: int = 1,
     frames: Optional[torch.Tensor] = None,  # (B, S_enc, D): whisper's prefill
     patches: Optional[torch.Tensor] = None,  # (B, P, D): the vlm's prefill
+    shard: Shard = NO_SHARD,
 ) -> Tuple[torch.Tensor, Cache]:
     """Returns (logits (B, T, V), cache).
 
@@ -530,18 +619,28 @@ def forward_cached(
     and in encdec one per encoder layer and two per decoder layer (self and
     cross) in prefill, one per decoder layer (cross) in decode. A decode
     step's self-attention over the cache is plain torch.
+
+    Under a ``shard`` (``model`` and ``cache`` this rank's, from
+    :class:`LM` / :func:`init_cache` with the same shard; ``tokens`` and
+    ``patches`` the rank's rows of the batch) a vocab-split ``embed`` looks
+    up the rank's rows (ids outside them give zeros) and sums over the
+    model group; the blocks run as ``layers`` describes; a vocab-split
+    head's logits are gathered along the vocab in model coordinate order (a
+    head the rules left whole is not gathered). Every rank returns the
+    whole logits of its rows.
     """
     dims = model_dims(cfg, tp)
     pos = int(pos)
-    x = model.embed[tokens]
     fam = cfg.family
+    sharded = _sharded(cfg, tp, shard)
+    x = _embed_tp(model, cfg, tokens, shard) if sharded else model.embed[tokens]
     if fam == "vlm" and patches is not None:
         x = torch.cat([_patch_prefix(model, patches, x.dtype), x], dim=1)
 
     if fam in ("dense", "moe", "vlm"):
         ck, cv = cache["kv"]
         for i, blk in enumerate(model.blocks):
-            x, _ = _attn_block(blk, x, cfg, dims, (ck[i], cv[i]), pos)
+            x, _ = _attn_block(blk, x, cfg, dims, (ck[i], cv[i]), pos, shard=shard)
     elif fam == "ssm":
         s, lxa, lxc = cache["s"], cache["lx_att"], cache["lx_cm"]
         for i, blk in enumerate(model.blocks):
@@ -574,4 +673,20 @@ def forward_cached(
     if fam == "vlm" and patches is not None:
         x = x[:, patches.shape[1]:]  # text positions only
     x = L.rms_norm(x, model.ln_f)
-    return x @ _head(model, cfg), cache
+    logits = x @ _head(model, cfg)
+    if sharded and logits.shape[-1] < cfg.vocab:
+        logits = shard.all_gather(logits, -1)
+    return logits, cache
+
+
+def _embed_tp(model: LM, cfg: ArchConfig, tokens: torch.Tensor, shard: Shard) -> torch.Tensor:
+    """The embedding of ``tokens`` from a vocab-split ``embed``: the rank's
+    rows, zeros for ids outside them, summed over the model group (one rank
+    adds a row, the others zeros: exact). A whole ``embed`` is looked up."""
+    rows = model.embed.shape[0]
+    if rows == cfg.vocab:
+        return model.embed[tokens]
+    local = tokens.long() - shard.model_rank * rows
+    inside = (local >= 0) & (local < rows)
+    x = model.embed[local.clamp(0, rows - 1)].masked_fill(~inside[..., None], 0)
+    return shard.all_reduce(x)

@@ -9,7 +9,8 @@ feedback). The port's per-layer parameters of one stacked JAX leaf
 (``blocks.<i>.attn.wq`` for i = 0..L-1) are selected together, over all
 their layers, as JAX selects over the stacked leaf. On one device the
 reduction is the identity: a reduction group (the JAX function's
-``axis_name``) needs several devices and raises.
+``axis_name``) belongs to data-parallel training, which is not ported, and
+raises.
 """
 from __future__ import annotations
 
@@ -33,8 +34,8 @@ def topk_compress_allreduce(
     tensor per leaf) is updated **in place** and returned."""
     if group is not None:
         raise NotImplementedError(
-            "repro_torch.optim.topk_compress_allreduce: a reduction group needs "
-            "several devices; see ROADMAP.md port queue 1, item 15 (multi-device LM)"
+            "repro_torch.optim.topk_compress_allreduce: a reduction group (data-parallel "
+            "training) is not ported; see ROADMAP.md port queue 1, item 15c"
         )
     out = {}
     for names in jax_leaves(grads).values():

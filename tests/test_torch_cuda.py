@@ -966,3 +966,31 @@ def test_family_train_step_on_the_card_matches_cpu(cuda, arch):
             err = ((x - y).norm() / y.norm().clamp_min(1e-30)).item()
         assert err <= 1e-4, (n, err)
         assert y.abs().max() > 0, n
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "granite-moe-1b-a400m"])
+def test_two_ranks_on_one_card_serve_the_tokens_of_tp1(cuda, tmp_path, arch):
+    """``launch.serve --tp 2`` as two gloo ranks on cuda:0 (reduced llama;
+    reduced granite, its experts split; fp32): the tokens of the one-device
+    run, every step's logits within 1e-4 of their scale, and each rank's
+    prefill launched ``flash_attention`` once per layer."""
+    import _tp_ranks
+    from repro_torch.launch import mesh as meshes
+    from repro_torch.launch import serve
+
+    argv = ["--arch", arch, "--reduced", "--batch", "2", "--prompt-len", "16",
+            "--gen", "8", "--device", "cuda"]
+    info1 = {}
+    want = serve.main(argv, info=info1, keep_logits=True)
+    results = meshes.spawn(
+        _tp_ranks.serve_rank, 2,
+        (argv + ["--tp", "2", "--dist-backend", "gloo", "--dist-init", f"file://{tmp_path / 'store'}"],),
+        timeout=300)
+    cfg = get_config(arch).reduced()
+    for gen, info, logits in results:
+        np.testing.assert_array_equal(gen, want)
+        for got, w in zip(logits, info1["logits"]):
+            scale = max(1.0, float(np.abs(w).max()))
+            np.testing.assert_allclose(got, w, rtol=1e-4, atol=1e-4 * scale)
+        assert info["prefill_launches"]["flash_attention"] == cfg.n_layers
+        assert (info["tp"], info["world"], info["backend"]) == (2, 2, "gloo")

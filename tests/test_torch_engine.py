@@ -162,9 +162,9 @@ def test_launch_names_the_roadmap_item_for_unported_paths(argv, item, capsys):
     """What the port still lacks exits naming its ROADMAP.md item (the
     partition launcher has no such path left: graph files run, see
     test_launch_runs_graph_files_like_jax; serving and training run every
-    family): ``--tp > 1`` on the serve launcher. Training a non-dense family
-    (``item`` None) runs: two finite losses."""
-    from repro_torch.launch.serve import main as serve_main
+    family, and serving runs tensor-parallel, see tests/test_torch_tp.py):
+    ``--tp > 1`` on the train launcher (item 15c). Training a non-dense
+    family (``item`` None) runs: two finite losses."""
     from repro_torch.launch.train import main as train_main
 
     if item is None:
@@ -173,7 +173,7 @@ def test_launch_names_the_roadmap_item_for_unported_paths(argv, item, capsys):
         assert "ROADMAP" not in capsys.readouterr().out
         return
     with pytest.raises(SystemExit) as exc:
-        serve_main(argv + ["--device", "cpu"])
+        train_main(argv + ["--device", "cpu"])
     said = str(exc.value) + capsys.readouterr().err
     assert f"ROADMAP.md port queue 1, {item}" in said
 

@@ -44,7 +44,9 @@ def test_every_module_imports_with_jax_and_repro_blocked():
             "repro_torch.runtime", "repro_torch.runtime.fault", "repro_torch.runtime.straggler",
             "repro_torch.runtime.elastic", "repro_torch.launch.train",
             "repro_torch.models.names", "repro_torch.models.ssm",
-            "repro_torch.core.moe_balance"} <= set(mods)
+            "repro_torch.core.moe_balance", "repro_torch.launch.mesh",
+            "repro_torch.launch.sharding", "repro_torch.models.tp",
+            "repro_torch.launch.serve"} <= set(mods)
     code = textwrap.dedent(
         f"""
         import sys
@@ -68,10 +70,30 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     assert proc.stdout.startswith("ok")
 
 
+def test_models_import_nothing_of_the_launch_layer():
+    """The model layer depends on no launcher: ``launch.sharding.shard_for``
+    resolves a rank's layout and hands it to the models in the ``Shard``."""
+    mods = [m for m in _modules() if m.startswith("repro_torch.models")]
+    code = textwrap.dedent(
+        f"""
+        import importlib, sys
+        for mod in {mods!r}:
+            importlib.import_module(mod)
+        print(sorted(m for m in sys.modules if m.startswith("repro_torch.launch")))
+        """
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env=dict(os.environ, PYTHONPATH=str(SRC)), timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "repro_torch.models.tp" in mods and proc.stdout.strip() == "[]"
+
+
 ROOT = SRC.parent
 CHIP_SCRIPTS = [
     "chip_smoke.py", "tools/time_flash_attention.py", "tools/time_segment_sum.py",
-    "tools/time_partition.py",
+    "tools/time_partition.py", "tools/time_collectives.py", "tools/tp_readings.py",
 ]
 
 
