@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # the full run: one card, exits 0 when all holds
+    python3 chip_smoke.py --phase 15 # the build and phase 15 alone, no result lines
 
 Phases (any failure exits non-zero, and no result line is printed):
 
@@ -188,9 +189,26 @@ Phases (any failure exits non-zero, and no result line is printed):
    and logits bit-equal to tp 1's; (c) with two cards, llama at tp 2 over
    NCCL on cuda:0-1: (a)'s tokens (logged as not run on one card).
 
-The kernels' ``launches`` are those of phases 2, 6, 8, 9, 10, 11, 12, 13 and 14
-(each path's counts zeroed just before it and read just after; phase 14's
-are its ranks'). Then one JSON line with
+15. The partition → process pipeline over ranks (brain_like cut to 0.25,
+   k = 32, W = 256, z = 8, spread 4): (a) spotlight through
+   ``partition_stream_batched(backend="shard_map")`` as two gloo ranks on
+   cuda:0 (spawned; a file store under ``build/chip_smoke/ranks``; joined
+   with a timeout), each stepping its 4 instances, bit-equal (assignments,
+   per-instance stats, ``w_trace``) to a one-process run of the same cut,
+   ``n_shards`` 2 and one ``window_score`` launch per batched step on each
+   rank; (b) on its assignment, pagerank (30 supersteps) over the ``parts``
+   mesh within rtol 1e-5 of one process's and bit-equal between the ranks,
+   label propagation exact, one ``segment_sum`` launch and one all-reduce
+   per superstep a rank, slabs (16, 16) at k = 32 and (4, 3) at k = 7;
+   µs per batched step and the superstep wall against one process; (c) the
+   same at world 1 over NCCL (a group of one rank in the smoke's own
+   process), bit-equal to the run with no group; (d) with
+   two cards, (a) and (b) over NCCL on cuda:0-1 (logged as not run on one
+   card).
+
+The kernels' ``launches`` are those of phases 2, 6, 8, 9, 10, 11, 12, 13, 14
+and 15 (each path's counts zeroed just before it and read just after;
+phases 14's and 15's are their ranks'). Then one JSON line with
 every kernel's numbers, and, last, the
 ``{"ok": true, "device": ...}`` line. It imports nothing of JAX and nothing
 of the JAX package.
@@ -3004,6 +3022,329 @@ def phase_tp():
         log(f"tp (c): not run: {torch.cuda.device_count()} card(s), two needed")
     return total
 
+# ----------------------------------------------------------------------------
+# Phase 15: the partition -> process pipeline over ranks
+# ----------------------------------------------------------------------------
+
+# brain_like cut to a quarter of its scale (a depth cut for the phase's
+# ~60 s: two ranks on one card share it, so the batched steps take about
+# twice as long as one process's); k, W, z and spread are phase 9's.
+RANKS_SCALE = 0.25
+RANKS_K, RANKS_W, RANKS_ITERS = 32, 256, 30
+RANKS_TIMEOUT = 300.0
+# Per-instance stats a sharded run must give as one process does (the walls,
+# ``backend`` and ``n_shards`` aside).
+RANKS_SAME = ("score_rows", "score_count", "final_w", "lam_final", "assigned", "scan_calls",
+              "steps_run", "warmup_steps", "h2d_rows", "h2d_bytes", "modeled_cost_per_score",
+              "buffer_rows", "n_buckets", "bucket_rows", "unassigned", "instance")
+
+
+def ranks_pipeline(edges, n):
+    """Spotlight z = 8 through ``partition_stream_batched(backend="shard_map")``,
+    then the engine on its assignment: pagerank (30 supersteps) and label
+    propagation over ``engine_mesh(k=32)`` on a graph built for that mesh
+    (the rank's device holds its slab's edges and messages), the slab
+    placement at k = 32 and k = 7, then :func:`ranks_kernel_checks`. Runs
+    in this process or on a rank of a process group; each path's counts
+    are zeroed just before it and read just after."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import AdwiseConfig
+    from repro_torch.core.adwise import partition_stream_batched
+    from repro_torch.core.spotlight import spread_mask
+    from repro_torch.engine import build_partitioned_graph, engine_mesh, label_propagation, pagerank
+    from repro_torch.engine.gas import make_superstep
+    from repro_torch.graph import EdgeStream
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as meshes
+
+    z, k = SPOT_Z, RANKS_K
+    streams, valid = EdgeStream(edges, n).split_padded(z)
+    allowed = np.stack([spread_mask(k, z, i, SPOT_SPREAD) for i in range(z)])
+    cfg = AdwiseConfig(k=k, window_max=RANKS_W)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    res = partition_stream_batched(streams, valid, n, cfg, allowed=allowed, backend="shard_map",
+                                   device="cuda")
+    torch.cuda.synchronize()
+    spot_counts = ops.launch_counts()
+    assign = np.concatenate([r.assign for r in res])
+    stats = [{key: r.stats[key] for key in RANKS_SAME + ("backend", "n_shards", "wall_time_s",
+                                                       "setup_s", "w_trace")} for r in res]
+    mesh = engine_mesh(k=k)
+    g = build_partitioned_graph(edges, assign, n, k, device="cuda", mesh=mesh)
+    pagerank(g, iters=2, mesh=mesh)  # the group's first collective
+    mesh.stats.clear()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    pr, _ = pagerank(g, iters=RANKS_ITERS, mesh=mesh)
+    pr_wall = time.perf_counter() - t0
+    pr_counts = ops.launch_counts()
+    pr_coll = {op: list(v) for op, v in mesh.stats.items()}
+    labels, lp_info = label_propagation(g, mesh=mesh)
+    fwd, keep = (lambda a, b, c, d: (a, b)), (lambda st, acc, deg: st)
+    occ32 = make_superstep(g, fwd, keep, mesh).slab_occupancy
+    mesh7 = engine_mesh(k=7)
+    g7 = build_partitioned_graph(edges, assign % 7, n, 7, device="cuda", mesh=mesh7)
+    occ7 = make_superstep(g7, fwd, keep, mesh7).slab_occupancy
+    held = (g.parts, len(g.msg_src))
+    del g7
+    # The launches below hold the kernels to their plain versions at this
+    # rank's shapes; they come after the counts were read, so count nowhere.
+    kern = ranks_kernel_checks(g, pr, streams, n, cfg)
+    return dict(world=meshes.world_size(), rank=meshes.rank(), assign=assign, stats=stats,
+                spot_counts=spot_counts, pr=pr, pr_wall=pr_wall, pr_counts=pr_counts,
+                pr_coll=pr_coll, labels=labels, lp_info=lp_info, occ32=occ32, occ7=occ7,
+                held=held, kern=kern)
+
+
+def ranks_kernel_checks(g, pr, streams, n, cfg):
+    """The two kernels at the shapes this rank's run gave them, each held to
+    its plain version on the same inputs:
+
+      segment_sum — this rank's slab layout (the messages of its partitions'
+        edges, S = |V| segments) with pagerank's messages of the final
+        ranks (x_u / deg_u): within the bound of an n-term fp32 sum in any
+        order (phase 1's: n·2^-24·sum|x| per segment, n the segment's
+        length), and small integers, exact in fp32, equal to the fp64 sum
+        and to the plain version;
+      window_score_rows_batched — this rank's block of instances (z / n_shards
+        of them, each a window of W slots of its own stream over its own
+        (|V| + 1)-row tables, R = r_sel rows): bit for bit.
+
+    Returns plain values: the shapes, the verdicts, the largest errors."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.driver import resolve_backend
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import mesh as meshes
+
+    dev = g.device
+    out = {}
+    # segment_sum on the slab.
+    lay, src = g.msg_layout, g.msg_src.long()
+    seg = lay.seg_ids
+    x = torch.as_tensor(pr, device=dev)[:, None]
+    data = x[src] / g.degrees[src].clamp_min(1)[:, None]
+    got = ops.segment_sum_sorted(data, lay)
+    want = ref.segment_sum_ref(data, seg, n)
+    idx = seg.long()[:, None]
+    exact = torch.zeros((n, 1), dtype=torch.float64, device=dev).scatter_add_(0, idx, data.double())
+    mag = torch.zeros((n, 1), dtype=torch.float64, device=dev).scatter_add_(0, idx, data.double().abs())
+    runs = torch.bincount(seg.long(), minlength=n).double()[:, None]
+    tol = runs * 2.0**-24 * mag
+    ints = torch.as_tensor(np.random.default_rng(15).integers(-4, 5, (len(seg), 1)),
+                           dtype=torch.float32, device=dev)
+    got_i = ops.segment_sum_sorted(ints, lay)
+    exact_i = torch.zeros((n, 1), dtype=torch.float64, device=dev).scatter_add_(0, idx, ints.double())
+    out["segment_sum"] = dict(
+        messages=len(seg), segments=n, longest=int(runs.max().item()) if len(seg) else 0,
+        bound=bool(((got.double() - exact).abs() <= tol).all()),
+        plain_bound=bool(((want.double() - exact).abs() <= tol).all()),
+        ints=bool(torch.equal(got_i, exact_i.float()) and torch.equal(
+            got_i, ref.segment_sum_ref(ints, seg, n))),
+        max_abs_err=float((got - want).abs().max().item()) if len(seg) else 0.0)
+    # window_score_rows_batched on this rank's block of instances.
+    z, w, k = streams.shape[0], cfg.window_max, cfg.k
+    _, n_shards = resolve_backend("shard_map", z)
+    z_r = z // n_shards if n_shards > 1 else z
+    lo = meshes.rank() * z_r
+    r = cfg.resolve_r_sel()
+    rng = np.random.default_rng(16)
+    a = max(0, min(1000, streams.shape[1] - w))  # each window: W slots of the instance's stream
+    parts = [ws_table_inputs(w, k, n, 7 + i, uv=streams[i, a:a + w]) for i in range(lo, lo + z_r)]
+    tb = [torch.as_tensor(np.stack(a), device=dev) for a in zip(*parts)]
+    md = torch.full((z_r,), 40, dtype=torch.int32, device=dev)
+    rows = torch.as_tensor(np.stack([rng.choice(w, r, replace=False) for _ in range(z_r)]).astype(np.int32),
+                           device=dev)
+    got = ops.window_score_rows_batched(*tb, md, rows)
+    want = ref.window_score_rows_batched_ref(*tb, md, rows)
+    out["window_score"] = dict(
+        shape=(z_r, r, w, k), table_rows=n + 1, instances=(lo, lo + z_r),
+        bit_equal=bool(torch.equal(got.view(torch.int32), want.view(torch.int32))),
+        max_abs_err=float((got - want).abs().max().item()))
+    return out
+
+
+def ranks_rank(rank, backend, store, edges, n):
+    """One rank of phase 15 (a spawned process): join the group on the
+    card, then ``ranks_pipeline``."""
+    sys.path.insert(0, SRC)
+    import torch
+
+    from repro_torch.launch import mesh as meshes
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))  # two ranks share the host
+    meshes.init_ranks(backend, torch.device("cuda"), f"file://{store}")
+    return ranks_pipeline(edges, n)
+
+
+def ranks_store(name: str) -> str:
+    path = os.path.join(HERE, "build", "chip_smoke", "ranks")
+    os.makedirs(path, exist_ok=True)
+    path = os.path.join(path, name)
+    if os.path.exists(path):
+        os.remove(path)
+    return path
+
+
+def ranks_compare(ref, got, what, world):
+    """A rank's run against the one-process run: spotlight bit-equal
+    (assignments and per-instance stats) with one ``window_score`` launch a
+    batched step; pagerank within rtol 1e-5, label propagation exact, one
+    ``segment_sum`` launch and one all-reduce a superstep, the slabs of
+    k = 32 and k = 7 placed as the JAX package places them; and both
+    kernels held to their plain versions at this rank's own shapes
+    (:func:`ranks_kernel_checks`)."""
+    import numpy as np
+
+    from repro_torch.engine.gas import engine_mesh_size, slab_placement
+
+    r = got["rank"]
+    check(got["world"] == world, f"ranks {what} rank {r}: world {world}")
+    check(np.array_equal(got["assign"], ref["assign"]),
+          f"ranks {what} rank {r}: spotlight z={SPOT_Z} assignments equal one process's")
+    same = all(g[key] == f[key] for g, f in zip(got["stats"], ref["stats"]) for key in RANKS_SAME)
+    same = same and all(np.array_equal(g["w_trace"], f["w_trace"])
+                        for g, f in zip(got["stats"], ref["stats"]))
+    check(same, f"ranks {what} rank {r}: per-instance stats and w_trace equal one process's")
+    sharded = world > 1
+    want = ("shard_map", world) if sharded else ("vmap", 0)
+    check(all((st["backend"], st["n_shards"]) == want for st in got["stats"]),
+          f"ranks {what} rank {r}: backend, n_shards = {want}")
+    st = got["stats"][0]
+    ws = got["spot_counts"]["window_score"]
+    check(ws == st["steps_run"] + st["warmup_steps"],
+          f"ranks {what} rank {r}: one window_score launch per batched step ({ws} launches, "
+          f"{st['steps_run']} + {st['warmup_steps']} steps)")
+    check(np.allclose(got["pr"], ref["pr"], rtol=1e-5, atol=0) and np.isfinite(got["pr"]).all(),
+          f"ranks {what} rank {r}: pagerank within rtol 1e-5 of one process's")
+    check(np.array_equal(got["labels"], ref["labels"]) and got["lp_info"] == ref["lp_info"],
+          f"ranks {what} rank {r}: label propagation equals one process's")
+    check(got["pr_counts"]["segment_sum"] == RANKS_ITERS,
+          f"ranks {what} rank {r}: one segment_sum launch per superstep")
+    n_ar = got["pr_coll"].get("all_reduce_sum", [0, 0])[0]
+    check(n_ar == (RANKS_ITERS if sharded else 0),
+          f"ranks {what} rank {r}: {n_ar} all-reduces in {RANKS_ITERS} supersteps")
+    ss, ws_k = got["kern"]["segment_sum"], got["kern"]["window_score"]
+    check(ss["bound"] and ss["plain_bound"],
+          f"ranks {what} rank {r}: segment_sum on the rank's slab ({ss['messages']} messages, "
+          f"S={ss['segments']}) within the fp32 sum bound, as its plain version")
+    check(ss["ints"], f"ranks {what} rank {r}: segment_sum on the rank's slab, small integers "
+          "equal to the fp64 sum and the plain version")
+    check(ws_k["bit_equal"], f"ranks {what} rank {r}: window_score_rows_batched at the rank's "
+          f"block (z, R, W, K) = {ws_k['shape']} bit-equal to the plain version")
+    size32, size7 = engine_mesh_size(world, None, 32), engine_mesh_size(world, None, 7)
+    check(got["occ32"] == slab_placement(32, size32)[1] and got["occ7"] == slab_placement(7, size7)[1],
+          f"ranks {what} rank {r}: slab_occupancy k=32 {got['occ32']}, k=7 {got['occ7']}")
+
+
+def ranks_line(what, runs, ref):
+    st = runs[0]["stats"][0]
+    steps = st["steps_run"]
+    walls = [r["stats"][0]["wall_time_s"] - r["stats"][0]["setup_s"] for r in runs]
+    ref_loop = ref["stats"][0]["wall_time_s"] - ref["stats"][0]["setup_s"]
+    log(f"ranks {what}: spotlight z={SPOT_Z} wall_s={st['wall_time_s']:.3f} steps={steps} "
+        f"us_per_step_per_rank={walls[0] / steps * 1e6:.2f} (one process: "
+        f"{ref_loop / steps * 1e6:.2f}) window_score_launches per rank="
+        f"{[r['spot_counts']['window_score'] for r in runs]}; pagerank superstep_ms per rank="
+        f"{[round(r['pr_wall'] / RANKS_ITERS * 1e3, 3) for r in runs]} (one process: "
+        f"{ref['pr_wall'] / RANKS_ITERS * 1e3:.3f}) all_reduce per rank="
+        f"{[r['pr_coll'].get('all_reduce_sum') for r in runs]} slab_occupancy k=32 "
+        f"{runs[0]['occ32']} k=7 {runs[0]['occ7']} held (parts, messages) per rank="
+        f"{[r['held'] for r in runs]}")
+    for r in runs:
+        ss, wk = r["kern"]["segment_sum"], r["kern"]["window_score"]
+        log(f"ranks {what} rank {r['rank']}: segment_sum on its slab messages={ss['messages']} "
+            f"S={ss['segments']} longest={ss['longest']} max_abs_err={ss['max_abs_err']} "
+            f"(vs plain); window_score_rows_batched (z, R, W, K)={wk['shape']} instances "
+            f"{wk['instances']} tables {wk['table_rows']} rows max_abs_err={wk['max_abs_err']} "
+            f"bit_equal={wk['bit_equal']}")
+
+
+def phase_ranks():
+    """(a) spotlight z = 8 at brain_like 0.25, k = 32, W = 256 through
+    ``partition_stream_batched(backend="shard_map")`` on two gloo ranks on
+    cuda:0 (spawned; a file store; joined with a timeout), bit-equal to a
+    one-process run of the same cut in this process, n_shards 2 and one
+    ``window_score`` launch per batched step on each rank; (b) on its
+    assignment, pagerank (30 supersteps) within rtol 1e-5 and label
+    propagation exact against one process, one ``segment_sum`` launch and
+    one all-reduce per superstep a rank, slabs (16, 16) at k = 32 and (4, 3)
+    at k = 7; the superstep wall against one process; (c) NCCL at world 1
+    (a group of one rank in this process), bit-equal to the run with no
+    group; (d) with two cards, (a) and (b) over
+    NCCL on cuda:0-1 (logged as not run on one card). Returns the ranks'
+    launch counts ((a)-(d), each rank's paths)."""
+    import torch
+
+    from repro_torch.graph import make_graph
+    from repro_torch.launch import mesh as meshes
+
+    edges, n = make_graph("brain_like", seed=0, scale=RANKS_SCALE)
+    log(f"ranks phase: brain_like {RANKS_SCALE}: |V|={n} |E|={len(edges)} k={RANKS_K} "
+        f"z={SPOT_Z} W={RANKS_W}")
+    total = {}
+
+    def add(run):
+        for counts in (run["spot_counts"], run["pr_counts"]):
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+
+    t0 = time.perf_counter()
+    ref = ranks_pipeline(edges, n)
+    log(f"ranks phase: one process {time.perf_counter() - t0:.1f}s")
+    check(ref["occ32"] == (RANKS_K,) and ref["pr_counts"]["segment_sum"] == RANKS_ITERS,
+          "ranks: the one-process run holds every partition and launches segment_sum a superstep")
+
+    t0 = time.perf_counter()
+    runs = meshes.spawn(ranks_rank, 2, ("gloo", ranks_store("gloo-2"), edges, n),
+                        timeout=RANKS_TIMEOUT)
+    log(f"ranks phase: (a)+(b) two gloo ranks on cuda:0, {time.perf_counter() - t0:.1f}s "
+        "(spawn included)")
+    for run in runs:
+        add(run)
+        ranks_compare(ref, run, "(a)+(b) gloo", 2)
+    check(runs[0]["occ32"] == (16, 16) and runs[0]["occ7"] == (4, 3),
+          "ranks (b): slabs (16, 16) at k=32 and (4, 3) at k=7")
+    check([r["held"][0] for r in runs] == [(0, 16), (16, 32)]
+          and sum(r["held"][1] for r in runs) == ref["held"][1] == 2 * len(edges),
+          "ranks (b): each rank's graph holds its slab's partitions, the slabs every message once")
+    import numpy as np
+
+    check(np.array_equal(runs[0]["pr"], runs[1]["pr"]), "ranks (b): both ranks' pagerank bit-equal")
+    ranks_line("(a)+(b) two gloo ranks on cuda:0", runs, ref)
+
+    # (c) in this process (no spawn): a group of one rank over NCCL.
+    t0 = time.perf_counter()
+    meshes.init_ranks("nccl", torch.device("cuda"), f"file://{ranks_store('nccl-1')}")
+    try:
+        one = ranks_pipeline(edges, n)
+    finally:
+        torch.distributed.destroy_process_group()
+    add(one)
+    ranks_compare(ref, one, "(c) NCCL world 1", 1)
+    check(np.array_equal(one["pr"], ref["pr"]),
+          "ranks (c): NCCL at world 1 gives the no-group pagerank bit for bit")
+    log(f"ranks (c) NCCL world 1: spotlight and engine bit-equal to the run with no group; "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    if torch.cuda.device_count() >= 2:
+        t0 = time.perf_counter()
+        runs = meshes.spawn(ranks_rank, 2, ("nccl", ranks_store("nccl-2"), edges, n),
+                            timeout=RANKS_TIMEOUT)
+        for run in runs:
+            add(run)
+            ranks_compare(ref, run, "(d) NCCL cuda:0-1", 2)
+        ranks_line("(d) NCCL on cuda:0-1", runs, ref)
+        log(f"ranks (d): {time.perf_counter() - t0:.1f}s")
+    else:
+        log(f"ranks (d): not run: {torch.cuda.device_count()} card(s), two needed")
+    return total
+
 
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -3130,6 +3471,13 @@ def main() -> int:
         log(f"phase 14 (tensor-parallel serving): {time.perf_counter() - t0:.1f}s launches={tp_counts}")
         check(tp_counts["flash_attention"] > 0, "flash_attention launched on the tensor-parallel path")
         counts["flash_attention"] += tp_counts["flash_attention"]
+        t0 = time.perf_counter()
+        rank_counts = phase_ranks()
+        log(f"phase 15 (partition -> process over ranks): {time.perf_counter() - t0:.1f}s "
+            f"launches={rank_counts}")
+        for name in ("window_score", "segment_sum"):
+            check(rank_counts[name] > 0, f"{name} launched on the ranks' path")
+            counts[name] += rank_counts[name]
         sources = {"window_score": ws_mod, "segment_sum": ss_mod, "flash_attention": fa_mod}
         kernels = []
         for name, row in kernel_rows.items():

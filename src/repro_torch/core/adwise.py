@@ -569,9 +569,16 @@ def partition_stream_batched(
         ADWISE; per-instance state (HDRF's tie seeds ``seed + i``) comes
         from the core's ``seed_instances`` hook.
       allowed: optional (z, k) bool — per-instance spotlight spread masks.
-      backend: 'auto', 'vmap' or 'shard_map', as in the JAX package. On one
-        card all three run the one batched step and report ``('vmap', 0)``,
-        as the JAX package resolves them on one device.
+      backend: 'auto', 'vmap' or 'shard_map', resolved per length bucket
+        as the JAX package resolves it per bucket, with the ranks of the
+        default process group in place of its devices
+        (:func:`repro_torch.core.driver.resolve_backend`): a bucket of
+        ``z_b`` instances that resolves to 'shard_map' runs as blocks of
+        ``z_b / n_shards`` instances on ``n_shards`` ranks; one that
+        resolves to ``('vmap', 0)`` (every bucket with no process group or
+        one rank) runs whole on every rank. Every rank returns the same z
+        results; ``backend`` and ``n_shards`` in each instance's stats are
+        its bucket's.
       n_chunks / cost_per_score / residency / trace / device: as in
         :func:`partition_stream`.
       warm: optional length-z sequence of per-instance :class:`WarmState`;

@@ -78,11 +78,39 @@ driver syncs once per call. Its counters are those of the JAX ring:
 ``refill-spec``, ``fetch``, ``stage`` (on the read-ahead thread's track),
 the ``ring-adopt`` instant and the ``readahead_staged_rows`` gauge.
 
-Placing instances on several cards is not ported.
+Instances over ranks
+--------------------
+With a process group of more than one rank, ``backend='shard_map'`` (and
+``'auto'``) places the z instances on an ``instances`` mesh of ranks
+(:func:`resolve_backend`: ``n_shards`` ranks, the largest divisor of z that
+is at most the world size), as the JAX package places them on devices: rank
+r steps the contiguous block of ``z / n_shards`` instances starting at
+``r·z / n_shards``, with their global instance ids, and ranks at or past
+``n_shards`` step nothing. Every rank joins every collective and returns
+the whole batch's outcome:
+
+- the chunk arithmetic is the batch's (the longest instance of all z), and
+  each drain call (resident) or scan call (ring) is taken while *some*
+  instance of the batch has edges left (one all-reduce of the flag), so
+  ``scan_calls`` and ``steps_run`` are the JAX package's;
+- on a latency budget, every rank recalibrates from one shared cost: the
+  slowest rank's wall over the batch's score rows;
+- at the end one gather gives every rank every instance's outputs and
+  counters; ``h2d_rows``, ``h2d_bytes`` and the refill counts are the
+  batch's (summed over the ranks' blocks), ``wall_time_s``, ``setup_s``,
+  ``h2d_wait_s`` and ``prestage_wall_s`` the slowest rank's;
+- on a file ring, ``on_assign`` gets the rank's own instances, by global
+  index, and a pass's :class:`RingHandle` holds the rank's ring with the
+  batch's geometry, so the next pass adopts it on the same rank.
+
+A batch that resolves to ``'vmap'`` runs whole on every rank (the same
+work, the same results), sharing only the budget's wall. With no process
+group, or a world of 1, nothing here issues a collective.
 """
 from __future__ import annotations
 
 import collections
+import copy
 import dataclasses
 import os
 import threading
@@ -102,6 +130,7 @@ from repro_torch.core.adwise import (
 )
 from repro_torch.core.types import AdwiseConfig, WarmState
 from repro_torch.kernels import ops
+from repro_torch import dist as rdist
 from repro_torch.obs import resolve_tracer
 
 __all__ = [
@@ -136,16 +165,29 @@ def resolve_prefetch(prefetch: Optional[int] = None) -> int:
     return max(0, int(prefetch))
 
 
-def resolve_backend(backend: str, z: int) -> tuple[str, int]:
-    """(effective backend, n_shards), as the JAX package's
-    ``resolve_backend`` resolves it on one device: 'auto', 'vmap' and
-    'shard_map' all run the one batched step, ``('vmap', 0)``. Instances
-    are not placed on several cards in this port."""
-    if backend not in ("auto", "vmap", "shard_map"):
+def resolve_backend(backend: str, z: int, world: Optional[int] = None) -> tuple[str, int]:
+    """(effective backend, n_shards), as the JAX package resolves it with
+    the ranks of the default process group (``world``, default its size)
+    in place of the devices: 'auto' picks 'shard_map' when there is more
+    than one rank; 'shard_map' places the z instances on ``n_shards``
+    ranks, the largest divisor of z that is at most min(world, z), and
+    degrades to ``('vmap', 0)`` — the one batched step on every rank — when
+    that is 1."""
+    if world is None:
+        world = rdist.world_size()
+    if backend == "auto":
+        backend = "shard_map" if world > 1 else "vmap"
+    if backend == "vmap":
+        return "vmap", 0
+    if backend != "shard_map":
         raise ValueError(
             f"backend must be 'auto', 'vmap' or 'shard_map', got {backend!r}"
         )
-    return "vmap", 0
+    nd = min(world, z)
+    n_shards = max((d for d in range(1, nd + 1) if z % d == 0), default=1)
+    if n_shards <= 1:
+        return "vmap", 0
+    return "shard_map", n_shards
 
 
 class StepCore:
@@ -205,8 +247,11 @@ class StepCore:
     def set_cost(self, carry: Any, cost_per_score: float) -> None:
         raise ValueError(f"{self.name} core does not model per-score cost")
 
-    def recalibrate(self, carry: Any, t0: float) -> None:
-        """Between-chunks budget recalibration (no-op unless has_budget)."""
+    def recalibrate(self, carry: Any, t0: float,
+                    share: Optional[Callable[[float, int], Tuple[float, int]]] = None) -> None:
+        """Between-chunks budget recalibration (no-op unless has_budget).
+        ``share(wall, rows)`` gives the batch's (wall, score rows) from this
+        rank's when the batch runs on several ranks."""
 
     def counters(self, carry: Any) -> dict:
         """Final per-instance counters (each (z,)); by default those of a
@@ -275,14 +320,18 @@ class AdwiseCore(StepCore):
     def set_cost(self, carry: Any, cost_per_score: float) -> None:
         carry.cost_per_score.fill_(cost_per_score)
 
-    def recalibrate(self, carry: Any, t0: float) -> None:
+    def recalibrate(self, carry: Any, t0: float,
+                    share: Optional[Callable[[float, int], Tuple[float, int]]] = None) -> None:
         budget = self.cfg.latency_budget
         assert budget is not None  # only called when has_budget
         # One step runs every instance, so the shared per-row cost comes
         # from the batched wall over the total row count.
         # staticcheck: disable=SC003 budget recalibration MEASURES wall clock — the sync is the measurement (§III-B latency budget)
-        rows = max(int(carry.score_rows.sum()), 1)
+        rows = int(carry.score_rows.sum())
         wall = time.perf_counter() - t0
+        if share is not None:
+            wall, rows = share(wall, rows)
+        rows = max(rows, 1)
         carry.cost_per_score.fill_(wall / (rows * self.cfg.k))
         carry.budget_left.fill_(budget - wall)
 
@@ -303,16 +352,21 @@ class StreamResidency:
     shipping only its new prev table. Residency is keyed by the stream's
     shape, as in the JAX package. Caller contract: every pass streams the
     SAME edges — only the shape is cheap to verify, so a holder is never
-    shared across different streams.
+    shared across different streams. A rank past an ``instances`` mesh
+    holds no block of the stream and publishes None: the shape is still
+    resident for the batch, so every rank bills pass p+1 alike.
     """
 
     __slots__ = ("_by_shape",)
 
     def __init__(self) -> None:
-        self._by_shape: dict[Tuple[int, ...], torch.Tensor] = {}
+        self._by_shape: dict[Tuple[int, ...], Optional[torch.Tensor]] = {}
 
-    def publish(self, streams: torch.Tensor, shape: Tuple[int, ...]) -> None:
+    def publish(self, streams: Optional[torch.Tensor], shape: Tuple[int, ...]) -> None:
         self._by_shape[tuple(shape)] = streams
+
+    def holds(self, shape: Tuple[int, ...]) -> bool:
+        return tuple(shape) in self._by_shape
 
     def lookup(self, shape: Tuple[int, ...]) -> Optional[torch.Tensor]:
         return self._by_shape.get(tuple(shape))
@@ -352,6 +406,11 @@ class ResidentSource:
     def upload_rows(self) -> int:
         return self.z * self.per
 
+    def select(self, lo: int, hi: int) -> "ResidentSource":
+        """Instances ``lo .. hi - 1`` (a rank's block), sharing the
+        residency holder."""
+        return ResidentSource(self.streams[lo:hi], self.m_per[lo:hi], residency=self.residency)
+
 
 class RingBuf(NamedTuple):
     """Device-resident stream ring: slot ``s % B`` holds logical row ``s``.
@@ -374,7 +433,7 @@ class RingHandle(NamedTuple):
     placements. The adopting pass writes into the same tensors.
     """
 
-    buf: RingBuf
+    buf: Optional[RingBuf]  # a sharded pass: this rank's instances' rows (None: none)
     hi: np.ndarray  # (z,) per-instance upload high-water marks at pass end
     B: int  # ring rows per instance
     z: int
@@ -633,6 +692,20 @@ class FileSource:
         self._worker: Optional[_ReadAhead] = None
         self._worker_started = False
 
+    def select(self, lo: int, hi: int) -> "FileSource":
+        """Instances ``lo .. hi - 1`` (a rank's block) with this source's
+        geometry, counters at zero. Taken before any refill; an adopted
+        ring is the rank's own (its handle came from the same block)."""
+        sub = copy.copy(self)
+        sub.readers = self.readers[lo:hi]
+        sub.z = hi - lo
+        sub.m_per = self.m_per[lo:hi].copy()
+        sub.prev_read = None if self.prev_read is None else self.prev_read[lo:hi]
+        sub.hi = np.zeros((sub.z,), np.int64)
+        sub.uv_resident = self.uv_resident[lo:hi].copy()
+        sub.ring_addrs = set()
+        return sub
+
     def _adopt(self, resume: RingHandle) -> None:
         """Adopt a previous pass's ring under the cross-pass contract: same
         geometry (B, z, per-instance m), and only instances whose whole
@@ -833,9 +906,11 @@ class DriveResult(NamedTuple):
 
 
 class ScanDriver:
-    """The stepping loop over a source of z instances, on one device: the
-    resident stream (chunked scan calls, outputs collected once) or a file
-    ring (refill → scan → one sync → emit, per call)."""
+    """The stepping loop over a source of z instances: the resident stream
+    (chunked scan calls, outputs collected once) or a file ring (refill →
+    scan → one sync → emit, per call), on this rank's device — all z
+    instances, or this rank's block of them when the batch resolves to
+    'shard_map' over several ranks (module docstring)."""
 
     def __init__(
         self,
@@ -874,6 +949,17 @@ class ScanDriver:
         self.m_per = source.m_per
         self.r_sel = core.r_sel
         self.backend, self.n_shards = resolve_backend(backend, z)
+        # This rank's block of instances: all of them unless the batch is
+        # sharded over an `instances` mesh of ranks.
+        self.sharded = self.n_shards > 1
+        self.mesh = rdist.rank_mesh("instances", self.n_shards if self.sharded else None)
+        lo, hi = 0, z
+        if self.sharded:
+            per_rank = z // self.n_shards
+            c = self.mesh.coord
+            lo, hi = (z, z) if c is None else (c * per_rank, (c + 1) * per_rank)
+        self.block = (lo, hi)
+        self.m_local = self.m_per[lo:hi]
         if allowed is None:
             allowed_np = np.ones((z, k), bool)
         else:
@@ -892,9 +978,7 @@ class ScanDriver:
         # The prior-assignment table every resident pass ships: -1 = none.
         # A file pass reads prior placements through the source's prev_read.
         self._prev_np = np.full((z, source.per), -1, np.int32) if source.resident else None
-        if warm is None:
-            carry = stack_instances([core.init_carry(budget, dev)] * z)
-        else:
+        if warm is not None:
             if len(warm) != z:
                 raise ValueError(f"need one WarmState per instance, got {len(warm)}")
             has_prev = [w.prev_assign is not None for w in warm]
@@ -915,125 +999,170 @@ class ScanDriver:
                         f"{pa.shape} vs ({int(self.m_per[i])},)"
                     )
                 self._prev_np[i, : len(pa)] = pa
-            carry = stack_instances([core.warm_carry(budget, w, dev) for w in warm])
         ids = np.arange(z) if instance_ids is None else np.asarray(instance_ids)
         if ids.shape != (z,):
             raise ValueError(f"instance_ids must be ({z},), got {ids.shape}")
-        carry = core.seed_instances(carry, z, ids)
         self.fixed_cost = cost_per_score is not None
-        if cost_per_score is not None:
-            core.set_cost(carry, cost_per_score)
-        self.carry = carry
-        self._m_real = torch.as_tensor(self.m_per.astype(np.int32), device=dev)
-        self._allowed = torch.as_tensor(allowed_np, device=dev)
-        self._caps = torch.as_tensor(caps, device=dev)
+        # The rank's source and carry: None on a rank past the mesh.
+        self.local: Any = None
+        self.carry: Any = None
+        if hi > lo:
+            self.local = source if (lo, hi) == (0, z) else source.select(lo, hi)
+            if warm is None:
+                carry = stack_instances([core.init_carry(budget, dev)] * (hi - lo))
+            else:
+                carry = stack_instances([core.warm_carry(budget, w, dev) for w in warm[lo:hi]])
+            carry = core.seed_instances(carry, hi - lo, ids[lo:hi])
+            if cost_per_score is not None:
+                core.set_cost(carry, cost_per_score)
+            self.carry = carry
+            self._m_real = torch.as_tensor(self.m_local.astype(np.int32), device=dev)
+            self._allowed = torch.as_tensor(allowed_np[lo:hi], device=dev)
+            self._caps = torch.as_tensor(caps[lo:hi], device=dev)
         self.steps_per_graph = STEPS_PER_GRAPH if dev.type == "cuda" else 0
         # Set after a completed ring drive: the cross-pass hand-off a
         # re-streaming pass may adopt (FileSource(resume=...)).
         self.ring_handle: Optional[RingHandle] = None
 
+    def _more(self, flag: bool) -> bool:
+        """Whether the batch has work left: ``flag`` on some rank when the
+        batch is sharded (every rank takes the same branch), else ``flag``."""
+        return self.mesh.any(flag) if self.sharded else bool(flag)
+
+    def _share_cost(self, wall: float, rows: int) -> Tuple[float, int]:
+        """The batch's (wall, score rows): the slowest rank's wall, and the
+        rows of every rank's block (a sharded batch) or of this rank's
+        whole batch."""
+        vals = self.mesh.gather_values([wall, rows])
+        return float(vals[:, 0].max()), int(vals[:, 1].sum()) if self.sharded else rows
+
     def _recalibrate(self, carry: Any, t0: float) -> None:
         if self.has_budget and not self.fixed_cost:
+            share = self._share_cost if self.mesh.world > 1 else None
+            if carry is None:  # a rank past the mesh joins the shared cost
+                self._share_cost(time.perf_counter() - t0, 0)
+                return
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
-            self.core.recalibrate(carry, t0)
+            self.core.recalibrate(carry, t0, share)
 
     def _run_resident(self, n_chunks: int) -> DriveResult:
-        src, core, dev, z = self.source, self.core, self.device, self.z
+        src, core, dev = self.source, self.core, self.device
+        local, carry = self.local, self.carry
         b = core.rows_per_step
         m_max = int(self.m_per.max())
-        # Provisioned by the longest instance (shorter ones idle); the drain
-        # covers top-b pick stalls.
+        # Provisioned by the longest instance of the batch (shorter ones
+        # idle); the drain covers top-b pick stalls.
         steps_total = -(-m_max // b) + -(-core.window_rows // b) + 2
         n_chunks = max(1, min(n_chunks, steps_total))
         chunk_steps = -(-steps_total // n_chunks)
         n_chunks = -(-steps_total // chunk_steps)
 
         t0 = time.perf_counter()
+        # The batch's upload bill; a rank uploads its block. A residency
+        # holder is per process, keyed by the batch's shape, and every rank
+        # (one past the mesh too) publishes that shape, so the ranks agree
+        # on a hit.
         residency = src.residency
-        stream = residency.lookup(src.streams.shape) if residency is not None else None
-        if stream is not None:
+        resident = residency is not None and residency.holds(src.streams.shape)
+        stream = residency.lookup(src.streams.shape) if resident else None
+        if resident:
             # The previous pass left the stream on the device: only the new
             # prev table ships.
             h2d_rows = 0
             h2d_bytes = self._prev_np.size * 4
         else:
-            stream = torch.as_tensor(src.streams, device=dev)
             h2d_rows = src.upload_rows
             h2d_bytes = src.upload_rows * 8 + self._prev_np.size * 4
-        if residency is not None:
-            residency.publish(stream, src.streams.shape)
-        prev = torch.as_tensor(self._prev_np, device=dev)
-        step = core.make_step(stream, self._m_real, self._allowed, self._caps, prev)
-        carry = self.carry
-        out = StepOut.empty(chunk_steps, z, b, dev)
-        if dev.type == "cuda":
-            run_chunk = _GraphStepper(step, carry, out, chunk_steps, self.steps_per_graph)
-        else:
-            run_chunk = _LoopStepper(step, carry, out, chunk_steps)
+        trace = self.trace
+        traced = trace.enabled and local is not None
+        outs = []
+        run_chunk: Any = None
+        if residency is not None and local is None:
+            residency.publish(None, src.streams.shape)
+        if local is not None:
+            if stream is None:
+                stream = torch.as_tensor(local.streams, device=dev)
+            if residency is not None:
+                residency.publish(stream, src.streams.shape)
+            lo, hi = self.block
+            prev = torch.as_tensor(self._prev_np[lo:hi], device=dev)
+            step = core.make_step(stream, self._m_real, self._allowed, self._caps, prev)
+            out = StepOut.empty(chunk_steps, hi - lo, b, dev)
+            if dev.type == "cuda":
+                run_chunk = _GraphStepper(step, carry, out, chunk_steps, self.steps_per_graph)
+            else:
+                run_chunk = _LoopStepper(step, carry, out, chunk_steps)
         setup_s = time.perf_counter() - t0
 
-        trace = self.trace
-        traced = trace.enabled
-        outs = []
         calls = 0
         for _ in range(n_chunks):
-            if traced:
-                t_call = time.perf_counter()
-            captured = run_chunk()
             calls += 1
-            # Device-side copies only: the transfer to the host happens
-            # once, after the stepping loop.
-            outs.append(_snapshot(out))
-            if traced:
-                trace.add_span(
-                    "scan-call", "scan", t_call, time.perf_counter(),
-                    attrs=dict(call=calls, steps=chunk_steps, mode="dispatch",
-                               compiled=captured),
-                )
+            if run_chunk is not None:
+                if traced:
+                    t_call = time.perf_counter()
+                captured = run_chunk()
+                # Device-side copies only: the transfer to the host happens
+                # once, after the stepping loop.
+                outs.append(_snapshot(out))
+                if traced:
+                    trace.add_span(
+                        "scan-call", "scan", t_call, time.perf_counter(),
+                        attrs=dict(call=calls, steps=chunk_steps, mode="dispatch",
+                                   compiled=captured),
+                    )
             self._recalibrate(carry, t0)
         drain_left = -(-m_max // chunk_steps) + 2
         # staticcheck: disable=SC003 drain termination must observe `assigned`; one sync per extra call, none in the provisioned loop
-        while bool((carry.assigned < self._m_real).any()) and drain_left > 0:
-            if traced:
-                t_call = time.perf_counter()
-            run_chunk()
+        while self._more(carry is not None and bool((carry.assigned < self._m_real).any())) \
+                and drain_left > 0:
             calls += 1
-            outs.append(_snapshot(out))
-            if traced:
-                trace.add_span(
-                    "scan-call", "scan", t_call, time.perf_counter(),
-                    attrs=dict(call=calls, steps=chunk_steps, mode="drain"),
-                )
+            if run_chunk is not None:
+                if traced:
+                    t_call = time.perf_counter()
+                run_chunk()
+                outs.append(_snapshot(out))
+                if traced:
+                    trace.add_span(
+                        "scan-call", "scan", t_call, time.perf_counter(),
+                        attrs=dict(call=calls, steps=chunk_steps, mode="drain"),
+                    )
             drain_left -= 1
-        if traced:
-            t_mat = time.perf_counter()
-        # (calls·T, z, b) -> (z, calls·T·b), and (calls·T, z) -> (z, calls·T).
-        sidx = torch.cat([o[0] for o in outs]).transpose(0, 1).cpu().numpy().reshape(z, -1)
-        pout = torch.cat([o[1] for o in outs]).transpose(0, 1).cpu().numpy().reshape(z, -1)
-        w_trace = torch.cat([o[2] for o in outs]).transpose(0, 1).cpu().numpy()
-        if traced:
-            trace.add_span("materialize", "host", t_mat, time.perf_counter(),
-                           attrs=dict(calls=calls))
+        mine = None
+        if run_chunk is not None:
+            if traced:
+                t_mat = time.perf_counter()
+            z = hi - lo
+            # (calls·T, z, b) -> (z, calls·T·b), and (calls·T, z) -> (z, calls·T).
+            sidx = torch.cat([o[0] for o in outs]).transpose(0, 1).cpu().numpy().reshape(z, -1)
+            pout = torch.cat([o[1] for o in outs]).transpose(0, 1).cpu().numpy().reshape(z, -1)
+            w_trace = torch.cat([o[2] for o in outs]).transpose(0, 1).cpu().numpy()
+            if traced:
+                trace.add_span("materialize", "host", t_mat, time.perf_counter(),
+                               attrs=dict(calls=calls))
+            mine = dict(core.counters(carry), sidx=sidx, p=pout, w_trace=w_trace,
+                        assigned=carry.assigned.cpu().numpy())
         wall = time.perf_counter() - t0
-        cnt = core.counters(carry)
+        setup_s += run_chunk.capture_s if run_chunk is not None else 0.0
+        warmup = run_chunk.warmup_steps if run_chunk is not None else 0
+        out_all, (wall, setup_s, warmup), _ = self._gather(mine, [wall, setup_s, warmup], [])
         return DriveResult(
-            sidx=sidx,
-            p=pout,
-            w_trace=w_trace,
-            assigned=carry.assigned.cpu().numpy(),
-            score_rows=cnt["score_rows"],
-            final_w=cnt["final_w"],
-            lam=cnt["lam"],
-            cost_per_score=cnt["cost_per_score"],
+            sidx=out_all["sidx"],
+            p=out_all["p"],
+            w_trace=out_all["w_trace"],
+            assigned=out_all["assigned"],
+            score_rows=out_all["score_rows"],
+            final_w=out_all["final_w"],
+            lam=out_all["lam"],
+            cost_per_score=out_all["cost_per_score"],
             wall_time_s=wall,
             r_sel=self.r_sel,
             backend=self.backend,
             n_shards=self.n_shards,
             scan_calls=calls,
             steps_run=calls * chunk_steps,
-            warmup_steps=run_chunk.warmup_steps,
-            setup_s=setup_s + run_chunk.capture_s,
+            warmup_steps=int(warmup),
+            setup_s=setup_s,
             h2d_rows=int(h2d_rows),
             h2d_bytes=int(h2d_bytes),
             buffer_rows=src.per,
@@ -1041,12 +1170,31 @@ class ScanDriver:
             steps_per_graph=self.steps_per_graph,
         )
 
+    def _gather(self, mine: Optional[dict], slowest: List[float], summed: List[float]
+                ) -> Tuple[dict, List[float], List[float]]:
+        """The batch's outcome from the ranks' blocks. ``mine``: this rank's
+        per-instance arrays (leading axis: its block), None past the mesh;
+        ``slowest`` / ``summed``: its scalars, of which the batch's are the
+        largest / the sum over the ranks. Without sharding, this rank's own.
+        Returns (per-instance arrays over all z, in instance order, the
+        slowest values, the summed values)."""
+        if not self.sharded:
+            assert mine is not None
+            return mine, slowest, summed
+        parts = self.mesh.gather_objects((mine, slowest, summed))
+        blocks = [p[0] for p in parts if p[0] is not None]
+        out = {key: np.concatenate([blk[key] for blk in blocks]) for key in blocks[0]}
+        top = [max(p[1][j] for p in parts) for j in range(len(slowest))]
+        tot = [sum(p[2][j] for p in parts) for j in range(len(summed))]
+        return out, top, tot
+
     def _run_ring(self, on_assign: Callable[[int, np.ndarray, np.ndarray], None]) -> DriveResult:
-        src, core, dev, z = self.source, self.core, self.device, self.z
+        core, dev = self.core, self.device
+        src, carry = self.local, self.carry
+        lo = self.block[0]
         m_max = int(self.m_per.max())
-        S = src.scan_steps
-        pipelined = src.prefetch > 0
-        carry = self.carry
+        S = self.source.scan_steps
+        pipelined = self.source.prefetch > 0
         iters = 0
         # Every step with a non-empty window assigns >= 1 edge per instance,
         # so the calls are bounded by m_max plus the window build-up.
@@ -1057,102 +1205,120 @@ class ScanDriver:
         # call k+1 (from the guaranteed-progress lower bound, enqueued
         # behind call k) -> the one sync -> emit. At prefetch=0 the
         # speculative refill is skipped.
+        z = len(self.m_local)
         assigned = np.zeros((z,), np.int64)
         cursors = np.zeros((z,), np.int64)
         trace = self.trace
-        traced = trace.enabled
+        traced = trace.enabled and src is not None
         done_before = 0
+        run_chunk: Any = None
+        buf = None
+        setup_s = 0.0
         t0 = time.perf_counter()
         try:
-            buf = src.alloc(dev)
-            step = core.make_step(buf.uv, self._m_real, self._allowed, self._caps, buf.prev)
-            out = StepOut.empty(S, z, core.rows_per_step, dev)
-            if dev.type == "cuda":
-                run_chunk = _GraphStepper(step, carry, out, S, self.steps_per_graph)
-            else:
-                run_chunk = _LoopStepper(step, carry, out, S)
-            emitted = _HostCopy((carry.assigned, carry.cursor, out.sidx, out.p), dev)
-            setup_s = time.perf_counter() - t0
-            while not (assigned >= self.m_per).all():
+            if src is not None:
+                buf = src.alloc(dev)
+                step = core.make_step(buf.uv, self._m_real, self._allowed, self._caps, buf.prev)
+                out = StepOut.empty(S, z, core.rows_per_step, dev)
+                if dev.type == "cuda":
+                    run_chunk = _GraphStepper(step, carry, out, S, self.steps_per_graph)
+                else:
+                    run_chunk = _LoopStepper(step, carry, out, S)
+                emitted = _HostCopy((carry.assigned, carry.cursor, out.sidx, out.p), dev)
+                setup_s = time.perf_counter() - t0
+            while self._more(src is not None and not (assigned >= self.m_local).all()):
                 iters += 1
                 if iters > max_iters:
                     raise RuntimeError(
                         f"streaming scan failed to converge: {assigned} of "
-                        f"{self.m_per} assigned after {iters - 1} calls")
-                buf = src.refill(buf, cursors)
-                if traced:
-                    t_call = time.perf_counter()
-                captured = run_chunk()
-                emitted.start()
-                if pipelined:
-                    # Safe without syncing: the call in flight advances every
-                    # unfinished instance by >= S assignments, so rows below
-                    # lb are dead for every later call, and the copies are
-                    # enqueued behind that call on the same stream.
-                    lb = np.minimum(assigned + S, self.m_per)
-                    buf = src.refill(buf, lb, speculative=True)
-                # staticcheck: disable=SC003 ring-mode termination: ONE sync per scan call for assigned, cursor, sidx and p, amortized over S steps
-                a_h, c_h, sidx_h, p_h = emitted.wait()
-                assigned = a_h.astype(np.int64)
-                # The next refill needs the host cursor to size disk reads,
-                # and file mode streams placements to on_assign to stay
-                # O(chunk): both come from the same sync.
-                cursors = c_h.astype(np.int64)
-                sidx = sidx_h.transpose(1, 0, 2).reshape(z, -1)
-                pout = p_h.transpose(1, 0, 2).reshape(z, -1)
-                for i in range(z):
-                    live = sidx[i] >= 0
-                    if live.any():
-                        on_assign(i, sidx[i][live].astype(np.int64), pout[i][live])
-                if traced:
-                    # Refill -> scan call -> speculative refill -> the one
-                    # sync -> emit: the whole host wait for scan call k.
-                    # `rows` stays an np scalar; the exporter unwraps it.
-                    done = assigned.sum()
-                    trace.add_span(
-                        "scan-call", "scan", t_call, time.perf_counter(),
-                        attrs=dict(call=iters, steps=S, rows=done - done_before,
-                                   compiled=captured),
-                    )
-                    done_before = done
+                        f"{self.m_local} assigned after {iters - 1} calls")
+                if src is not None:
+                    buf = src.refill(buf, cursors)
+                    if traced:
+                        t_call = time.perf_counter()
+                    captured = run_chunk()
+                    emitted.start()
+                    if pipelined:
+                        # Safe without syncing: the call in flight advances every
+                        # unfinished instance by >= S assignments, so rows below
+                        # lb are dead for every later call, and the copies are
+                        # enqueued behind that call on the same stream.
+                        lb = np.minimum(assigned + S, self.m_local)
+                        buf = src.refill(buf, lb, speculative=True)
+                    # staticcheck: disable=SC003 ring-mode termination: ONE sync per scan call for assigned, cursor, sidx and p, amortized over S steps
+                    a_h, c_h, sidx_h, p_h = emitted.wait()
+                    assigned = a_h.astype(np.int64)
+                    # The next refill needs the host cursor to size disk reads,
+                    # and file mode streams placements to on_assign to stay
+                    # O(chunk): both come from the same sync.
+                    cursors = c_h.astype(np.int64)
+                    sidx = sidx_h.transpose(1, 0, 2).reshape(z, -1)
+                    pout = p_h.transpose(1, 0, 2).reshape(z, -1)
+                    for i in range(z):
+                        live = sidx[i] >= 0
+                        if live.any():
+                            on_assign(lo + i, sidx[i][live].astype(np.int64), pout[i][live])
+                    if traced:
+                        # Refill -> scan call -> speculative refill -> the one
+                        # sync -> emit: the whole host wait for scan call k.
+                        # `rows` stays an np scalar; the exporter unwraps it.
+                        done = assigned.sum()
+                        trace.add_span(
+                            "scan-call", "scan", t_call, time.perf_counter(),
+                            attrs=dict(call=iters, steps=S, rows=done - done_before,
+                                       compiled=captured),
+                        )
+                        done_before = done
                 self._recalibrate(carry, t0)
-            if not (cursors <= src.hi).all():
+            if src is not None and not (cursors <= src.hi).all():
                 raise RuntimeError(f"scan cursors {cursors} overran uploaded rows {src.hi}")
             wall = time.perf_counter() - t0
         finally:
-            src.close()
-        self.ring_handle = RingHandle(buf=buf, hi=src.hi.copy(), B=src.B, z=z,
+            if src is not None:
+                src.close()
+        mine = None
+        slowest = [wall, setup_s, 0, 0.0, 0.0]
+        summed = [0, 0, 0, 0, 0, 0]
+        if src is not None:
+            mine = dict(core.counters(carry), assigned=carry.assigned.cpu().numpy(), hi=src.hi.copy())
+            slowest = [wall, setup_s + run_chunk.capture_s, run_chunk.warmup_steps,
+                       src.h2d_wait_s, src.prestage_wall_s]
+            summed = [src.h2d_rows, src.h2d_bytes, src.refill_spans, src.spans_prestaged,
+                      src.spans_missed, len(src.ring_addrs)]
+        out_all, slowest, summed = self._gather(mine, slowest, summed)
+        wall, setup_s, warmup, h2d_wait_s, prestage_wall_s = slowest
+        h2d_rows, h2d_bytes, refill_spans, prestaged, missed, ring_addrs = summed
+        self.ring_handle = RingHandle(buf=buf, hi=out_all["hi"], B=self.source.B, z=self.z,
                                       m_per=self.m_per.copy())
-        cnt = core.counters(carry)
         return DriveResult(
             sidx=None,
             p=None,
             w_trace=None,
-            assigned=carry.assigned.cpu().numpy(),
-            score_rows=cnt["score_rows"],
-            final_w=cnt["final_w"],
-            lam=cnt["lam"],
-            cost_per_score=cnt["cost_per_score"],
+            assigned=out_all["assigned"],
+            score_rows=out_all["score_rows"],
+            final_w=out_all["final_w"],
+            lam=out_all["lam"],
+            cost_per_score=out_all["cost_per_score"],
             wall_time_s=wall,
             r_sel=self.r_sel,
             backend=self.backend,
             n_shards=self.n_shards,
             scan_calls=iters,
             steps_run=iters * S,
-            warmup_steps=run_chunk.warmup_steps,
-            setup_s=setup_s + run_chunk.capture_s,
-            h2d_rows=src.h2d_rows,
-            h2d_bytes=src.h2d_bytes,
-            buffer_rows=src.B,
+            warmup_steps=int(warmup),
+            setup_s=setup_s,
+            h2d_rows=int(h2d_rows),
+            h2d_bytes=int(h2d_bytes),
+            buffer_rows=self.source.B,
             scan_steps_per_call=S,
             steps_per_graph=self.steps_per_graph,
-            h2d_wait_s=src.h2d_wait_s,
-            prefetch_depth=src.prefetch,
-            refill_spans=src.refill_spans,
-            spans_prestaged=src.spans_prestaged,
-            spans_missed=src.spans_missed,
-            prestage_wall_s=src.prestage_wall_s,
-            ring_addrs=len(src.ring_addrs),
+            h2d_wait_s=h2d_wait_s,
+            prefetch_depth=self.source.prefetch,
+            refill_spans=int(refill_spans),
+            spans_prestaged=int(prestaged),
+            spans_missed=int(missed),
+            prestage_wall_s=prestage_wall_s,
+            ring_addrs=int(ring_addrs),
         )
 
     def run(

@@ -52,7 +52,6 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import tempfile
 import time
 from typing import Callable, List, Optional, Sequence
 
@@ -60,12 +59,13 @@ import numpy as np
 
 from repro_torch import compat
 from repro_torch.core import baselines
-from repro_torch.core.driver import FileSource, RingHandle, ScanDriver
+from repro_torch.core.driver import FileSource, RingHandle, ScanDriver, resolve_backend
 from repro_torch.core.restream import TpslCore, VertexClusteringState, _pack_clusters
 from repro_torch.core.spotlight import _SPOTLIGHT_INCOMPATIBLE, spread_mask
 from repro_torch.core.types import AdwiseConfig, PartitionResult, WarmState
 from repro_torch.graph import metrics
 from repro_torch.graph.stream import EdgeStream
+from repro_torch import dist as rdist
 from repro_torch.obs import resolve_tracer
 
 __all__ = ["partition_file"]
@@ -79,13 +79,26 @@ _ADWISE_FIELDS = {f.name for f in dataclasses.fields(AdwiseConfig)} - {"k", "see
 
 
 class _Spill:
-    """int32[m] assignment spill memmap; resident set is page cache, not heap."""
+    """int32[m] assignment spill memmap; resident set is page cache, not heap.
+
+    With several ranks (one host), rank 0 creates the file and fills it
+    with -1, and the others map it after a barrier: every rank writes the
+    rows its drive owns into the one file (:func:`_owns_rows`) and, after a
+    barrier, reads every row."""
 
     def __init__(self, path: str, m: int):
         self.path = path
         self.m = m
-        self._map = np.memmap(path, dtype=np.int32, mode="w+", shape=(max(m, 1),))
-        self._map[:] = -1
+        shape = (max(m, 1),)
+        if rdist.rank() == 0:
+            self._map = np.memmap(path, dtype=np.int32, mode="w+", shape=shape)
+            self._map[:] = -1
+        if rdist.world_size() > 1:
+            if rdist.rank() == 0:
+                self._map.flush()
+            rdist.barrier()
+            if rdist.rank() != 0:
+                self._map = np.memmap(path, dtype=np.int32, mode="r+", shape=shape)
 
     def write(self, idx: np.ndarray, vals: np.ndarray) -> None:
         self._map[idx] = vals
@@ -103,12 +116,25 @@ class _Spill:
         ]
 
     def remove(self) -> None:
-        """Drop the mapping and delete the backing file (dead pass spills)."""
+        """Drop the mapping and delete the backing file (dead pass spills;
+        rank 0 deletes it)."""
         self._map = None
+        if rdist.rank() != 0:
+            return
         try:
             os.remove(self.path)
         except OSError:
             pass
+
+
+def _owns_rows(backend: str, z: int) -> bool:
+    """Whether this rank writes the spill rows of a drive over z instances:
+    each rank writes its own instances' rows when the batch is sharded over
+    ranks (``on_assign`` hands it only those), else rank 0 writes them all
+    (every rank computes the same rows). Always true with a world of 1."""
+    if rdist.rank() == 0:
+        return True
+    return backend in ("auto", "shard_map") and resolve_backend(backend, z)[1] > 1
 
 
 # ----------------------------------------------------------------------------
@@ -440,12 +466,18 @@ def _run_restream_chunks(
     t0 = time.perf_counter()
     spill = new_spill(0)
     handle: Optional[RingHandle] = None
+    own = _owns_rows(backend, z) if base == "adwise" else rdist.rank() == 0
+
+    def writer(sp: _Spill) -> Callable[[int, np.ndarray, np.ndarray], None]:
+        def write(i, idx, p):
+            if own:
+                sp.write(offsets[i] + idx, p)
+        return write
+
     if base == "adwise":
         pass_stats, handle = _drive_core(
             readers, num_vertices, cfg,
-            write_assign=(
-                lambda sp: lambda i, idx, p: sp.write(offsets[i] + idx, p)
-            )(spill),
+            write_assign=writer(spill),
             chunk_edges=chunk_edges, allowed=allowed, backend=backend,
             prefetch=prefetch, trace=trace, device=device,
         )
@@ -457,10 +489,11 @@ def _run_restream_chunks(
             )
         st = _run_baseline_chunks(
             base, readers[0], num_vertices, k, seed, chunk_edges,
-            lambda off, a: spill.write_range(int(offsets[0]) + off, a),
+            lambda off, a: spill.write_range(int(offsets[0]) + off, a) if own else None,
             trace=trace,
         )
         pass_stats = [st]
+    rdist.barrier()  # every rank's rows are in the spill before any reads it
 
     def metrics_of(j_spill: _Spill) -> List[_PassMetrics]:
         # One fused read per instance: quality stats AND the next pass's
@@ -532,13 +565,12 @@ def _run_restream_chunks(
         spill = new_spill(j)
         pass_stats, handle = _drive_core(
             readers, num_vertices, cfg,
-            write_assign=(
-                lambda sp: lambda i, idx, p: sp.write(offsets[i] + idx, p)
-            )(spill),
+            write_assign=writer(spill),
             chunk_edges=chunk_edges, allowed=allowed, warm=warms,
             prev_read=prev_read, backend=backend,
             prefetch=prefetch, resume=handle, trace=trace, device=device,
         )
+        rdist.barrier()
         pm = metrics_of(spill)
         dr, db, dc = h2d_of(pass_stats)
         h2d_rows += dr
@@ -578,12 +610,14 @@ def _run_restream_chunks(
     # drop the (passes x 4m-byte) intermediate spills — only the final spill
     # backs the returned memmap.
     with tr.span("compose", cat="phase", passes_run=passes_run):
-        for i in range(z):
-            src = best_spill[i] if keep_best else spill
-            g0 = int(offsets[i])
-            for start in range(0, int(m_per[i]), chunk_edges):
-                c = min(chunk_edges, int(m_per[i]) - start)
-                final_spill.write_range(g0 + start, src.read(g0 + start, c))
+        if rdist.rank() == 0:  # one writer of the final spill
+            for i in range(z):
+                src = best_spill[i] if keep_best else spill
+                g0 = int(offsets[i])
+                for start in range(0, int(m_per[i]), chunk_edges):
+                    c = min(chunk_edges, int(m_per[i]) - start)
+                    final_spill.write_range(g0 + start, src.read(g0 + start, c))
+        rdist.barrier()
         for s in spills:
             s.remove()
     score_rows = int(sum(sum(sr) for sr in pass_score_rows))
@@ -661,8 +695,13 @@ def partition_file(
         temp dir; the final spill backs the returned ``assign`` memmap, so
         the directory outlives the call — pass e.g. a pytest tmp_path to
         control its lifetime).
-      backend: forwarded to the batched scan ('auto'/'vmap'/'shard_map'; on
-        one card all three run the one batched step).
+      backend: forwarded to the batched scan ('auto'/'vmap'/'shard_map').
+        Under a process group of several ranks on one host, 'auto' and
+        'shard_map' place the z instances on the ranks
+        (:func:`repro_torch.core.driver.resolve_backend`): every rank reads
+        the file, runs its instances over its own ring and writes their
+        rows into the one spill, and every rank returns the whole
+        assignment. Each spill row is written once.
       prefetch: ring read-ahead depth (None → ``ADWISE_PREFETCH`` env →
         default 2; 0 = synchronous refills). See
         :func:`repro_torch.core.driver.resolve_prefetch` and the pipeline
@@ -710,7 +749,7 @@ def partition_file(
                  unassigned=0),
         )
     if spill_dir is None:
-        spill_dir = tempfile.mkdtemp(prefix="adwise-oocore-")
+        spill_dir = rdist.shared_tmpdir("adwise-oocore-")
     os.makedirs(spill_dir, exist_ok=True)
 
     tr = resolve_tracer(trace)
@@ -731,8 +770,11 @@ def partition_file(
         else None
     )
 
+    own = _owns_rows(backend, z)
+
     def write_core(i, idx, p):
-        final.write(offsets[i] + idx, p)
+        if own:
+            final.write(offsets[i] + idx, p)
 
     def spotlightify(stats, per_stats):
         return dict(
@@ -809,15 +851,17 @@ def partition_file(
         if z > 1:
             stats = spotlightify(stats, per_stats)
     elif strategy in ("hash", "dbh", "grid"):
+        # Every rank runs the loop; rank 0 writes the rows.
+        own = rdist.rank() == 0
         if z == 1:
             stats = _run_baseline_chunks(
                 strategy, reader, n, k, seed, chunk_edges,
-                lambda off, a: final.write_range(off, a), trace=trace, **cfg,
+                lambda off, a: final.write_range(off, a) if own else None, trace=trace, **cfg,
             )
         else:
             stats = _run_stateless_spotlight(
                 strategy, readers, offsets, n, k, z, spread, seed,
-                chunk_edges, final, cfg, trace=trace,
+                chunk_edges, final, cfg, trace=trace, write=own,
             )
     else:
         raise KeyError(
@@ -850,6 +894,7 @@ def partition_file(
         stream_reads_measured=measured_reads,
         unassigned=0,
     )
+    rdist.barrier()  # every rank's rows are in the spill
     # Chunked completeness check (no O(m) temporary; raises even under -O).
     with tr.span("spill-verify", cat="phase", m=m):
         neg = 0
@@ -880,6 +925,7 @@ def _run_stateless_spotlight(
     final: _Spill,
     cfg: dict,
     trace=None,
+    write: bool = True,
 ) -> dict:
     """z>1 spotlight for the stateless hashes (hash/dbh): each instance runs
     the chunked assignment at its local spread-k over its byte range with
@@ -897,7 +943,7 @@ def _run_stateless_spotlight(
             seed + i, chunk_edges,
             lambda off, a, g0=g0, m_=local_to_global: final.write_range(
                 g0 + off, m_[a]
-            ),
+            ) if write else None,
             trace=trace,
             **cfg,
         )

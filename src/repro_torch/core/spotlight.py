@@ -11,7 +11,11 @@ partitioner.
 Instance-axis layout (the batched backend)
 ------------------------------------------
 The paper's cluster runs the z instances on z machines; here they run as
-ONE batched step on one card. ``EdgeStream.split_padded(z)`` reshapes the
+ONE batched step on one card, or as blocks of one batched step on the ranks
+of an ``instances`` mesh (``backend="shard_map"``, which ``"auto"`` and
+``"batched"`` resolve to under a process group of several ranks, as the
+JAX package resolves them on several devices; see
+:mod:`repro_torch.core.driver`). ``EdgeStream.split_padded(z)`` reshapes the
 stream into ``streams[z, per, 2]`` with a per-row prefix mask
 ``valid[z, per]`` — instance ``i`` owns the contiguous global slice
 ``[i*per, i*per + valid[i].sum())``. Every per-instance quantity of the
@@ -28,8 +32,9 @@ Backends:
   batch their scan over the instance axis; the stateless hashes (hash,
   dbh) run their vectorized assignment per instance. ``wall_time_s`` is
   the measured wall of the batched scan, which IS the parallel-model wall.
-  ``"vmap"`` / ``"shard_map"`` are accepted as in the JAX package; on one
-  card they run the same batched scan (reported as ``vmap``).
+  ``"vmap"`` / ``"shard_map"`` are passed to the batched scan as in the
+  JAX package: ``"vmap"`` runs every instance on every rank, and
+  ``"shard_map"`` splits them over the ranks (``vmap`` with one rank).
 * ``"loop"``: the sequential per-instance path — one registry call per
   instance at GLOBAL k with the instance's ``allowed`` spread mask;
   required only for custom ``partitioner=`` callables and non-adwise

@@ -1,6 +1,7 @@
-"""Vertex-cut graph processing engine of the port (one device)."""
+"""Vertex-cut graph processing engine of the port: partitions sharded over
+a ``parts`` mesh of ranks (one rank without a process group)."""
 from repro_torch.engine.partitioned import PartitionedGraph, build_partitioned_graph
-from repro_torch.engine.gas import make_superstep
+from repro_torch.engine.gas import engine_mesh, make_superstep
 from repro_torch.engine.algorithms import (
     coloring,
     label_propagation,
@@ -19,6 +20,7 @@ __all__ = [
     "PartitionedGraph",
     "build_partitioned_graph",
     "make_superstep",
+    "engine_mesh",
     "pagerank",
     "label_propagation",
     "coloring",

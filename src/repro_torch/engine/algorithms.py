@@ -11,16 +11,22 @@ Each runs on the partitioned graph's device and returns (result, info);
 info carries the superstep count and message width the latency model
 bills. pagerank and triangle round 1 accumulate with ``add`` (the
 ``segment_sum`` kernel on the card), the others with ``min``.
+
+When no mesh is passed, each workload builds one with
+``engine_mesh(k=g.k)``, as in the JAX package: its partitions are sharded
+over every rank of the default process group (one rank without one). Each
+rank returns the same result.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.engine.gas import BIG, make_superstep
+from repro_torch.engine.gas import BIG, engine_mesh, make_superstep
 from repro_torch.engine.partitioned import PartitionedGraph
+from repro_torch.dist import RankMesh
 
 __all__ = ["pagerank", "label_propagation", "coloring", "triangle_count"]
 
@@ -30,8 +36,10 @@ def _forward(x_u, x_v, deg_u, deg_v):
 
 
 def pagerank(
-    g: PartitionedGraph, iters: int = 20, damping: float = 0.85, trace=None,
+    g: PartitionedGraph, iters: int = 20, damping: float = 0.85,
+    mesh: Optional[RankMesh] = None, trace=None,
 ) -> Tuple[np.ndarray, dict]:
+    mesh = mesh or engine_mesh(k=g.k)
     v = g.num_vertices
 
     def msg(x_u, x_v, deg_u, deg_v):
@@ -42,7 +50,7 @@ def pagerank(
     def apply(state, synced, degrees):
         return (1.0 - damping) / v + damping * synced
 
-    step = make_superstep(g, msg, apply, trace=trace)
+    step = make_superstep(g, msg, apply, mesh, trace=trace)
     state = torch.full((v, 1), 1.0 / v, dtype=torch.float32, device=g.device)
     for _ in range(iters):
         state = step(state)
@@ -50,16 +58,18 @@ def pagerank(
 
 
 def label_propagation(
-    g: PartitionedGraph, max_iters: int = 64, trace=None,
+    g: PartitionedGraph, max_iters: int = 64, mesh: Optional[RankMesh] = None,
+    trace=None,
 ) -> Tuple[np.ndarray, dict]:
     """Connected components by min-label flooding; converged when stable."""
+    mesh = mesh or engine_mesh(k=g.k)
     v = g.num_vertices
 
     def apply(state, synced, degrees):
         has_nbr = synced < BIG
         return torch.where(has_nbr, torch.minimum(state, synced), state)
 
-    step = make_superstep(g, _forward, apply, combine="min", trace=trace)
+    step = make_superstep(g, _forward, apply, mesh, combine="min", trace=trace)
     state = torch.arange(v, dtype=torch.float32, device=g.device)[:, None]
     it = 0
     for it in range(1, max_iters + 1):
@@ -72,7 +82,8 @@ def label_propagation(
 
 
 def coloring(
-    g: PartitionedGraph, max_colors: int = 64, max_iters: int = 256, trace=None,
+    g: PartitionedGraph, max_colors: int = 64, max_iters: int = 256,
+    mesh: Optional[RankMesh] = None, trace=None,
 ) -> Tuple[np.ndarray, dict]:
     """Largest-priority-first greedy coloring (Jones–Plassmann schedule).
 
@@ -83,6 +94,7 @@ def coloring(
     some finalized neighbour holds color j. Priorities are the JAX package's
     (a numpy permutation seeded with 0).
     """
+    mesh = mesh or engine_mesh(k=g.k)
     v, c = g.num_vertices, max_colors
     dev = g.device
     rng = np.random.default_rng(0)
@@ -99,7 +111,7 @@ def coloring(
         a_new = torch.where(can, BIG, a)
         return torch.cat([a_new[:, None], b], dim=1)
 
-    step = make_superstep(g, _forward, apply, combine="min", trace=trace)
+    step = make_superstep(g, _forward, apply, mesh, combine="min", trace=trace)
     state = torch.cat(
         [(-prio)[:, None], torch.ones((v, c), dtype=torch.float32, device=dev)], dim=1
     )
@@ -115,14 +127,19 @@ def coloring(
 
 
 def triangle_count(
-    g: PartitionedGraph, sketch_bits: int = 256, trace=None,
+    g: PartitionedGraph, sketch_bits: int = 256, mesh: Optional[RankMesh] = None,
+    trace=None,
 ) -> Tuple[int, dict]:
     """Heavy workload: triangle counting via neighbourhood bitmaps.
 
     Round 1 (a superstep, ``add``) gives each vertex a ``sketch_bits``-wide
     bitmap of its neighbours' hash bits; round 2 counts, per edge, the bits
-    both endpoints' bitmaps share. Exact when sketch_bits >= V.
+    both endpoints' bitmaps share. Exact when sketch_bits >= V. Each rank
+    counts round 2 over its slab's edges and one all-reduce sums the counts
+    (the JAX package counts every edge on the host; the integer sum is the
+    same).
     """
+    mesh = mesh or engine_mesh(k=g.k)
     v, b = g.num_vertices, sketch_bits
     dev = g.device
     slot = torch.arange(v, device=dev) % b  # vertex -> sketch bit
@@ -130,10 +147,12 @@ def triangle_count(
     def apply(state, synced, degrees):
         return synced.clamp_max(1.0)  # OR of neighbour one-bit ids
 
-    step = make_superstep(g, _forward, apply, trace=trace)
+    step = make_superstep(g, _forward, apply, mesh, trace=trace)
     ident = torch.nn.functional.one_hot(slot, b).to(torch.float32)
     bm = step(ident) > 0  # (V, b) — some neighbour hashes to bit j
-    u, w = g.edges[..., 0].long(), g.edges[..., 1].long()
-    inter = (bm[u] & bm[w]).sum(-1)  # (k, e_max) common-neighbour bits
-    total = int((inter * g.evalid).sum()) // 3  # each triangle counted by 3 edges
+    edges, evalid = g.part_edges(*step.parts)
+    u, w = edges[..., 0].long(), edges[..., 1].long()
+    inter = (bm[u] & bm[w]).sum(-1)  # (slab, e_max) common-neighbour bits
+    count = mesh.all_reduce((inter * evalid).sum(), "sum")
+    total = int(count) // 3  # each triangle counted by 3 edges
     return total, dict(supersteps=2, msg_width=b // 32)

@@ -18,6 +18,13 @@ JAX lays a mesh over devices; here a mesh is laid over the ranks of a
                                       model=tp) over the ranks of the
                                       initialised default process group
   mesh_shape(mesh)                  — a ``DeviceMesh``'s MeshShape
+  world_size(), rank(), barrier(),  — re-exported from ``repro_torch.dist``,
+  shared_tmpdir(prefix),              the rank plumbing of the partitioner
+  RankMesh, rank_mesh(axis_name, n)   and the engine (a 1-D mesh over the
+                                      first ``n`` ranks, with the JAX
+                                      package's axis names ``parts`` and
+                                      ``instances``), which imports nothing
+                                      of ``launch``
   init_ranks(backend, device)       — this process's rank from the launcher's
                                       environment (``RANK``, ``WORLD_SIZE``,
                                       ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, as
@@ -42,6 +49,7 @@ from typing import Any, Callable, Dict, List, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch.dist import RankMesh, barrier, rank, rank_mesh, shared_tmpdir, world_size
 from repro_torch.models.tp import MeshShape
 
 __all__ = [
@@ -50,6 +58,12 @@ __all__ = [
     "make_production_mesh",
     "make_local_mesh",
     "mesh_shape",
+    "world_size",
+    "rank",
+    "RankMesh",
+    "rank_mesh",
+    "barrier",
+    "shared_tmpdir",
     "init_ranks",
     "spawn",
 ]

@@ -33,15 +33,34 @@ binary format first (``--relabel`` densifies sparse vertex ids);
     PYTHONPATH=src python -m repro_torch.launch.partition --graph g.txt \
         --ingest --strategy adwise --k 32 --z 8 --spread 4 \
         --chunk-edges 8192 --spill-dir spill --workload pagerank
+
+Under torchrun (``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK`` set, or a
+process group already initialised) the pipeline runs over the ranks, as the
+JAX launcher runs over every local device: the ``--z`` instances are placed
+on an ``instances`` mesh of ranks (``--backend auto``, ``batched`` or
+``shard_map``), then the k partitions on a ``parts`` mesh for the workload.
+``--dist-backend`` defaults to ``nccl`` on ``cuda`` and ``gloo`` on
+``cpu``; NCCL refuses two ranks on one card (use gloo there).
+``--dist-init`` is the group's init method (``env://`` by default, or
+``file:///path``). Every rank computes the same result; only rank 0 prints
+and writes ``--json`` and ``--trace``::
+
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \
+        -m repro_torch.launch.partition --graph brain_like --scale 0.25 \
+        --k 32 --z 8 --spread 4 --dist-backend gloo
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import os
 import shutil
-import tempfile
 import time
+
+import torch
+import torch.distributed as dist
 
 from repro_torch.core import (
     AdwiseConfig,
@@ -59,6 +78,7 @@ from repro_torch.engine import (
     process_latency,
     triangle_count,
 )
+from repro_torch.launch import mesh as meshes
 from repro_torch.graph import (
     GRAPH_PRESETS,
     make_graph,
@@ -93,7 +113,7 @@ def _strategy_cfg_kwargs(args) -> dict:
 def run_partition_file(path, args, trace=None):
     """Out-of-core path: ingest (optional) → partition_file → the reader,
     the result and the temporary directories the run must remove."""
-    from repro_torch.graph.io import EdgeFileReader, ingest_text
+    from repro_torch.graph.io import EdgeFileReader
 
     if args.oracle:
         raise SystemExit(
@@ -106,18 +126,59 @@ def run_partition_file(path, args, trace=None):
               "buffer; only the stateless hashes run a per-instance loop)")
     ingest_tmp = None
     if args.ingest:
-        # The cache name keys on --relabel: the two settings produce
-        # different id spaces, so they must never reuse each other's binary.
-        suffix = ".relabel.adw" if args.relabel else ".adw"
-        binary = path + suffix
-        if not os.access(os.path.dirname(os.path.abspath(path)) or ".", os.W_OK):
-            # Read-only dataset mount: put the binary in the spill dir (kept)
-            # or a temp dir the end of the run removes.
-            if args.spill_dir is None:
-                ingest_tmp = tempfile.mkdtemp(prefix="adwise-ingest-")
-            else:
-                os.makedirs(args.spill_dir, exist_ok=True)
-            binary = os.path.join(args.spill_dir or ingest_tmp, os.path.basename(path) + suffix)
+        ingest_tmp, path = _ingest(path, args)
+    reader = EdgeFileReader(path)
+    print(
+        f"graph={path} |V|={reader.num_vertices} |E|={reader.num_edges} "
+        f"k={args.k} (out-of-core, chunk={args.chunk_edges})"
+    )
+    backend = args.backend if args.backend not in ("batched", "loop") else "auto"
+    spill_tmp = None if args.spill_dir else meshes.shared_tmpdir("adwise-oocore-")
+    try:
+        res = partition_file(
+            reader, args.strategy, args.k, z=args.parallel,
+            spread=args.spread if args.parallel > 1 else None, seed=args.seed,
+            chunk_edges=args.chunk_edges, backend=backend,
+            spill_dir=args.spill_dir or spill_tmp, prefetch=args.prefetch,
+            trace=trace, device=args.device, **_strategy_cfg_kwargs(args),
+        )
+    except BaseException:
+        reader.close()
+        _remove(spill_tmp, ingest_tmp, wait=False)
+        raise
+    return reader, res, spill_tmp, ingest_tmp
+
+
+def _remove(*dirs, wait: bool = True) -> None:
+    """Remove the run's temporary directories: rank 0 does, once every rank
+    is done with them (``wait=False``: at once, on a failed run)."""
+    if wait:
+        meshes.barrier()
+    for tmp in dirs:
+        if tmp is not None and meshes.rank() == 0:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _ingest(path, args):
+    """(temporary directory or None, binary path) of ``--ingest``: rank 0
+    converts the text list (or finds an up-to-date binary); the others wait
+    for it."""
+    from repro_torch.graph.io import ingest_text
+
+    ingest_tmp = None
+    # The cache name keys on --relabel: the two settings produce different
+    # id spaces, so they must never reuse each other's binary.
+    suffix = ".relabel.adw" if args.relabel else ".adw"
+    binary = path + suffix
+    if not os.access(os.path.dirname(os.path.abspath(path)) or ".", os.W_OK):
+        # Read-only dataset mount: put the binary in the spill dir (kept) or
+        # a temp dir the end of the run removes.
+        if args.spill_dir is None:
+            ingest_tmp = meshes.shared_tmpdir("adwise-ingest-")
+        else:
+            os.makedirs(args.spill_dir, exist_ok=True)
+        binary = os.path.join(args.spill_dir or ingest_tmp, os.path.basename(path) + suffix)
+    if meshes.rank() == 0:
         if os.path.exists(binary) and os.path.getmtime(binary) >= os.path.getmtime(path):
             print(f"reusing up-to-date binary {binary} (delete it to re-ingest)")
         else:
@@ -129,29 +190,8 @@ def run_partition_file(path, args, trace=None):
                 f"blanks in {rep.wall_s:.2f}s "
                 f"({mb / max(rep.wall_s, 1e-9):.1f} MB/s) -> {binary}"
             )
-        path = binary
-    reader = EdgeFileReader(path)
-    print(
-        f"graph={path} |V|={reader.num_vertices} |E|={reader.num_edges} "
-        f"k={args.k} (out-of-core, chunk={args.chunk_edges})"
-    )
-    backend = args.backend if args.backend not in ("batched", "loop") else "auto"
-    spill_tmp = None if args.spill_dir else tempfile.mkdtemp(prefix="adwise-oocore-")
-    try:
-        res = partition_file(
-            reader, args.strategy, args.k, z=args.parallel,
-            spread=args.spread if args.parallel > 1 else None, seed=args.seed,
-            chunk_edges=args.chunk_edges, backend=backend,
-            spill_dir=args.spill_dir or spill_tmp, prefetch=args.prefetch,
-            trace=trace, device=args.device, **_strategy_cfg_kwargs(args),
-        )
-    except BaseException:
-        reader.close()
-        for tmp in (spill_tmp, ingest_tmp):
-            if tmp is not None:
-                shutil.rmtree(tmp, ignore_errors=True)
-        raise
-    return reader, res, spill_tmp, ingest_tmp
+    meshes.barrier()
+    return ingest_tmp, binary
 
 
 def _chunked_quality(res, reader, args) -> tuple[float, float]:
@@ -276,8 +316,10 @@ def main(argv=None):
     ap.add_argument("--backend", default="auto",
                     choices=["auto", "batched", "vmap", "shard_map", "loop"],
                     help="spotlight execution: one batched scan for all z "
-                         "instances (auto — every registry strategy batches) "
-                         "or the sequential per-instance loop")
+                         "instances (auto — every registry strategy batches; "
+                         "under several ranks auto, batched and shard_map "
+                         "split the instances over them) or the sequential "
+                         "per-instance loop")
     ap.add_argument("--budget", type=float, default=None, help="latency preference L (s)")
     ap.add_argument("--window-max", type=int, default=256)
     ap.add_argument("--no-cs", action="store_true", help="disable clustering score")
@@ -293,6 +335,11 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--json", default=None)
+    ap.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                    help="process-group backend under torchrun (default: nccl "
+                         "on cuda, gloo on cpu)")
+    ap.add_argument("--dist-init", default="env://",
+                    help="process-group init method under torchrun")
     ap.add_argument("--trace", default=None, metavar="OUT_JSON",
                     help="record a span timeline of the run (repro_torch.obs) "
                          "and write Chrome trace-event JSON here — open in "
@@ -307,6 +354,22 @@ def main(argv=None):
         ap.error(f"unknown strategy {args.strategy!r}; "
                  f"available: {', '.join(available_strategies())}")
 
+    owns_group = False
+    if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
+        owns_group = True
+        backend = args.dist_backend or ("nccl" if args.device == "cuda" else "gloo")
+        meshes.init_ranks(backend, torch.device(args.device), args.dist_init)
+    # Every rank runs the pipeline; rank 0 alone reports.
+    quiet = contextlib.redirect_stdout(io.StringIO()) if meshes.rank() else contextlib.nullcontext()
+    try:
+        with quiet:
+            return _run(args, from_file)
+    finally:
+        if owns_group and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run(args, from_file):
     tracer = None
     if args.trace:
         from repro_torch.obs import Tracer
@@ -330,9 +393,7 @@ def main(argv=None):
             # valid past the unlink); --spill-dir keeps it instead. The
             # reader always closes.
             reader.close()
-            for tmp in (spill_tmp, ingest_tmp):
-                if tmp is not None:
-                    shutil.rmtree(tmp, ignore_errors=True)
+            _remove(spill_tmp, ingest_tmp)
 
 
 def _report(args, res, edges, n, reader, tracer) -> dict:
@@ -386,7 +447,7 @@ def _report(args, res, edges, n, reader, tracer) -> dict:
         )
         out.update(workload=args.workload, processing_model=model, total_latency_s=total)
     if tracer is not None:
-        n_events = tracer.export(args.trace)
+        n_events = tracer.export(args.trace) if meshes.rank() == 0 else 0
         summ = tracer.summary()
         cats = ", ".join(
             f"{c}:{d['count']}x/{d['wall_s']:.3f}s"
@@ -395,7 +456,7 @@ def _report(args, res, edges, n, reader, tracer) -> dict:
         print(f"trace: {n_events} events -> {args.trace} "
               f"(wall={summ.wall_s:.3f}s; {cats})")
         out["trace"] = dict(path=args.trace, **summ.as_dict())
-    if args.json:
+    if args.json and meshes.rank() == 0:
         with open(args.json, "w") as f:
             json.dump(out, f, indent=1)
     return out

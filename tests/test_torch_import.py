@@ -46,7 +46,10 @@ def test_every_module_imports_with_jax_and_repro_blocked():
             "repro_torch.models.names", "repro_torch.models.ssm",
             "repro_torch.core.moe_balance", "repro_torch.launch.mesh",
             "repro_torch.launch.sharding", "repro_torch.models.tp",
-            "repro_torch.launch.serve"} <= set(mods)
+            "repro_torch.launch.serve", "repro_torch.launch.partition",
+            "repro_torch.engine.gas", "repro_torch.engine.partitioned",
+            "repro_torch.engine.algorithms", "repro_torch.core.driver",
+            "repro_torch.dist"} <= set(mods)
     code = textwrap.dedent(
         f"""
         import sys
@@ -90,6 +93,31 @@ def test_models_import_nothing_of_the_launch_layer():
     assert "repro_torch.models.tp" in mods and proc.stdout.strip() == "[]"
 
 
+
+def test_core_and_engine_import_nothing_of_the_launch_layer():
+    """The partitioner and the engine take their ranks from
+    ``repro_torch.dist``; the launchers sit above them, and the LM side
+    workload's modules are not theirs."""
+    mods = [m for m in _modules()
+            if m.startswith(("repro_torch.core", "repro_torch.engine"))]
+    code = textwrap.dedent(
+        f"""
+        import importlib, sys
+        for mod in {mods!r}:
+            importlib.import_module(mod)
+        print(sorted(m for m in sys.modules
+                     if m.startswith(("repro_torch.launch", "repro_torch.models"))))
+        """
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env=dict(os.environ, PYTHONPATH=str(SRC)), timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert {"repro_torch.core.driver", "repro_torch.engine.gas"} <= set(mods)
+    assert proc.stdout.strip() == "[]"
+
+
 ROOT = SRC.parent
 CHIP_SCRIPTS = [
     "chip_smoke.py", "tools/time_flash_attention.py", "tools/time_segment_sum.py",
@@ -104,3 +132,32 @@ def test_chip_scripts_import_no_jax_or_repro(script):
     lines = (ROOT / script).read_text().splitlines()
     assert [ln for ln in lines if _IMPORT_RE.match(ln)] == []
     assert any("repro_torch" in ln for ln in lines)
+
+
+@pytest.mark.parametrize("helper", ["_tp_ranks", "_graph_ranks"])
+def test_rank_helpers_import_with_jax_and_repro_blocked(helper):
+    """The tests' rank functions run in spawned processes and on the card
+    machine, which has no JAX: each helper imports, and runs its imports,
+    with ``jax`` and ``repro`` blocked."""
+    lines = (ROOT / "tests" / f"{helper}.py").read_text().splitlines()
+    assert [ln for ln in lines if _IMPORT_RE.match(ln)] == []
+    code = textwrap.dedent(
+        f"""
+        import sys
+        for name in ("jax", "jaxlib", "repro"):
+            sys.modules[name] = None
+        import importlib, re
+        mod = importlib.import_module({helper!r})
+        src = open(mod.__file__).read()
+        for name in re.findall(r"^\\s+from (repro_torch[\\w.]*) import", src, re.M):
+            importlib.import_module(name)
+        print("ok")
+        """
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env=dict(os.environ, PYTHONPATH=os.pathsep.join([str(SRC), str(ROOT / "tests")])),
+        timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"

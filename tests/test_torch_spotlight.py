@@ -6,8 +6,9 @@ spotlight entry point on top of it, and the restream × spotlight and 2PS ×
 spotlight compositions, on the CPU: the port's assignments, ``score_rows``,
 ``w_trace`` and h2d counters equal ``repro``'s on the same inputs, and the
 batched backend equals the loop backend bit for bit. The JAX test file's
-multi-device case (instances sharded over four fake CPU devices) has no
-counterpart: the port runs every instance on one card.
+multi-device case (instances sharded over four fake CPU devices) has its
+counterpart in ``tests/test_torch_spotlight_ranks.py`` (instances over
+gloo ranks) and ``tests/test_torch_engine_ranks.py`` (the engine's slabs).
 """
 import numpy as np
 import pytest
