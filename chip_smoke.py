@@ -2,7 +2,6 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # the full run: one card, exits 0 when all holds
-    python3 chip_smoke.py --phase 15 # the build and phase 15 alone, no result lines
 
 Phases (any failure exits non-zero, and no result line is printed):
 
@@ -51,8 +50,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    non-causal shapes at batch 8 (the encoder over 224 frames, the
    cross-attention of 448 queries and of one decoded query over them), and
    phase 14's prefills at one tp 2 rank's heads (llama 12 over 4, granite 8
-   over 4, prompt 512); at each, kernel / plain / SDPA times and the bound
-   (SDPA is timed as a yardstick only; the port never calls it).
+   over 4, prompt 512), and phase 16's (zamba2's shared block, 16 heads of
+   Dh 112 at prompt 512 on ``mma_sync``; whisper's encoder, self- and
+   cross-attention at 3 heads, batch 4, prompt 448); at each, kernel /
+   plain / SDPA times and the bound (SDPA is timed as a yardstick only; the
+   port never calls it).
 6. LM serving at full width: ``repro_torch.launch.serve.main`` on
    Llama-3.2-3B (28 layers, bf16, random weights from the seed), batch 4,
    prompt 2048, 64 generated tokens — 28 flash launches in the prefill,
@@ -206,9 +208,28 @@ Phases (any failure exits non-zero, and no result line is printed):
    two cards, (a) and (b) over NCCL on cuda:0-1 (logged as not run on one
    card).
 
-The kernels' ``launches`` are those of phases 2, 6, 8, 9, 10, 11, 12, 13, 14
-and 15 (each path's counts zeroed just before it and read just after;
-phases 14's and 15's are their ranks'). Then one JSON line with
+16. Tensor-parallel serving of the other families: (a) whisper-tiny at
+   full depth (4 × 448, 224 frames), rwkv6-7b cut to 4 of 32 layers and
+   zamba2-7b to 13 of 81 (two applications of the shared block and a
+   remainder layer) at full width, 4 × 512, bf16, 8 tokens, through
+   ``launch.serve.main`` (the cut config passed in) at tp 1 in this
+   process, in fp32 at tp 1 (the bf16 floor), then at ``--tp 2`` as two
+   gloo ranks on cuda:0: logits and tokens against tp 1's
+   (``tp_compare``, tolerance ``TP_LOGIT_TOL`` or half the bf16 run's
+   distance from fp32, ``TPF_FLOOR_SHARE``), each prefill's flash launches
+   at the rank's local heads by body (zamba2 2 ``mma_sync`` at (4, 16,
+   512, 112), whisper 12 ``wgmma``), none in decode (tp 1's whisper
+   launches 4 a step), one decode merge per attention a step, each rank's
+   peak memory below tp 1's; prefill ms, decode ms a step, peak GiB a
+   rank, collectives a decode step; (b) each family's 2 full-width layers
+   (zamba2 7, whisper 2 + 2) in fp32, batch 1, prompt 128, 3 decode steps,
+   at tp 2 against tp 1 within ``TPF_PARITY_TOL`` of the logits' scale;
+   (c) with two cards, zamba2 at tp 2 over NCCL on cuda:0-1: (a)'s tokens
+   (logged as not run on one card).
+
+The kernels' ``launches`` are those of phases 2, 6, 8, 9, 10, 11, 12, 13, 14,
+15 and 16 (each path's counts zeroed just before it and read just after;
+phases 14's, 15's and 16's are their ranks'). Then one JSON line with
 every kernel's numbers, and, last, the
 ``{"ok": true, "device": ...}`` line. It imports nothing of JAX and nothing
 of the JAX package.
@@ -1541,6 +1562,14 @@ def phase_flash():
     # 4 KV heads, granite 8 over 4) at prompt 512, wgmma.
     measure("llama tp 2 rank", (4, 12, 4, 512, 512, 128), torch.bfloat16)
     measure("granite tp 2 rank", (4, 8, 4, 512, 512, 64), torch.bfloat16)
+    # Phase 16's prefills at one tp 2 rank's heads: zamba2's shared block (16
+    # heads of Dh 112, mma_sync) at prompt 512; whisper's encoder over 224
+    # frames, decoder self-attention and cross-attention at batch 4, prompt
+    # 448 (3 heads of Dh 64, wgmma).
+    measure("zamba2 tp 2 rank", (4, 16, 16, 512, 512, 112), torch.bfloat16)
+    measure("whisper encoder tp 2 rank", (4, 3, 3, 224, 224, 64), torch.bfloat16, causal=False)
+    measure("whisper self tp 2 rank", (4, 3, 3, 448, 448, 64), torch.bfloat16)
+    measure("whisper cross tp 2 rank", (4, 3, 3, 448, 224, 64), torch.bfloat16, causal=False)
     return row
 
 
@@ -2761,13 +2790,14 @@ class FlashShapes:
         ops.flash_attention = self.real
 
 
-def tp_serve(argvs, first_input=None):
+def tp_serve(argvs, first_input=None, cfgs=None):
     """Run ``serve.main`` on each argv in this process with its counts
     zeroed just before and read just after; returns per run (tokens, info,
     each step's logits, flash shapes, MoE routes: a list of (tokens, k)
     int16 arrays, one per MoE call, or None). ``info`` holds an MoE's first
     input and output (``moe_input``, ``moe_output``); ``first_input``
-    replaces that input (``MoeRoutes``)."""
+    replaces that input (``MoeRoutes``). ``cfgs``, a config (or None) per
+    argv, is served in place of the argv's ``--arch`` (a depth cut)."""
     import numpy as np
     import torch
 
@@ -2775,13 +2805,13 @@ def tp_serve(argvs, first_input=None):
     from repro_torch.launch import serve
 
     out = []
-    for argv in argvs:
+    for argv, cfg in zip(argvs, cfgs or [None] * len(argvs)):
         info = {}
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         with FlashShapes() as fl, MoeRoutes(first_input) as rec:
             ops.reset_launch_counts()
-            gen = serve.main(argv, info=info, keep_logits=True)
+            gen = serve.main(argv, info=info, keep_logits=True, cfg=cfg)
             info["counts"] = ops.launch_counts()
         info["peak_bytes"] -= base  # what the run itself held at its peak
         routes = next(iter(rec.routes.values()), None)
@@ -2794,10 +2824,23 @@ def tp_serve(argvs, first_input=None):
     return out
 
 
-def tp_rank(rank, argvs):
-    """One rank of phase 14 (a spawned process): ``tp_serve``."""
+def tp_rank(rank, argvs, cfgs=None):
+    """One rank of phases 14 and 16 (a spawned process): ``tp_serve``, TF32
+    off as in the smoke's own process. One small product of each kind the
+    runs make comes first, so that cuBLAS's workspaces exist before a run
+    reads its base memory, as they do in the smoke's own process (a fresh
+    process allocates them at its first product, tens of MB: more than
+    whisper-tiny's split layers save a rank)."""
     sys.path.insert(0, SRC)
-    return tp_serve(argvs)
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    a = torch.ones((64, 64), device="cuda", dtype=torch.bfloat16)
+    _ = (a @ a, torch.mm(a, a, out_dtype=torch.float32), a.float() @ a.float(),
+         torch.bmm(a[None], a[None]))
+    torch.cuda.synchronize()
+    del a, _
+    return tp_serve(argvs, cfgs=cfgs)
 
 
 def route_flips(routes1, routes2, b):
@@ -2870,18 +2913,18 @@ def tp_diff_line(d) -> str:
     return line
 
 
-def tp_compare(arch, want, got, what, floor=None):
+def tp_compare(arch, want, got, what, floor=None, tol=TP_LOGIT_TOL):
     """Holds a run's logits and tokens to tp 1's (``want``, ``tp_diff``):
     the MoE's first layer's input, routes and output within
     ``TP_MOE_INPUT_TOL``, ``TP_ROUTE_FLIP_MAX`` and ``TP_MOE_OUTPUT_TOL``,
     its later layers' flips within ``TP_SECOND_LAYER_FLIPS`` and
     ``TP_FLIPS_OVER_FLOOR`` of the ``floor`` run's (``tp_diff`` of tp 1 fed
     this run's first MoE input); every step's logits on the rows compared
-    within ``TP_LOGIT_TOL`` of their scale (every step, without an MoE); a
-    token that differs only at a near tie of tp 1's logits (within the same
-    tolerance). Logs the numbers before it checks them."""
+    within ``tol`` (``TP_LOGIT_TOL``) of their scale (every step, without an
+    MoE); a token that differs only at a near tie of tp 1's logits (within
+    the same tolerance). Logs the numbers before it checks them."""
     d = tp_diff(want, got)
-    log(f"tp {what} {arch} vs tp 1 (tolerance {TP_LOGIT_TOL} x scale): {tp_diff_line(d)}")
+    log(f"tp {what} {arch} vs tp 1 (tolerance {tol:.4f} x scale): {tp_diff_line(d)}")
     if "first" in d:
         check(d["calls"][0] == d["calls"][1], f"tp {what} {arch}: as many MoE calls as tp 1")
         check(d["x_err"] <= TP_MOE_INPUT_TOL * d["x_scale"],
@@ -2900,9 +2943,9 @@ def tp_compare(arch, want, got, what, floor=None):
               f"{TP_FLIPS_OVER_FLOOR} of the floor's {floor['flips']:.4f}")
     else:
         check(len(d["errs"]) == len(want[2]), f"tp {what} {arch}: every step compared")
-    check(all(e <= TP_LOGIT_TOL * d["scale"] for e in d["errs"]),
-          f"tp {what} {arch}: logits within {TP_LOGIT_TOL} of their scale")
-    check(all(g <= TP_LOGIT_TOL * d["scale"] for g in d["ties"]),
+    check(all(e <= tol * d["scale"] for e in d["errs"]),
+          f"tp {what} {arch}: logits within {tol:.4f} of their scale")
+    check(all(g <= tol * d["scale"] for g in d["ties"]),
           f"tp {what} {arch}: a token differs only at a near tie")
 
 
@@ -3345,6 +3388,243 @@ def phase_ranks():
         log(f"ranks (d): not run: {torch.cuda.device_count()} card(s), two needed")
     return total
 
+# ----------------------------------------------------------------------------
+# Phase 16: tensor-parallel serving of the RWKV-6, Zamba2 and Whisper families
+# ----------------------------------------------------------------------------
+
+TPF_GEN = 8
+# (arch, layers kept (None: full depth), batch, prompt): whisper at full
+# depth; rwkv6 and zamba2 at full width cut in depth for the smoke's time
+# limit (zamba2: two applications of the shared block, after the 6th and
+# 12th layers, and a remainder layer after them).
+TPF_RUNS = [
+    ("whisper-tiny", None, 4, 448),
+    ("rwkv6-7b", 4, 4, 512),
+    ("zamba2-7b", 13, 4, 512),
+]
+# (b): each family's 2 full-width layers (``family_parity_cfg``) in fp32,
+# batch 1, prompt 128 (whisper: 64 frames), 3 decode steps; prompt + gen
+# divides by 4, so whisper's cross cache (half the length) splits over 2.
+TPF_PARITY_PROMPT, TPF_PARITY_GEN = 128, 4
+# fp32 logits at tp 2 against tp 1, relative to their largest magnitude:
+# the new reductions (the norms' sums of squares over the ranks, the gated
+# channel-mix columns, the merged cross-attention) differ from one device's
+# only by the order of fp32 sums: readings (tools/tp_family_readings.py,
+# NVIDIA H100 80GB HBM3 at 700 W) 1.0e-6 (whisper), 2.1e-6 (rwkv6) and
+# 1.1e-5 (zamba2, whose SSD scans run the fp32 sums longest) of the scale.
+TPF_PARITY_TOL = 1e-4
+# bf16 logits at tp 2 against tp 1's: within TP_LOGIT_TOL of their scale
+# (phase 14's), or, for a model whose bf16 run lies further from its own
+# fp32 run, within TPF_FLOOR_SHARE of that distance (the largest over the
+# steps whose tokens agree; fp32 tp 1 at the same cut runs in this
+# process). Readings (tools/tp_family_readings.py, NVIDIA H100 80GB HBM3 at
+# 700 W): zamba2 (13 layers) in bf16 at tp 1 lies 1.01-1.26 from its fp32
+# run (0.24 of the scale of 5.2), and tp 2 0.27-0.41 from tp 1 (0.077 of
+# the scale, against a tolerance of 0.118): its Mamba decays amplify each
+# bf16 rounding of the column-split products, as they do tp 1's own;
+# whisper's and rwkv6's bf16 runs lie 0.07-0.16 from fp32, and tp 2
+# 0.05-0.10 from tp 1 (0.011-0.022 of the scale). Planted faults: the
+# norms' sums of squares left unsummed move rwkv6's first logits 1.34
+# (0.29 of the scale) and zamba2's 4.77 (0.89); both ranks gating rank 0's
+# channel-mix columns moves rwkv6's 5.48; the decode merge without its
+# rescale moves whisper's decode logits 0.65-1.42 (0.14-0.30). Each fails
+# here; zamba2's merge fault (2 attentions among 13 layers) stays inside
+# its bf16 tolerance, and (b) catches it (errors 0.075-0.11, 0.018-0.026
+# of the scale), as it catches the others.
+TPF_FLOOR_SHARE = 0.5
+TPF_TIMEOUT = 300.0
+
+
+def tpf_cfg(arch, layers=None, dtype=None):
+    """``arch``'s config cut to ``layers`` (None: all), in ``dtype``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    cut = {}
+    if layers is not None:
+        cut["n_layers"] = layers
+    if dtype is not None:
+        cut["dtype"] = dtype
+    return dataclasses.replace(cfg, **cut)
+
+
+def tpf_flash(cfg, b, t, tp):
+    """(prefill flash launches by body, the (q, k) shapes launched) of one
+    rank of ``cfg`` served at ``tp`` (the 'shard' policy: hl and kvl heads
+    a rank): whisper's encoder, decoder self- and cross-attention per layer;
+    the hybrid's shared block per application; none in RWKV-6."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    h, kv, policy = cfg.padded_heads(tp)
+    hl, kvl, dh = h // tp, kv // tp, cfg.d_head
+    body = fa.body_for(getattr(torch, cfg.dtype), dh)
+    if cfg.family == "encdec":
+        te = t // 2
+        n = cfg.n_enc_layers + 2 * cfg.n_layers
+        shapes = {((b, hl, te, dh), (b, kvl, te, dh)), ((b, hl, t, dh), (b, kvl, t, dh)),
+                  ((b, hl, t, dh), (b, kvl, te, dh))}
+    elif cfg.family == "hybrid":
+        n = cfg.n_layers // cfg.shared_every
+        shapes = {((b, hl, t, dh), (b, kvl, t, dh))}
+    else:
+        n, shapes = 0, set()
+    return ({body: n} if n else {}), sorted(shapes), policy
+
+
+def tpf_merges(cfg) -> int:
+    """The decode merges (max all-reduces) a step of ``cfg`` at tp > 1 makes:
+    one per attention over a split sequence."""
+    if cfg.family == "encdec":
+        return 2 * cfg.n_layers
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.shared_every
+    return 0
+
+
+def phase_tp_families():
+    """(a) whisper-tiny (full depth, 4 x 448, 224 frames), rwkv6-7b (4 of 32
+    layers) and zamba2-7b (13 of 81) at full width, bf16, 4 x 512, 8
+    tokens, through ``launch.serve.main`` (a depth-cut config passed in),
+    at tp 1 in this process, then at ``--tp 2`` as two gloo ranks on cuda:0
+    (spawned; a file store under ``build/chip_smoke/tp``; joined with a
+    timeout): logits and tokens against tp 1's (``tp_compare``), each
+    prefill's flash launches by body at the rank's local heads (zamba2's
+    shared block on ``mma_sync``, whisper's 12 on ``wgmma``), none in
+    decode (tp 1's whisper launches 4 a step: its cross-attention), one
+    decode merge per attention a step, each rank's peak memory below tp
+    1's; prefill ms, decode ms a step, peak GiB a rank and the collectives
+    a decode step. (b) In the same ranks, each family's 2 full-width layers
+    (``family_parity_cfg``) in fp32, batch 1, prompt 128, against tp 1 in
+    this process within ``TPF_PARITY_TOL`` of the logits' scale. (c) With
+    two cards, zamba2 at tp 2 over NCCL on cuda:0-1: (a)'s tokens. Returns
+    the ranks' launch counts."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import mesh as meshes
+
+    runs, cfgs, names = [], [], []
+    for arch, layers, b, t in TPF_RUNS:
+        runs.append(["--arch", arch, "--batch", str(b), "--prompt-len", str(t),
+                     "--gen", str(TPF_GEN)])
+        cfgs.append(tpf_cfg(arch, layers))
+        names.append(arch)
+    for arch, *_ in TPF_RUNS:
+        runs.append(["--arch", arch, "--batch", "1", "--prompt-len", str(TPF_PARITY_PROMPT),
+                     "--gen", str(TPF_PARITY_GEN)])
+        cfgs.append(family_parity_cfg(arch))
+        names.append(f"{arch} fp32")
+    t0 = time.perf_counter()
+    ref = tp_serve(runs, cfgs=cfgs)
+    # tp 1 in fp32 at (a)'s cuts: how far each bf16 run lies from it.
+    fine = tp_serve(runs[:len(TPF_RUNS)],
+                    cfgs=[tpf_cfg(arch, layers, "float32") for arch, layers, *_ in TPF_RUNS])
+    log(f"tp families: tp 1 runs {time.perf_counter() - t0:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    t0 = time.perf_counter()
+    argvs = [argv + ["--tp", "2", "--dist-backend", "gloo", "--dist-init",
+                     f"file://{tp_store(f'tpf-gloo-{i}')}"] for i, argv in enumerate(runs)]
+    ranks = meshes.spawn(tp_rank, 2, (argvs, cfgs), timeout=TPF_TIMEOUT)
+    log(f"tp families: two gloo ranks on cuda:0, {time.perf_counter() - t0:.1f}s (spawn included)")
+    card = card_line()
+    for i, (name, cfg) in enumerate(zip(names, cfgs)):
+        want, arch = ref[i], runs[i][1]
+        b, t = int(runs[i][3]), int(runs[i][5])
+        steps = int(runs[i][7]) - 1
+        pre, shapes, policy = tpf_flash(cfg, b, t, 2)
+        check(policy == "shard" or cfg.family == "ssm", f"tp families {name}: the shard head policy at tp 2")
+        if i < len(TPF_RUNS):
+            dec1 = want[1]["decode_flash_bodies"]
+            n_cross = cfg.n_layers * steps if cfg.family == "encdec" else 0
+            check(sum(dec1.values()) == n_cross,
+                  f"tp families (a) {name}: tp 1 decode launches {n_cross} flash (cross-attention)")
+        for r, rank_runs in enumerate(ranks):
+            got = rank_runs[i]
+            gen, info = got[0], got[1]
+            add(info["counts"])
+            check(gen.shape == want[0].shape, f"tp families {name} rank {r}: ({gen.shape}) tokens")
+            bodies = {k: v for k, v in info["prefill_flash_bodies"].items() if v}
+            check(bodies == pre, f"tp families {name} rank {r}: prefill flash launches {bodies} == {pre}")
+            check(sum(info["decode_flash_bodies"].values()) == 0,
+                  f"tp families {name} rank {r}: no flash launch in decode")
+            check(got[3] == shapes, f"tp families {name} rank {r}: flash at the local heads {got[3]} == {shapes}")
+            merges = info["decode_collectives"].get("all_reduce_max", [0, 0])[0]
+            check(merges == tpf_merges(cfg) * steps,
+                  f"tp families {name} rank {r}: {merges} decode merges == {tpf_merges(cfg)} a step")
+            if i >= len(TPF_RUNS):  # (b): fp32, the fine check
+                d = tp_diff(want, got)
+                log(f"tp families (b) {name} rank {r} ({cfg.n_layers} layers, B=1 prompt "
+                    f"{TPF_PARITY_PROMPT}) vs tp 1 (tolerance {TPF_PARITY_TOL} x scale): logits "
+                    f"max_abs_err per step={[f'{e:.3e}' for e in d['errs']]} (scale "
+                    f"{d['scale']:.4f}) tokens changed at tp 1 logit gaps={d['ties']} "
+                    f"tokens equal={int(d['equal'])}")
+                check(len(d["errs"]) == len(want[2]), f"tp families (b) {name}: every step compared")
+                check(all(e <= TPF_PARITY_TOL * d["scale"] for e in d["errs"] + d["ties"]),
+                      f"tp families (b) {name} rank {r}: logits within {TPF_PARITY_TOL} of their scale")
+                continue
+            to_fp32 = [tp_diff(fine[i], run) for run in (want, got)]
+            bf16_floor = max(to_fp32[0]["errs"])
+            tol = max(TP_LOGIT_TOL, TPF_FLOOR_SHARE * bf16_floor / max(1.0, float(np.abs(want[2][0]).max())))
+            log(f"tp families (a) {name} rank {r}: distance from tp 1 in fp32 per step while the "
+                f"tokens agree: tp 1 bf16 {[round(e, 5) for e in to_fp32[0]['errs']]}, tp 2 bf16 "
+                f"{[round(e, 5) for e in to_fp32[1]['errs']]} (scale {to_fp32[0]['scale']:.3f})")
+            tp_compare(arch, want, got, f"families (a) rank {r}", tol=tol)
+            check(info["peak_bytes"] < want[1]["peak_bytes"],
+                  f"tp families (a) {name} rank {r}: peak memory {info['peak_bytes'] / 2**30:.4f} GiB "
+                  f"below tp 1's {want[1]['peak_bytes'] / 2**30:.4f}")
+            if r == 0:
+                per_step = {op: [n / steps, nb / steps]
+                            for op, (n, nb) in info["decode_collectives"].items()}
+                log(f"tp families (a) {name} ({cfg.n_layers} layers) tp=2 gloo B={b} prompt={t} "
+                    f"gen={steps + 1} [{card}]: prefill_ms={info['prefill_s'] * 1e3:.3f} "
+                    f"(tp 1: {want[1]['prefill_s'] * 1e3:.3f}) "
+                    f"decode_ms_per_step={info['decode_s'] / steps * 1e3:.3f} "
+                    f"(tp 1: {want[1]['decode_s'] / steps * 1e3:.3f}) "
+                    f"peak_GiB per rank={[round(q[i][1]['peak_bytes'] / 2**30, 4) for q in ranks]} "
+                    f"(tp 1: {want[1]['peak_bytes'] / 2**30:.4f}) flash prefill={bodies} "
+                    f"(tp 1: {dict((k, v) for k, v in want[1]['prefill_flash_bodies'].items() if v)}) "
+                    f"shapes={got[3]}")
+                log(f"tp families (a) {name} collectives per decode step (count, bytes per rank): "
+                    + ", ".join(f"{op} {n:.0f} {nb:.0f}" for op, (n, nb) in sorted(per_step.items()))
+                    + "; prefill: " + ", ".join(f"{op} {n} {nb}" for op, (n, nb)
+                                                in sorted(info["prefill_collectives"].items())))
+        check(np.array_equal(ranks[0][i][0], ranks[1][i][0]), f"tp families {name}: both ranks' tokens equal")
+    tokens_a = ranks[0][names.index("zamba2-7b")][0]
+    del ranks, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    if torch.cuda.device_count() >= 2:
+        t0 = time.perf_counter()
+        z = names.index("zamba2-7b")
+        ranks = meshes.spawn(tp_rank, 2, ([runs[z] + ["--tp", "2", "--dist-backend", "nccl",
+                                                      "--dist-init", f"file://{tp_store('tpf-nccl-2')}"]],
+                                          [cfgs[z]]), timeout=TPF_TIMEOUT)
+        for r, rank_runs in enumerate(ranks):
+            add(rank_runs[0][1]["counts"])
+            check(np.array_equal(rank_runs[0][0], tokens_a),
+                  f"tp families (c) rank {r}: zamba2 over NCCL on two cards gives (a)'s tokens")
+        log(f"tp families (c) zamba2 NCCL on cuda:0-1: tokens equal (a)'s; "
+            f"decode_ms_per_step={ranks[0][0][1]['decode_s'] / (TPF_GEN - 1) * 1e3:.3f}; "
+            f"{time.perf_counter() - t0:.1f}s")
+    else:
+        log(f"tp families (c): not run: {torch.cuda.device_count()} card(s), two needed")
+    return total
+
+
 
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -3478,6 +3758,12 @@ def main() -> int:
         for name in ("window_score", "segment_sum"):
             check(rank_counts[name] > 0, f"{name} launched on the ranks' path")
             counts[name] += rank_counts[name]
+        t0 = time.perf_counter()
+        tpf_counts = phase_tp_families()
+        log(f"phase 16 (tensor-parallel serving, the other families): {time.perf_counter() - t0:.1f}s "
+            f"launches={tpf_counts}")
+        check(tpf_counts["flash_attention"] > 0, "flash_attention launched on the families' tensor-parallel path")
+        counts["flash_attention"] += tpf_counts["flash_attention"]
         sources = {"window_score": ws_mod, "segment_sum": ss_mod, "flash_attention": fa_mod}
         kernels = []
         for name, row in kernel_rows.items():

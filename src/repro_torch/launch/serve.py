@@ -16,7 +16,7 @@ Counterpart of ``repro.launch.serve``, for every family: the same flags
 returns the generated (B, gen) int32 array. The decode loop (``decode``)
 is eager torch, one ``forward_cached`` call per token.
 
-Tensor parallelism (dense, moe and vlm families): under torchrun (``RANK``,
+Tensor parallelism (every family): under torchrun (``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK`` in the environment) or in a process group
 already initialised, N = D·T ranks serve on a (data=D, model=T) mesh
 (``--tp T``). Each rank makes its device current (``cuda:{LOCAL_RANK %
@@ -24,13 +24,14 @@ device_count}``) before it allocates anything, joins the group
 (``--dist-backend``: ``nccl`` on ``cuda``, ``gloo`` on ``cpu`` by default;
 ``--dist-init``: ``env://``, or ``file://<path>`` for a file store),
 draws the whole model from the seed as the one-device run draws it and
-keeps its shard, draws the inputs from one numpy generator in JAX's order
-and keeps its rows of the batch when the data axis divides it. Rank 0
-prints; every rank returns the whole batch's tokens. With no process
-group ``--tp`` above 1 exits naming the cause, as do a world size that
-``--tp`` does not divide, NCCL asked to put two ranks on one device, and
-the ssm, hybrid and encdec families on more than one rank (ROADMAP.md
-port queue 1, item 15b).
+keeps its shard, draws the inputs (the prompts, then whisper's frames or
+the vlm's patches) from one numpy generator in JAX's order and keeps its
+rows of the batch when the data axis divides it. Rank 0 prints; every rank
+returns the whole batch's tokens. With no process group ``--tp`` above 1
+exits naming the cause, as do a world size that ``--tp`` does not divide
+and NCCL asked to put two ranks on one device; the model raises for an
+SSM family whose heads ``--tp`` does not divide, and for whisper frames
+(``--prompt-len // 2``) or a cache length that it does not divide.
 """
 from __future__ import annotations
 
@@ -142,16 +143,16 @@ def _distributed(ap, args, cfg, dev):
     if world % args.tp:
         ap.exit(2, f"repro_torch.launch.serve: world size {world} is not a multiple of "
                    f"--tp {args.tp}\n")
-    if world > 1 and cfg.family not in ("dense", "moe", "vlm"):
-        ap.exit(2, f"repro_torch.launch.serve: the {cfg.family} family is not served on "
-                   "more than one rank; see ROADMAP.md port queue 1, item 15b\n")
     backend = args.dist_backend or ("nccl" if dev.type == "cuda" else "gloo")
     _, world, dev = meshes.init_ranks(backend, dev, args.dist_init)
     return sharding.shard_for(cfg, meshes.make_local_mesh(args.tp, dev.type), backend), dev, world
 
 
-def main(argv=None, info: Optional[dict] = None, keep_logits: bool = False):
+def main(argv=None, info: Optional[dict] = None, keep_logits: bool = False, cfg=None):
     """Run the launcher on ``argv``; returns the generated tokens (B, gen).
+    ``cfg`` (an ``ArchConfig``), if given, is served in place of
+    ``--arch``'s (``--reduced`` is then ignored): a model cut in depth, or
+    in another dtype.
 
     A dict passed as ``info`` receives the run's measurements: the prefill
     and decode walls (s, host clock around work ended by a device
@@ -181,9 +182,10 @@ def main(argv=None, info: Optional[dict] = None, keep_logits: bool = False):
     ap.add_argument("--dist-init", default="env://")
     args = ap.parse_args(argv)
 
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
+    if cfg is None:
+        cfg = get_config(args.arch)
+        if args.reduced:
+            cfg = cfg.reduced()
     dev = compat.resolve_device(args.device)
     owns_group = not dist.is_initialized()
     shard, dev, world = _distributed(ap, args, cfg, dev)

@@ -48,7 +48,7 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import numpy as np
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.names import jax_leaf
+from repro_torch.models.names import jax_leaf, tree_map_with_path
 from repro_torch.models.tp import MeshShape, Shard
 
 __all__ = [
@@ -210,19 +210,6 @@ def param_specs(cfg: ArchConfig, mesh, tp: int, params, mode: str = "train",
 def opt_specs(cfg: ArchConfig, mesh, tp: int, opt_shape: Any, pspecs: Dict[str, Spec]) -> Dict:
     """AdamW moments inherit the parameter specs; the step is replicated."""
     return dict(m=pspecs, v=pspecs, step=())
-
-
-def tree_map_with_path(fn, tree, path: str = ""):
-    """``fn(path, leaf)`` over a tree of dicts, tuples and lists (kept),
-    the path "/"-joined from dict keys and sequence indices, as JAX's
-    ``tree_map_with_path`` + ``_path_str`` write it."""
-    if isinstance(tree, Mapping):
-        return {k: tree_map_with_path(fn, v, f"{path}/{k}" if path else str(k))
-                for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map_with_path(fn, v, f"{path}/{i}" if path else str(i))
-                          for i, v in enumerate(tree))
-    return fn(path, tree)
 
 
 def _dp_size(mesh) -> int:

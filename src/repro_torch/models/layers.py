@@ -35,7 +35,9 @@ group in fp32, then cast once — the single device's one rounding of an
 fp32-accumulated product, to within the order of the fp32 sums; a weight
 the rules left whole (a dimension tp does not divide) is used whole, with
 no collective. The KV cache holds this rank's slice of the sequence, all
-KV heads (``launch.sharding.cache_specs``); see :func:`attention`.
+KV heads (``launch.sharding.cache_specs``); see :func:`attention`. A norm
+over columns split over the model group (RWKV-6's ``ln_x``, Mamba-2's
+gated norm) is :func:`rms_norm_tp`.
 """
 from __future__ import annotations
 
@@ -51,6 +53,7 @@ __all__ = [
     "NEG_INF",
     "dense_init",
     "rms_norm",
+    "rms_norm_tp",
     "rope",
     "init_attention",
     "attention",
@@ -82,6 +85,19 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.T
     xf = x.float()
     scale = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
     return (xf * scale).to(x.dtype) * gamma
+
+
+def rms_norm_tp(x: torch.Tensor, gamma: torch.Tensor, shard: Shard, width: int,
+                eps: float = 1e-6) -> torch.Tensor:
+    """:func:`rms_norm` over a last dimension of ``width`` of which ``x``
+    holds this rank's columns (and ``gamma`` their scales): the rank's sum
+    of squares, in fp32, summed over the model group before the scale is
+    taken. A whole ``x`` (or tp 1) is :func:`rms_norm` itself."""
+    if shard.tp == 1 or x.shape[-1] == width:
+        return rms_norm(x, gamma, eps)
+    xf = x.float()
+    sq = shard.all_reduce((xf * xf).sum(dim=-1, keepdim=True))
+    return (xf * torch.rsqrt(sq / width + eps)).to(x.dtype) * gamma
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
@@ -243,99 +259,121 @@ def _kv_heads_of(k: torch.Tensor, h0: int, hl: int, group: int) -> torch.Tensor:
 
 def _attention_tp(params, x, *, h, kv, dh, rope_theta, causal, cache, cache_pos, xattn_kv,
                   shard: Shard):
-    """Attention on one rank of a model axis above 1 (serving, a cache
-    given; the training forward and cross-attention are not sharded).
+    """Attention on one rank of a model axis above 1 (serving: a call with
+    a cache, a cache-less call such as whisper's encoder, or a
+    cross-attention; the training forward is not sharded).
 
     ``wq`` holds the rank's q heads (all of them under the 'replicate'
     policy), ``wk`` / ``wv`` its KV heads under 'shard' (all of them under
     'shard_q', 'pad' and 'replicate'); the cache (B, KV, S / tp, Dh) holds
     its slice of the sequence, positions [r·S/tp, (r+1)·S/tp), all KV heads.
 
-    Prefill (T > 1 from position 0): ``ops.flash_attention`` runs the
-    rank's q heads against the KV heads they read — its own under 'shard',
-    the replicated K/V sliced (or, where the heads straddle a KV boundary,
-    expanded per head) under 'shard_q' / 'pad', all heads under
-    'replicate'. The fresh K/V, gathered over heads under 'shard', are then
-    written where they fall in the rank's slice.
+    Prefill (T > 1 from position 0) and a cache-less call:
+    ``ops.flash_attention`` runs the rank's q heads against the KV heads
+    they read — its own under 'shard', the replicated K/V sliced (or, where
+    the heads straddle a KV boundary, expanded per head) under 'shard_q' /
+    'pad', all heads under 'replicate'. With a cache, the fresh K/V,
+    gathered over heads under 'shard', are then written where they fall in
+    the rank's slice.
 
     Decode (T = 1): q is gathered to all heads (and the new K/V under
     'shard'); the rank whose slice holds ``pos`` writes the new K/V. Each
     rank then attends its slice for every head, as the single device
-    attends the whole cache, with its roundings: fp32 logits, positions at
-    or past ``pos + 1`` masked with the finite -1e30, a softmax over the
-    slice (running max m, sum l), probs cast to the cache dtype before the
-    second product, an fp32 output o. The merge, the one new step: M =
-    all_reduce_max(m); then one all_reduce_sum of the packed (w, o·w) with
-    w = l·exp(m − M); out = Σ(o·w) / Σw. A slice wholly past ``pos`` has m
-    = -1e30 and weight 0 (no NaN, as an -inf mask would give). The rank
-    keeps its own heads' rows for its rows of ``wo``.
+    attends the whole cache, with its roundings, and the slices are merged
+    (:func:`_merge_slices`). The rank keeps its own heads' rows for its
+    rows of ``wo``.
+
+    Cross-attention (``xattn_kv``): over T > 1 (whisper's prefill) the K/V
+    are the rank's KV heads at the encoder's full length, projected with
+    its ``wk`` / ``wv`` columns, and flash runs as in prefill, non-causal.
+    At T = 1 (decode) they are the rank's slice of the cached cross K/V,
+    all heads, and the merge runs with every position live. The kernel
+    returns no log-sum-exp, so its outputs cannot be merged across ranks:
+    a decode step at tp > 1 launches no flash for its cross-attention,
+    where tp 1 launches one a layer.
 
     The output projection is a row-split product (summed over the model
     group) when ``wo`` holds the rank's rows, whole otherwise."""
-    if cache is None or xattn_kv is not None:
-        raise NotImplementedError(
-            "repro_torch.models.layers.attention: a sharded call needs a KV cache (serving); "
-            "sharded training and cross-attention are ROADMAP.md port queue 1, items 15b-15c")
     b, t, _ = x.shape
     hl, kvl = params["wq"].shape[1] // dh, params["wk"].shape[1] // dh
     q_split, kv_split = hl < h, kvl < kv
     h0 = shard.model_rank * hl if q_split else 0
     q = x @ params["wq"]
-    kx = x @ params["wk"]
-    vx = x @ params["wv"]
     if "bq" in params:
         q = q + params["bq"]
-    if "bk" in params:
-        kx, vx = kx + params["bk"], vx + params["bv"]
     q = q.reshape(b, t, hl, dh)
-    kx = kx.reshape(b, t, kvl, dh)
-    vx = vx.reshape(b, t, kvl, dh).transpose(1, 2)  # (B, KVl, T, Dh)
-    pos = int(cache_pos)
-    if rope_theta:
-        kx = rope(kx, pos + torch.arange(t, device=x.device), rope_theta)
-        q = rope(q, pos + torch.arange(t, device=x.device), rope_theta)
-    kx = kx.transpose(1, 2)
+    pos = 0 if xattn_kv is not None else int(cache_pos)
+    if xattn_kv is None:
+        kx = x @ params["wk"]
+        vx = x @ params["wv"]
+        if "bk" in params:
+            kx, vx = kx + params["bk"], vx + params["bv"]
+        kx = kx.reshape(b, t, kvl, dh)
+        vx = vx.reshape(b, t, kvl, dh).transpose(1, 2)  # (B, KVl, T, Dh)
+        if rope_theta:
+            kx = rope(kx, pos + torch.arange(t, device=x.device), rope_theta)
+            q = rope(q, pos + torch.arange(t, device=x.device), rope_theta)
+        kx = kx.transpose(1, 2)
     q = (q * (dh**-0.5)).transpose(1, 2)  # (B, Hl, T, Dh)
 
-    ck, cv = cache
-    s_l = ck.shape[2]
-    s0 = shard.model_rank * s_l
-    if t > 1:
-        if kv_split or hl == h:  # 'shard': the rank's own KV heads; 'replicate': all
-            k_att, v_att = kx, vx
-        else:
-            group = h // kv
-            k_att, v_att = (_kv_heads_of(z, h0, hl, group) for z in (kx, vx))
-        out = ops.flash_attention(q, k_att, v_att, causal=causal, scale=1.0)
-    if kv_split:
-        kx, vx = shard.all_gather(kx, 1), shard.all_gather(vx, 1)
-    lo, hi = max(pos, s0), min(pos + t, s0 + s_l)
-    if lo < hi:
-        ck[:, :, lo - s0:hi - s0] = kx[:, :, lo - pos:hi - pos]
-        cv[:, :, lo - s0:hi - s0] = vx[:, :, lo - pos:hi - pos]
-
-    if t == 1:
-        qa = shard.all_gather(q, 1) if q_split else q  # (B, H, 1, Dh)
-        group = h // kv
-        live = (s0 + torch.arange(s_l, device=x.device)) < pos + t
-        logits = torch.einsum("bkgqd,bksd->bkgqs", qa.reshape(b, kv, group, t, dh).float(),
-                              ck.float())
-        logits = logits + torch.where(live, 0.0, NEG_INF)
-        m = logits.amax(dim=-1, keepdim=True)
-        e = torch.exp(logits - m)
-        l_sum = e.sum(dim=-1, keepdim=True)
-        probs = e / l_sum
-        o = torch.einsum("bkgqs,bksd->bkgqd", probs.to(cv.dtype).float(), cv.float())
-        big_m = shard.all_reduce(m.clone(), "max")
-        w = l_sum * torch.exp(m - big_m)
-        packed = shard.all_reduce(torch.cat([w, o * w], dim=-1))
-        out = (packed[..., 1:] / packed[..., :1]).reshape(b, h, t, dh).to(x.dtype)
-        if q_split:
-            out = out[:, h0:h0 + hl]
+    if xattn_kv is not None and t == 1:  # cross decode: the rank's slice, all heads
+        kk, vv = xattn_kv
+        live = torch.ones(kk.shape[2], dtype=torch.bool, device=x.device)
+        out = _merge_slices(q, kk, vv, live, h=h, kv=kv, h0=h0, shard=shard)
+    elif cache is None or t > 1:
+        kk, vv = xattn_kv if xattn_kv is not None else (kx, vx)
+        if not (kv_split or hl == h):  # 'shard_q' / 'pad': the KV heads the local q heads read
+            kk, vv = (_kv_heads_of(z, h0, hl, h // kv) for z in (kk, vv))
+        out = ops.flash_attention(q, kk, vv, causal=causal and xattn_kv is None, scale=1.0)
+    if cache is not None and xattn_kv is None:
+        if kv_split:
+            kx, vx = shard.all_gather(kx, 1), shard.all_gather(vx, 1)
+        ck, cv = cache
+        s_l = ck.shape[2]
+        s0 = shard.model_rank * s_l
+        lo, hi = max(pos, s0), min(pos + t, s0 + s_l)
+        if lo < hi:
+            ck[:, :, lo - s0:hi - s0] = kx[:, :, lo - pos:hi - pos]
+            cv[:, :, lo - s0:hi - s0] = vx[:, :, lo - pos:hi - pos]
+        if t == 1:
+            live = (s0 + torch.arange(s_l, device=x.device)) < pos + t
+            out = _merge_slices(q, ck, cv, live, h=h, kv=kv, h0=h0, shard=shard)
     out = out.transpose(1, 2).reshape(b, t, hl * dh)
     if params["wo"].shape[0] < h * dh:
         return _row_split_product(out, params["wo"], shard), cache
     return out @ params["wo"], cache
+
+
+def _merge_slices(q, kk, vv, live, *, h, kv, h0, shard: Shard) -> torch.Tensor:
+    """Attention of the query rows ``q`` (B, Hl, T, Dh: the rank's heads
+    from ``h0``, gathered to all H when Hl < H) over a sequence split over
+    the model group: this rank holds ``kk`` / ``vv`` (B, KV, S_l, Dh),
+    positions ``live`` (S_l,) of them attended. Returns the rank's heads'
+    rows (B, Hl, T, Dh).
+
+    Each rank attends its slice for every head with the single device's
+    decode roundings: fp32 logits, dead positions masked with the finite
+    -1e30, a softmax over the slice (running max m, sum l), probs cast to
+    the K/V dtype before the second product, an fp32 output o. The merge:
+    M = all_reduce_max(m); then one all_reduce_sum of the packed (w, o·w)
+    with w = l·exp(m − M); out = Σ(o·w) / Σw. A slice with no live position
+    has m = -1e30 and weight 0 (no NaN, as an -inf mask would give)."""
+    hl = q.shape[1]
+    qa = shard.all_gather(q, 1) if hl < h else q  # (B, H, T, Dh)
+    b, _, t, dh = qa.shape
+    logits = torch.einsum("bkgqd,bksd->bkgqs", qa.reshape(b, kv, h // kv, t, dh).float(),
+                          kk.float())
+    logits = logits + torch.where(live, 0.0, NEG_INF)
+    m = logits.amax(dim=-1, keepdim=True)
+    e = torch.exp(logits - m)
+    l_sum = e.sum(dim=-1, keepdim=True)
+    probs = e / l_sum
+    o = torch.einsum("bkgqs,bksd->bkgqd", probs.to(vv.dtype).float(), vv.float())
+    big_m = shard.all_reduce(m.clone(), "max")
+    w = l_sum * torch.exp(m - big_m)
+    packed = shard.all_reduce(torch.cat([w, o * w], dim=-1))
+    out = (packed[..., 1:] / packed[..., :1]).reshape(b, h, t, dh).to(q.dtype)
+    return out[:, h0:h0 + hl] if hl < h else out
 
 
 def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype: torch.dtype) -> dict:

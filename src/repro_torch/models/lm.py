@@ -38,14 +38,15 @@ the training forward goes through ``ops.flash_attention``, which is
 differentiable.
 
 Tensor-parallel serving (``shard=``, a :class:`repro_torch.models.tp.Shard`
-of a mesh with more than one rank; dense, moe and vlm only, built by the
-launcher with ``launch.sharding.shard_for``, which resolves the layout from
-the sharding rules): :class:`LM` allocates this rank's slice of each
+of a mesh with more than one rank; every family, built by the launcher
+with ``launch.sharding.shard_for``, which resolves the layout from the
+sharding rules): :class:`LM` allocates this rank's slice of each
 parameter (``shard.param_index``; ``LM.tp_layout``: name -> (full shape,
 index)), :func:`init_params` draws every leaf whole, as one device draws
 it, and keeps the slice, :func:`init_cache` allocates the rank's slice of
-the cache (``shard.cache_index``: the sequence over ``model``, the batch
-over ``data`` when it divides), and
+the cache (``shard.cache_index``: the KV and cross K/V sequences over
+``model``, the SSM states by heads, the batch over ``data`` when it
+divides), and
 :func:`forward_cached` takes the rank's rows of the batch and returns the
 whole logits. The default :data:`~repro_torch.models.tp.NO_SHARD` changes
 nothing.
@@ -63,6 +64,7 @@ from repro_torch import compat
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
+from repro_torch.models.names import tree_map_with_path
 from repro_torch.models.tp import NO_SHARD, Shard
 
 __all__ = ["ModelDims", "model_dims", "Block", "RwkvBlock", "MambaBlock", "LM", "init_params",
@@ -90,14 +92,16 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
 
 def _sharded(cfg: ArchConfig, tp: int, shard: Shard) -> bool:
     """Whether ``shard`` splits anything (a mesh of more than one rank);
-    raises for a family the sharded path does not serve, or a ``tp`` that
-    is not the mesh's model size."""
+    raises for a ``tp`` that is not the mesh's model size, or that does not
+    divide an SSM family's heads: the rules would then split the D / d_in
+    columns off head boundaries while the state stays whole."""
     if shard.mesh.size == 1:
         return False
-    if cfg.family not in ("dense", "moe", "vlm"):
-        raise NotImplementedError(
-            f"repro_torch.models.lm: tensor-parallel serving of the {cfg.family} family is not "
-            "ported; see ROADMAP.md port queue 1, item 15b")
+    if cfg.family in ("ssm", "hybrid") and cfg.n_heads % shard.tp:
+        raise ValueError(
+            f"repro_torch.models.lm: the {cfg.family} family's {cfg.n_heads} heads do not split "
+            f"over tp={shard.tp}: its columns would split off head boundaries while its state "
+            "stays whole")
     if shard.tp != tp:
         raise ValueError(f"repro_torch.models.lm: tp={tp} but the mesh's model axis is {shard.tp}")
     if not shard.param_index or shard.cache_index is None:
@@ -343,23 +347,28 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, tp: int = 1, device=No
 
     Under a ``shard`` (``batch`` is the global batch) each leaf is this
     rank's slice as ``shard.cache_index`` places it: positions
-    [r·S/tp, (r+1)·S/tp) of the sequence for model coordinate r, and rows
-    of the batch by data coordinate when the data axis divides it (every
-    row otherwise). S (``max_seq``, plus ``vlm_patches`` in the vlm) must
-    divide by tp.
+    [r·S/tp, (r+1)·S/tp) of each KV and cross K/V sequence (the hybrid's
+    per-application pairs too) for model coordinate r, the rank's heads of
+    an SSM state, the token-shift carries whole, and rows of the batch by
+    data coordinate when the data axis divides it (every row otherwise).
+    Each sequence (``max_seq``, plus ``vlm_patches`` in the vlm;
+    ``xkv``'s) must divide by tp.
     """
     if _sharded(cfg, tp, shard):
-        whole = init_cache(cfg, batch, max_seq, tp, "meta")
-        s = whole["kv"][0].shape[3]
-        if s % tp:
-            raise ValueError(
-                f"repro_torch.models.lm.init_cache: the cache's {s} positions (max_seq {max_seq}"
-                + (f" + vlm_patches {cfg.vlm_patches}" if cfg.family == "vlm" else "")
-                + f") do not split over tp={tp}")
         dev = compat.resolve_device(device)
-        return {k: tuple(torch.zeros([s.stop - s.start for s in shard.cache_index(f"{k}/{i}", t.shape)],
-                                     dtype=t.dtype, device=dev) for i, t in enumerate(leaves))
-                for k, leaves in whole.items()}
+
+        def local(path, t):
+            if path.startswith(("kv", "xkv")) and t.shape[-2] % tp:
+                what = (f"cross-attention cache's {t.shape[-2]} positions (max_seq {max_seq} // 2)"
+                        if path.startswith("xkv") else
+                        f"cache's {t.shape[-2]} positions (max_seq {max_seq}"
+                        + (f" + vlm_patches {cfg.vlm_patches}" if cfg.family == "vlm" else "") + ")")
+                raise ValueError(f"repro_torch.models.lm.init_cache: the {what} do not split over "
+                                 f"tp={tp}")
+            idx = shard.cache_index(path, t.shape)
+            return torch.zeros([i.stop - i.start for i in idx], dtype=t.dtype, device=dev)
+
+        return tree_map_with_path(local, init_cache(cfg, batch, max_seq, tp, "meta"))
     dims = model_dims(cfg, tp)
     dev = torch.device("meta") if str(device) == "meta" else compat.resolve_device(device)
     dt, lg, d = _dtype(cfg), cfg.n_layers, cfg.d_model
@@ -412,7 +421,8 @@ def _attn_block(blk: Block, x, cfg: ArchConfig, dims: ModelDims, cache=None, pos
     # staticcheck: disable=SC002 torch.utils.checkpoint runs eagerly: xattn_kv is None or a pair of tensors, never traced
     if xattn_kv is not None:
         out, _ = L.attention(blk.xattn, L.rms_norm(x, blk.ln_x), h=dims.h, kv=dims.kv,
-                             dh=dims.dh, rope_theta=None, causal=False, xattn_kv=xattn_kv)
+                             dh=dims.dh, rope_theta=None, causal=False, xattn_kv=xattn_kv,
+                             shard=shard)
         x = x + out
     h2 = L.rms_norm(x, blk.ln2)
     # staticcheck: disable=SC002 torch.utils.checkpoint runs eagerly: cfg is a frozen config, never traced
@@ -424,20 +434,22 @@ def _attn_block(blk: Block, x, cfg: ArchConfig, dims: ModelDims, cache=None, pos
     return x + f, aux
 
 
-def _rwkv_block(blk: RwkvBlock, x, cfg: ArchConfig, state=None, lx_att=None, lx_cm=None):
+def _rwkv_block(blk: RwkvBlock, x, cfg: ArchConfig, state=None, lx_att=None, lx_cm=None,
+                shard: Shard = NO_SHARD):
     """Returns (x, the new state, the two new token-shift carries); training
     starts from no state and no carries (zeros)."""
     out, s_new, lxa = S.rwkv6_mixer(blk.att, L.rms_norm(x, blk.ln1), n_heads=cfg.n_heads,
-                                    dh=cfg.d_head, state=state, last_x=lx_att)
+                                    dh=cfg.d_head, state=state, last_x=lx_att, shard=shard)
     x = x + out
-    out, lxc = S.rwkv6_channel_mix(blk.cm, L.rms_norm(x, blk.ln2), last_x=lx_cm)
+    out, lxc = S.rwkv6_channel_mix(blk.cm, L.rms_norm(x, blk.ln2), last_x=lx_cm, shard=shard,
+                                   d_ff=cfg.d_ff)
     return x + out, s_new, lxa, lxc
 
 
-def _mamba_block(blk: MambaBlock, x, cfg: ArchConfig, state=None):
+def _mamba_block(blk: MambaBlock, x, cfg: ArchConfig, state=None, shard: Shard = NO_SHARD):
     """Returns (x, the new state); training starts from no state (zeros)."""
     out, s_new = S.mamba2_mixer(blk.mamba, L.rms_norm(x, blk.ln), n_heads=cfg.n_heads,
-                                d_state=cfg.ssm_state, state=state)
+                                d_state=cfg.ssm_state, state=state, shard=shard)
     return x + out, s_new
 
 
@@ -621,18 +633,32 @@ def forward_cached(
     step's self-attention over the cache is plain torch.
 
     Under a ``shard`` (``model`` and ``cache`` this rank's, from
-    :class:`LM` / :func:`init_cache` with the same shard; ``tokens`` and
-    ``patches`` the rank's rows of the batch) a vocab-split ``embed`` looks
-    up the rank's rows (ids outside them give zeros) and sums over the
-    model group; the blocks run as ``layers`` describes; a vocab-split
-    head's logits are gathered along the vocab in model coordinate order (a
-    head the rules left whole is not gathered). Every rank returns the
-    whole logits of its rows.
+    :class:`LM` / :func:`init_cache` with the same shard; ``tokens``,
+    ``patches`` and ``frames`` the rank's rows of the batch) a vocab-split
+    ``embed`` looks up the rank's rows (ids outside them give zeros) and
+    sums over the model group; the blocks run as ``layers`` and ``ssm``
+    describe, at the rank's heads; a vocab-split head's logits are gathered
+    along the vocab in model coordinate order (a head the rules left whole,
+    as whisper's vocab of 51,865 is, is not gathered). Every rank returns
+    the whole logits of its rows. Whisper's prefill projects each decoder
+    layer's cross K/V with the rank's ``xattn`` columns; its cross calls
+    run flash on them at the encoder's full length, and ``cache["xkv"]``
+    keeps the rank's slice of the sequence, all heads (gathered), so the
+    frames' length must divide by tp. A decode step's cross-attention then
+    merges the slices over the ranks in plain torch: at tp > 1 a whisper
+    decode step launches no flash.
     """
     dims = model_dims(cfg, tp)
     pos = int(pos)
     fam = cfg.family
     sharded = _sharded(cfg, tp, shard)
+    if sharded and fam == "encdec":
+        if frames is not None and frames.shape[1] % tp:
+            raise ValueError(f"repro_torch.models.lm.forward_cached: the frames' {frames.shape[1]} "
+                             f"positions do not split over tp={tp}")
+        if frames is None and tokens.shape[1] > 1:
+            raise ValueError("repro_torch.models.lm.forward_cached: a sharded encdec call over "
+                             "more than one token is a prefill and needs frames")
     x = _embed_tp(model, cfg, tokens, shard) if sharded else model.embed[tokens]
     if fam == "vlm" and patches is not None:
         x = torch.cat([_patch_prefix(model, patches, x.dtype), x], dim=1)
@@ -644,29 +670,34 @@ def forward_cached(
     elif fam == "ssm":
         s, lxa, lxc = cache["s"], cache["lx_att"], cache["lx_cm"]
         for i, blk in enumerate(model.blocks):
-            x, s[i], lxa[i], lxc[i] = _rwkv_block(blk, x, cfg, s[i], lxa[i], lxc[i])
+            x, s[i], lxa[i], lxc[i] = _rwkv_block(blk, x, cfg, s[i], lxa[i], lxc[i], shard=shard)
     elif fam == "hybrid":
         s, se = cache["s"], cfg.shared_every
         for i, blk in enumerate(model.blocks):
-            x, s[i] = _mamba_block(blk, x, cfg, s[i])
+            x, s[i] = _mamba_block(blk, x, cfg, s[i], shard=shard)
             if (i + 1) % se == 0:  # the last n_layers % se layers have no shared block after them
-                x, _ = _attn_block(model.shared, x, cfg, dims, cache["kv"][i // se], pos)
+                x, _ = _attn_block(model.shared, x, cfg, dims, cache["kv"][i // se], pos,
+                                   shard=shard)
     elif fam == "encdec":
+        fresh = None
         if frames is not None:
             enc = frames.to(x.dtype)
             for blk in model.enc_blocks:
-                enc, _ = _attn_block(blk, enc, cfg, dims, causal=False)
+                enc, _ = _attn_block(blk, enc, cfg, dims, causal=False, shard=shard)
             enc = L.rms_norm(enc, model.enc_ln_f)
             b, te = enc.shape[:2]
 
             def proj(w):
-                return (enc @ w).reshape(b, te, dims.kv, dims.dh).transpose(1, 2)
+                return (enc @ w).reshape(b, te, w.shape[1] // dims.dh, dims.dh).transpose(1, 2)
 
-            cache["xkv"] = tuple(torch.stack([proj(blk.xattn[name]) for blk in model.blocks])
-                                 for name in ("wk", "wv"))
+            fresh = [tuple(proj(blk.xattn[name]) for name in ("wk", "wv")) for blk in model.blocks]
+            cache["xkv"] = tuple(torch.stack([kv[j] for kv in fresh]) for j in (0, 1))
+            if sharded:
+                cache["xkv"] = _cross_cache(cache["xkv"], dims, shard)
         (ck, cv), (xk, xv) = cache["kv"], cache["xkv"]
         for i, blk in enumerate(model.blocks):
-            x, _ = _attn_block(blk, x, cfg, dims, (ck[i], cv[i]), pos, xattn_kv=(xk[i], xv[i]))
+            xkv = fresh[i] if sharded and tokens.shape[1] > 1 else (xk[i], xv[i])
+            x, _ = _attn_block(blk, x, cfg, dims, (ck[i], cv[i]), pos, xattn_kv=xkv, shard=shard)
     else:
         raise ValueError(f"repro_torch.models.lm: unknown family {fam!r}")
 
@@ -677,6 +708,20 @@ def forward_cached(
     if sharded and logits.shape[-1] < cfg.vocab:
         logits = shard.all_gather(logits, -1)
     return logits, cache
+
+
+def _cross_cache(xkv, dims: ModelDims, shard: Shard):
+    """The rank's part of the cross K/V cache from its projections (each
+    (L, B, KVl, S_enc, Dh): its KV heads under 'shard', all of them
+    otherwise): the heads gathered over the model group, then its slice of
+    the sequence, positions [r·S_enc/tp, (r+1)·S_enc/tp)."""
+    out = []
+    for z in xkv:
+        if z.shape[2] < dims.kv:
+            z = shard.all_gather(z, 2)
+        s_l = z.shape[3] // shard.tp
+        out.append(z[:, :, :, shard.model_rank * s_l:(shard.model_rank + 1) * s_l].clone())
+    return tuple(out)
 
 
 def _embed_tp(model: LM, cfg: ArchConfig, tokens: torch.Tensor, shard: Shard) -> torch.Tensor:

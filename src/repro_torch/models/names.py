@@ -9,9 +9,9 @@ per-layer leaves of ``blocks`` and ``enc_blocks``, so the port's
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Tuple
+from typing import Dict, Iterable, List, Mapping, Tuple
 
-__all__ = ["jax_leaf", "jax_leaves"]
+__all__ = ["jax_leaf", "jax_leaves", "tree_map_with_path"]
 
 _STACKED = ("blocks", "enc_blocks")  # the module lists JAX stacks along a layer axis
 
@@ -40,3 +40,17 @@ def jax_leaves(names: Iterable[str]) -> Dict[str, List[str]]:
     for name in sorted(names, key=_order):
         groups.setdefault(jax_leaf(name)[0], []).append(name)
     return groups
+
+
+def tree_map_with_path(fn, tree, path: str = ""):
+    """``fn(path, leaf)`` over a tree of dicts, tuples and lists (kept),
+    the path "/"-joined from dict keys and sequence indices, as JAX's
+    ``tree_map_with_path`` + ``_path_str`` write it ("kv/0/1": how
+    ``launch.sharding.cache_spec`` names a cache leaf)."""
+    if isinstance(tree, Mapping):
+        return {k: tree_map_with_path(fn, v, f"{path}/{k}" if path else str(k))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, v, f"{path}/{i}" if path else str(i))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)

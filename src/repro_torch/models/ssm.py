@@ -21,6 +21,15 @@ Parameters are mappings with the JAX leaf names; the leaves the JAX
 package keeps in fp32 in a bf16 model (RWKV-6 ``w0``, ``w_a``, ``w_b``,
 ``u``, ``ln_x``; Mamba-2 ``a_log``, ``dt_bias``, ``d_skip``, ``norm``) are
 fp32 here too.
+
+Tensor parallelism (``shard=``, serving; ``launch.sharding``'s rules) splits
+both mixers by heads: each weight holds this rank's slice and the mixer
+reads the split from its shape. The scans run on the rank's heads and
+update the rank's heads of the state; the norms over all of D (RWKV-6's
+``ln_x``) or d_in (Mamba-2's gated norm) sum their squares over the model
+group (``layers.rms_norm_tp``); the output projections and RWKV-6's
+channel-mix ``wv`` hold the rank's rows (``layers._row_split_product``). The
+token-shift carries are the block input's last row, whole on every rank.
 """
 from __future__ import annotations
 
@@ -29,7 +38,9 @@ from typing import Mapping, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense_init, rms_norm
+from repro_torch.models import layers as L
+from repro_torch.models.layers import dense_init, rms_norm_tp
+from repro_torch.models.tp import NO_SHARD, Shard
 
 __all__ = [
     "RWKV_LORA",
@@ -142,30 +153,44 @@ def rwkv6_mixer(
     state: Optional[torch.Tensor] = None,  # (B, H, N, N) fp32
     last_x: Optional[torch.Tensor] = None,  # (B, D): the token-shift carry
     chunk: int = 32,
+    shard: Shard = NO_SHARD,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Returns (out (B, T, D), the new state, the new token-shift carry)."""
+    """Returns (out (B, T, D), the new state, the new token-shift carry).
+
+    Under a shard ``wr`` / ``wk`` / ``wv`` / ``wg`` hold the rank's columns
+    (its Hl heads), ``u`` its heads and ``wo`` its rows; ``mu``, ``w0``,
+    ``w_a``, ``w_b`` and ``ln_x`` are whole, and the rank takes its columns
+    of ``w0``, ``w_b`` and ``ln_x`` (each decay column is computed alone).
+    ``state`` is the rank's heads (B, Hl, N, N)."""
     b, t, d = x.shape
     xx = _token_shift(x, last_x)
     mu = params["mu"]
+    hl = params["wr"].shape[1] // dh  # the rank's heads
 
     def mixed(i):
         return x + (xx - x) * mu[i]
 
     def heads(y):
-        return y.reshape(b, t, n_heads, dh)
+        return y.reshape(b, t, hl, dh)
 
     r = heads(mixed(0) @ params["wr"]).float()
     k = heads(mixed(1) @ params["wk"]).float()
     v = heads(mixed(2) @ params["wv"]).float()
     g = mixed(3) @ params["wg"]
-    w_raw = params["w0"] + torch.tanh(mixed(4).float() @ params["w_a"]) @ params["w_b"]
-    logw = -torch.exp(w_raw).reshape(b, t, n_heads, dh)  # log w <= 0
+    w_b, w0, ln_x = params["w_b"], params["w0"], params["ln_x"]
+    if hl < n_heads:  # the rank's columns of the whole leaves
+        cols = slice(shard.model_rank * hl * dh, (shard.model_rank + 1) * hl * dh)
+        w_b, w0, ln_x = w_b[:, cols], w0[cols], ln_x[cols]
+    w_raw = w0 + torch.tanh(mixed(4).float() @ params["w_a"]) @ w_b
+    logw = -torch.exp(w_raw).reshape(b, t, hl, dh)  # log w <= 0
 
     if state is None:
-        state = torch.zeros((b, n_heads, dh, dh), dtype=torch.float32, device=x.device)
+        state = torch.zeros((b, hl, dh, dh), dtype=torch.float32, device=x.device)
     o, s_fin = _rwkv6_chunk_scan(r, k, v, logw, params["u"], state, chunk)
-    o = rms_norm(o.reshape(b, t, d).to(x.dtype), params["ln_x"].to(x.dtype))
+    o = rms_norm_tp(o.reshape(b, t, hl * dh).to(x.dtype), ln_x.to(x.dtype), shard, d)
     o = o * F.silu(g)
+    if params["wo"].shape[0] < d:
+        return L._row_split_product(o, params["wo"], shard), s_fin, x[:, -1]
     return o @ params["wo"], s_fin, x[:, -1]
 
 
@@ -178,15 +203,31 @@ def init_rwkv6_cm(gen: torch.Generator, d_model: int, d_ff: int, dtype: torch.dt
     )
 
 
-def rwkv6_channel_mix(params: Params, x: torch.Tensor, last_x: Optional[torch.Tensor] = None
+def rwkv6_channel_mix(params: Params, x: torch.Tensor, last_x: Optional[torch.Tensor] = None,
+                      shard: Shard = NO_SHARD, d_ff: Optional[int] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """RWKV channel-mix: a squared-ReLU MLP with token shift and an r gate.
-    Returns (out (B, T, D), the new token-shift carry)."""
+    Returns (out (B, T, D), the new token-shift carry).
+
+    Under a shard ``wk`` holds the rank's d_ff columns and ``wv`` its rows
+    (a row-split product; ``d_ff``, the full width, tells them from whole
+    ones), and ``wr`` the rank's D columns: the rank gates its columns of
+    the summed ``kk @ wv`` and the gated columns are gathered along D, equal
+    elementwise to the unsplit product."""
     xx = _token_shift(x, last_x)
     xk = x + (xx - x) * params["mu"][0]
     xr = x + (xx - x) * params["mu"][1]
     kk = torch.square(F.relu(xk @ params["wk"]))
-    return torch.sigmoid(xr @ params["wr"]) * (kk @ params["wv"]), x[:, -1]
+    if shard.tp > 1 and params["wv"].shape[0] < L._full(d_ff, "rwkv6_channel_mix"):
+        kv = L._row_split_product(kk, params["wv"], shard)
+    else:
+        kv = kk @ params["wv"]
+    r = torch.sigmoid(xr @ params["wr"])
+    dl = r.shape[-1]
+    if dl < x.shape[-1]:  # the rank's columns of the gate
+        kv = kv[..., shard.model_rank * dl:(shard.model_rank + 1) * dl]
+        return shard.all_gather(r * kv, -1), x[:, -1]
+    return r * kv, x[:, -1]
 
 
 # ----------------------------------------------------------------------------
@@ -255,11 +296,18 @@ def mamba2_mixer(
     state: Optional[torch.Tensor] = None,  # (B, H, N, P) fp32
     chunk: int = 64,
     expand: int = 2,
+    shard: Shard = NO_SHARD,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (out (B, T, D), the new state)."""
+    """Returns (out (B, T, D), the new state).
+
+    Under a shard ``w_z`` / ``w_x`` (head-major d_in columns), ``w_dt``,
+    ``a_log``, ``dt_bias``, ``d_skip`` and ``norm`` hold the rank's Hl
+    heads and ``w_out`` its rows; ``w_B`` / ``w_C`` are whole, so every rank
+    computes C·Bᵀ itself. ``state`` is the rank's heads (B, Hl, N, P)."""
     b, t, d = x.shape
     d_in = expand * d
     p = d_in // n_heads
+    n_heads = params["w_dt"].shape[1]  # the rank's heads
     z = x @ params["w_z"]
     xs = x @ params["w_x"]
     bc = x @ params["w_B"]
@@ -271,6 +319,8 @@ def mamba2_mixer(
         state = torch.zeros((b, n_heads, d_state, p), dtype=torch.float32, device=x.device)
     y, s_fin = _ssd_chunk_scan(xf * dt[..., None], bc.float(), cc.float(), loga, state, chunk)
     y = y + params["d_skip"][None, None, :, None] * xf
-    y = y.reshape(b, t, d_in).to(x.dtype)
-    y = rms_norm(y * F.silu(z), params["norm"].to(x.dtype))
+    y = y.reshape(b, t, n_heads * p).to(x.dtype)
+    y = rms_norm_tp(y * F.silu(z), params["norm"].to(x.dtype), shard, d_in)
+    if params["w_out"].shape[0] < d_in:
+        return L._row_split_product(y, params["w_out"], shard), s_fin
     return y @ params["w_out"], s_fin

@@ -24,11 +24,13 @@ def serve_rank(rank, argv):
 
 def forward_rank(rank, cfg, tp, params, batch, max_seq, prompts, extras, tokens, store, device,
                  ep_override=None):
-    """Prefill ``prompts`` (the whole batch; the rank takes its rows) and
+    """Prefill ``prompts`` (the whole batch; the rank takes its rows, and
+    its rows of each of ``extras``: whisper's frames, the vlm's patches) and
     decode ``tokens`` (one (B, 1) array a step) on a sharded model carried
     from the JAX ``params`` (tp-padded numpy leaves). Returns the rank's
     mesh coordinates, its rows, each step's logits (its rows, whole vocab),
-    its cache pieces and its collective counts."""
+    its cache pieces, its collective counts (``stats``: op -> [count,
+    bytes]) and each step's (``step_stats``, the prefill's first)."""
     torch.set_num_threads(1)
     from repro_torch import convert
     from repro_torch.launch import mesh as meshes
@@ -42,17 +44,25 @@ def forward_rank(rank, cfg, tp, params, batch, max_seq, prompts, extras, tokens,
     cache = lm.init_cache(cfg, batch, max_seq, tp=tp, device=dev, shard=shard)
     rows = _rows(shard, batch)
     kw = {k: torch.from_numpy(v[rows]).to(dev) for k, v in extras.items()}
-    logits, cache = lm.forward_cached(model, cfg, cache, torch.from_numpy(prompts[rows]).to(dev), 0,
-                                      tp=tp, shard=shard, **kw)
+    step_stats = []
+
+    def counted(*args, **kw_):
+        before = {k: list(v) for k, v in shard.stats.items()}
+        out = lm.forward_cached(*args, tp=tp, shard=shard, **kw_)
+        step_stats.append({k: [n - before.get(k, [0, 0])[0], nb - before.get(k, [0, 0])[1]]
+                           for k, (n, nb) in shard.stats.items()})
+        return out
+
+    logits, cache = counted(model, cfg, cache, torch.from_numpy(prompts[rows]).to(dev), 0, **kw)
     steps = [logits.float().cpu().numpy()]
     offset = cfg.vlm_patches if cfg.family == "vlm" else 0
     for i, tok in enumerate(tokens):
-        logits, cache = lm.forward_cached(model, cfg, cache, torch.from_numpy(tok[rows]).to(dev),
-                                          offset + prompts.shape[1] + i, tp=tp, shard=shard)
+        logits, cache = counted(model, cfg, cache, torch.from_numpy(tok[rows]).to(dev),
+                                offset + prompts.shape[1] + i)
         steps.append(logits.float().cpu().numpy())
     return dict(coords=shard.coord, rows=(rows.start, rows.stop), logits=steps,
                 cache=convert.cache_to_numpy(cache), stats={k: list(v) for k, v in shard.stats.items()},
-                shapes={n: tuple(p.shape) for n, p in model.named_parameters()})
+                step_stats=step_stats, shapes={n: tuple(p.shape) for n, p in model.named_parameters()})
 
 
 def cache_rank(rank, cfg, tp, cache, store):

@@ -122,6 +122,7 @@ ROOT = SRC.parent
 CHIP_SCRIPTS = [
     "chip_smoke.py", "tools/time_flash_attention.py", "tools/time_segment_sum.py",
     "tools/time_partition.py", "tools/time_collectives.py", "tools/tp_readings.py",
+    "tools/tp_family_readings.py",
 ]
 
 

@@ -78,11 +78,15 @@ def _max_seq(cfg, tp, need):
     return need + (-(need + extra)) % tp
 
 
-def _jax_run(jcfg, tp, b, t, n_dec, max_seq, seed=0):
+def _jax_run(jcfg, tp, b, t, n_dec, max_seq, seed=0, frames=None):
+    """JAX's prefill of random prompts (+ the vlm's patches, or ``frames``
+    frames for whisper) and ``n_dec`` greedy decode steps at ``tp``."""
     params = _np_tree(jlm.init_params(jcfg, jax.random.PRNGKey(seed), tp=tp))
     rng = np.random.default_rng(seed + 1)
     prompts = rng.integers(0, jcfg.vocab, (b, t)).astype(np.int32)
     extras = {}
+    if frames is not None:
+        extras["frames"] = rng.normal(size=(b, frames, jcfg.d_model)).astype(np.float32)
     if jcfg.family == "vlm":
         extras["patches"] = rng.normal(size=(b, jcfg.vlm_patches, jcfg.d_model)).astype(np.float32)
     cache = jlm.init_cache(jcfg, b, max_seq, tp=tp)
@@ -220,9 +224,10 @@ def _exits(capsys, fn, said):
 
 def test_sharded_paths_refuse_what_they_cannot_run(monkeypatch, capsys):
     """No fallback: --tp above 1 with no process group, a world size tp does
-    not divide, an unported family on several ranks, NCCL with two ranks on
-    one device, and a cache whose length tp does not divide all raise or
-    exit naming the cause."""
+    not divide, an SSM family whose heads tp does not divide, whisper frames
+    whose length tp does not divide, NCCL with two ranks on one device, and
+    a cache whose length tp does not divide all raise or exit naming the
+    cause."""
     from repro_torch.launch import serve
 
     base = ["--reduced", "--batch", "2", "--prompt-len", "8", "--gen", "2", "--device", "cpu"]
@@ -234,12 +239,25 @@ def test_sharded_paths_refuse_what_they_cannot_run(monkeypatch, capsys):
     monkeypatch.setenv("RANK", "0")
     _exits(capsys, lambda: serve.main(["--arch", "qwen1.5-0.5b", "--tp", "3"] + base),
            "world size 2 is not a multiple of --tp 3")
-    for arch in ("rwkv6-7b", "zamba2-7b", "whisper-tiny"):
-        _exits(capsys, lambda: serve.main(["--arch", arch, "--tp", "2"] + base),
-               "ROADMAP.md port queue 1, item 15b")
-        with pytest.raises(NotImplementedError, match="item 15b"):
-            cfg = get_config(arch).reduced()
-            lm.LM(cfg, 2, device="cpu", shard=_fake_shard(cfg, 1, 2))
+    for arch, family in (("rwkv6-7b", "ssm"), ("zamba2-7b", "hybrid")):
+        cfg = get_config(arch).reduced()  # 4 heads
+        with pytest.raises(ValueError, match=f"the {family} family's 4 heads do not split over tp=3"):
+            lm.LM(cfg, 3, device="cpu", shard=_fake_shard(cfg, 1, 3))
+        with pytest.raises(ValueError, match="4 heads do not split over tp=3"):
+            lm.init_cache(cfg, 2, 12, tp=3, device="cpu", shard=_fake_shard(cfg, 1, 3))
+    wcfg = get_config("whisper-tiny").reduced()
+    wshard = _fake_shard(wcfg, 1, 2)
+    wmodel = lm.LM(wcfg, 2, device="cpu", shard=wshard)
+    wcache = lm.init_cache(wcfg, 2, 12, tp=2, device="cpu", shard=wshard)
+    tokens = torch.zeros((2, 6), dtype=torch.int32)
+    with pytest.raises(ValueError, match=r"the frames' 3 positions do not split over tp=2"):
+        lm.forward_cached(wmodel, wcfg, wcache, tokens, 0, tp=2, shard=wshard,
+                          frames=torch.zeros((2, 3, wcfg.d_model)))
+    with pytest.raises(ValueError, match="more than one token is a prefill and needs frames"):
+        lm.forward_cached(wmodel, wcfg, wcache, tokens, 0, tp=2, shard=wshard)
+    with pytest.raises(ValueError, match=r"cross-attention cache's 5 positions \(max_seq 10 // 2\) "
+                                         "do not split over tp=2"):
+        lm.init_cache(wcfg, 2, 10, tp=2, device="cpu", shard=wshard)
     monkeypatch.setenv("LOCAL_WORLD_SIZE", "2")
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(RuntimeError, match="two ranks on one device"):
