@@ -68,13 +68,14 @@ Phases (any failure exits non-zero, and no result line is printed):
    top-2 margin exceeds that.
 8. The paper's comparison set through the registry, launch counts zeroed
    just before and read just after: ``hdrf`` and ``greedy`` on brain_like at
-   scale 0.25 (a depth cut that keeps the run inside its time limit with
-   phase 10), k = 32 (steps/s, µs per edge), each bit-equal to its numpy
+   scale 0.15 (a depth cut that keeps the run inside its time limit with
+   phases 10 and 17), k = 32 (steps/s, µs per edge), each bit-equal to its numpy
    oracle; ``hash``, ``2ps-l`` (bit-equal to the numpy oracles of both
    phases), ``2ps`` (the same clustering phase) and
    ``adwise-restream`` with 2 passes at W = 256 (one ``window_score`` launch
    per step of each pass, pass 2 included; RD(ADWISE) below RD(hash)) at
-   ``bench_total_latency.py``'s scale 0.08; every partition run through 30
+   scale 0.05 (``bench_total_latency.py``'s is 0.08: a depth cut for phase
+   17's room); every partition run through 30
    pagerank supersteps on the card (``segment_sum``) and billed for
    pagerank_300. Then non-lazy ``adwise-restream`` (W = 64) and ``2ps`` on
    the card bit-identical to the CPU path at scale 0.005, and the device kernels and
@@ -95,7 +96,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    0.02, z = 4, spread 8), and a skewed batch of two length buckets
    against z = 1 runs; (d) the batched card against the batched CPU path
    (scale 0.005, non-lazy where the phase-3 rule asks); (e) a traced
-   ``adwise-restream`` run at scale 0.08 equal to phase 8's untraced run,
+   ``adwise-restream`` run at scale 0.05 equal to phase 8's untraced run,
    its Chrome trace export (``build/chip_smoke/trace.json``)
    validated, one scan span per scan call, two pass lanes, 30 superstep
    spans.
@@ -113,7 +114,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    z = 8 ADWISE, 30 ``segment_sum`` launches; ``hdrf`` at the same z from
    the file bit-equal to phase 9a's; (d) ``adwise-restream`` (2 passes,
    pass 2 adopting the ring: ``h2d_bytes == 12 m``), ``2ps``, ``2ps-l``,
-   ``dbh`` and ``hash`` at scale 0.08 from files (chunk 32,768), each
+   ``dbh`` and ``hash`` at scale 0.05 from files (chunk 32,768), each
    bit-equal to the in-memory run on the card; (e) at scale 0.05, ADWISE
    with prefetch 0 equal to prefetch 2, the latter traced: ``refill``
    total = ``h2d_wait_s``, ``stage`` total = ``prestage_wall_s``, one scan
@@ -191,7 +192,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    and logits bit-equal to tp 1's; (c) with two cards, llama at tp 2 over
    NCCL on cuda:0-1: (a)'s tokens (logged as not run on one card).
 
-15. The partition → process pipeline over ranks (brain_like cut to 0.25,
+15. The partition → process pipeline over ranks (brain_like cut to 0.15,
    k = 32, W = 256, z = 8, spread 4): (a) spotlight through
    ``partition_stream_batched(backend="shard_map")`` as two gloo ranks on
    cuda:0 (spawned; a file store under ``build/chip_smoke/ranks``; joined
@@ -227,15 +228,40 @@ Phases (any failure exits non-zero, and no result line is printed):
    (c) with two cards, zamba2 at tp 2 over NCCL on cuda:0-1: (a)'s tokens
    (logged as not run on one card).
 
+17. Tensor-parallel + FSDP training over two gloo ranks on cuda:0 (one
+   spawned group for both meshes, its ranks started while this process
+   runs tp 1): (a) Llama-3.2-3B at full width cut to 2 of 28 layers, bf16,
+   2 × 512, 3 steps through ``launch.train.main`` at ``--tp 2`` (mesh
+   (1, 2), TP) and ``--tp 1`` (mesh (2, 1), FSDP) against tp 1 in this
+   process and tp 1 in fp32: losses equal on both ranks and within the
+   bf16 run's distance from fp32 of tp 1's, 4 flash launches a step, all
+   ``wgmma``, at the rank's local heads (12 under TP); step ms, tokens/s,
+   peak a rank, collectives a step; (b) granite-moe-1b-a400m at full width
+   cut to 2 layers, fp32, capacity factor 1.0, one step at 2 × 512 (EP on
+   (1, 2), the whole-batch plan on (2, 1)): every MoE call's routes and
+   expert loads equal to tp 1's, pairs dropped, the first MoE output and
+   the loss within ``TPT_GRAD_TOL`` / ``TPT_LOSS_TOL``; (c) two full-width
+   fp32 layers of llama, granite and internvl, a training step at 2 × 128
+   without remat (granite two): the losses, the first gradient's global norm (within
+   ``TPT_NORM_TOL``) and every leaf of it (norm and 4 random sketches)
+   within ``TPT_GRAD_TOL`` of its norm,
+   every leaf's two-step update within ``TPT_UPDATE_TOL``
+   (``tools/tp_train_readings.py`` places both between sound and planted
+   faults); every flash launch of the ranks and of (d) at a shape phase 5
+   held to the plain version (``tpt_flash_shapes``); (d) NCCL at world 1 in this process: (a)'s losses and (c)'s
+   llama sketches bit-equal to the run with no group; with two cards, (a)
+   at tp 2 over NCCL on cuda:0-1 (logged as not run on one card).
+
 The kernels' ``launches`` are those of phases 2, 6, 8, 9, 10, 11, 12, 13, 14,
-15 and 16 (each path's counts zeroed just before it and read just after;
-phases 14's, 15's and 16's are their ranks'). Then one JSON line with
+15, 16 and 17 (each path's counts zeroed just before it and read just after;
+phases 14's, 15's, 16's and 17's are their ranks', with 17 (d)'s). Then one JSON line with
 every kernel's numbers, and, last, the
 ``{"ok": true, "device": ...}`` line. It imports nothing of JAX and nothing
 of the JAX package.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import re
@@ -641,19 +667,32 @@ def ss_kernels_per_call(fn, calls: int = 5, tries: int = 3) -> float:
     of them is not the segment_sum kernel. Every call launches the kernel
     (its launch counter says so), so a session with fewer kernel records
     than calls has lost records, as CUPTI now and then does (seen on the
-    H100: 4 of 5): it is logged and the calls are profiled again, up to
-    ``tries`` sessions. More records than calls are returned at once."""
+    H100 late in the smoke, never in a fresh process: 4 of 5, in every
+    session of a run): it is logged and the calls are profiled again, up to
+    ``tries`` sessions. Each session brackets the calls with a reduction
+    (``reduce_kernel``, which segment_sum never launches, left out of the
+    count), so a record lost at either end of the session is the
+    bracket's. More records than calls are returned at once."""
     import torch
 
     fn()
+    bracket = torch.zeros(8, device="cuda")
     torch.cuda.synchronize()
-    for session in range(1, tries + 1):
-        _, kern, _ = profiled(lambda: [fn() for _ in range(calls)], "segment_sum kernels per call")
+
+    def session():
+        bracket.sum()
+        out = [fn() for _ in range(calls)]
+        bracket.sum()
+        return out
+
+    for session_no in range(1, tries + 1):
+        _, kern, _ = profiled(session, "segment_sum kernels per call")
+        kern = [e for e in kern if "reduce_kernel" not in e.key]
         n = sum(e.count for e in kern)
         if n >= calls:
             break
         log(f"segment_sum kernels per call: the profiler recorded {n} kernels for {calls} calls "
-            f"(session {session} of {tries})")
+            f"(session {session_no} of {tries})")
     check(all("segsum_" in e.key for e in kern),
           f"segment_sum: only its kernel on the device ({[e.key[:60] for e in kern]})")
     return n / calls
@@ -841,7 +880,9 @@ def phase_profile(k):
 # The window of bench_total_latency.py's adwise-restream rows at W = 256
 # (benchmarks/common.py: window_init = W // 4), and its default scale.
 RESTREAM_CFG = dict(passes=2, window_max=256, window_init=64)
-BENCH_SCALE = 0.08
+# The restreaming set's scale: bench_total_latency.py's 0.08, cut to 0.05 for
+# the smoke's time limit (phases 8, 9 e and 10 d run it).
+BENCH_SCALE = 0.05
 
 
 def profile_per_edge(run, m_short: int, m_long: int) -> tuple[float, float]:
@@ -880,12 +921,12 @@ def bill(name, res, edges, n, k, graph):
                 wall_s=res.stats["wall_time_s"], t_partition_s=t_part, t_process_s=t_proc)
 
 
-SINGLE_EDGE_SCALE = 0.25  # phase 8's hdrf / greedy: one torch step per edge
+SINGLE_EDGE_SCALE = 0.15  # phase 8's hdrf / greedy: one torch step per edge
 
 
 def phase_comparison(k):
-    """HDRF and Greedy at scale 0.25; 2PS-L, 2PS and adwise-restream at the
-    benchmark's scale — through the registry on the card, each against the
+    """HDRF and Greedy at ``SINGLE_EDGE_SCALE``; 2PS-L, 2PS and adwise-restream
+    at ``BENCH_SCALE`` — through the registry on the card, each against the
     port's CPU oracle where one finishes in seconds, billed for
     pagerank_300."""
     import numpy as np
@@ -1252,7 +1293,7 @@ def phase_oocore(edges, n, k, window_max, spot, cmp_res):
     ``OOC_FILE_SCALE``, bit-equal to a resident run of the same cut; (c)
     z = 8 through the launcher from the full-scale text file, bit-equal to
     phase 9a (``spot``), then pagerank; hdrf at the
-    same z; (d) the restreaming set, dbh and hash at scale 0.08 from files,
+    same z; (d) the restreaming set, dbh and hash at ``BENCH_SCALE`` from files,
     bit-equal to the in-memory runs (phase 8's, ``cmp_res``); (e) prefetch
     0 against 2 at scale ``OOC_PREFETCH_SCALE``, and a traced file run
     whose category totals are its counters. Returns the launch counts of
@@ -1570,6 +1611,10 @@ def phase_flash():
     measure("whisper encoder tp 2 rank", (4, 3, 3, 224, 224, 64), torch.bfloat16, causal=False)
     measure("whisper self tp 2 rank", (4, 3, 3, 448, 448, 64), torch.bfloat16)
     measure("whisper cross tp 2 rank", (4, 3, 3, 448, 224, 64), torch.bfloat16, causal=False)
+    # Phase 17's launches, under autograd: each of its runs at each mesh's
+    # rank heads (wgmma in bf16, fma in fp32). Checked once, not timed plain.
+    for tag, shape, dtype in tpt_flash_shapes():
+        measure(tag, shape, getattr(torch, dtype), time_plain=False)
     return row
 
 
@@ -2770,15 +2815,18 @@ def tp_store(name: str) -> str:
 
 class FlashShapes:
     """While entered, records each ``ops.flash_attention`` call's (q shape,
-    k shape) — the shapes the wrapper launches the kernel at."""
+    k shape) — the shapes the wrapper launches the kernel at — in
+    ``shapes``, and in ``keys`` with its dtype's name and ``causal``."""
 
     def __enter__(self):
         from repro_torch.kernels import ops
 
-        self.shapes, self.real = [], ops.flash_attention
+        self.shapes, self.keys, self.real = [], [], ops.flash_attention
 
         def recording(q, k, v, **kw):
             self.shapes.append((tuple(q.shape), tuple(k.shape)))
+            self.keys.append((tuple(q.shape), tuple(k.shape), str(q.dtype).split(".")[1],
+                              kw.get("causal", True)))
             return self.real(q, k, v, **kw)
 
         ops.flash_attention = recording
@@ -3069,10 +3117,11 @@ def phase_tp():
 # Phase 15: the partition -> process pipeline over ranks
 # ----------------------------------------------------------------------------
 
-# brain_like cut to a quarter of its scale (a depth cut for the phase's
-# ~60 s: two ranks on one card share it, so the batched steps take about
-# twice as long as one process's); k, W, z and spread are phase 9's.
-RANKS_SCALE = 0.25
+# brain_like cut to 0.15 of its scale (a depth cut for the phase's time,
+# 0.25 until phase 17 came: two ranks on one card share it, so the batched
+# steps take about twice as long as one process's); k, W, z and spread are
+# phase 9's.
+RANKS_SCALE = 0.15
 RANKS_K, RANKS_W, RANKS_ITERS = 32, 256, 30
 RANKS_TIMEOUT = 300.0
 # Per-instance stats a sharded run must give as one process does (the walls,
@@ -3309,7 +3358,7 @@ def ranks_line(what, runs, ref):
 
 
 def phase_ranks():
-    """(a) spotlight z = 8 at brain_like 0.25, k = 32, W = 256 through
+    """(a) spotlight z = 8 at brain_like ``RANKS_SCALE``, k = 32, W = 256 through
     ``partition_stream_batched(backend="shard_map")`` on two gloo ranks on
     cuda:0 (spawned; a file store; joined with a timeout), bit-equal to a
     one-process run of the same cut in this process, n_shards 2 and one
@@ -3625,6 +3674,581 @@ def phase_tp_families():
     return total
 
 
+# ----------------------------------------------------------------------------
+# Phase 17: tensor-parallel + FSDP training, two ranks on one card
+# ----------------------------------------------------------------------------
+
+# (a) Llama-3.2-3B at full width cut to 2 of its 28 layers (the phase's
+# time: each FSDP step moves every block's bf16 weights through gloo three
+# times and the tied embedding's gradient once, ~0.5 GB/s a rank on one
+# card), bf16, 2 x 512, 3 steps through ``launch.train.main``.
+TPT_LAYERS, TPT_BATCH, TPT_SEQ, TPT_STEPS = 2, 2, 512, 3
+TPT_ARGS = ["--arch", "llama3.2-3b", "--batch", str(TPT_BATCH), "--seq", str(TPT_SEQ),
+            "--steps", str(TPT_STEPS), "--lr", "3e-4", "--seed", "0"]
+# (b) granite-moe-1b-a400m at full width cut to 2 of its 24 layers (gloo
+# moves every FSDP gather through the host), fp32, one step at 2 x 512, at a
+# capacity factor of 1.0 (its 1.25 leaves 4.6 standard deviations of an
+# expert's load at random init before a drop): the plan drops pairs.
+TPT_MOE_LAYERS, TPT_MOE_CF = 2, 1.0
+TPT_MOE_ARGS = ["--arch", "granite-moe-1b-a400m", "--batch", "2", "--seq", "512", "--steps", "1",
+                "--lr", "3e-4", "--seed", "0"]
+# (c) two full-width fp32 layers of each (the depth of phases 12 b and 13
+# c), ``TPT_GRAD_STEPS`` training steps at 2 x 128 at a constant lr without
+# remat (FSDP then gathers each block once; (a) runs the launcher's remat
+# path), compared leaf by leaf through sketches (``tpt_sketch``): the first
+# step's gradient, and the steps' update. granite takes a second step, which
+# reads the moments the first wrote (AdamW on pieces is the same code for
+# every family); llama's and internvl's FSDP steps move their fp32
+# embeddings' gradients (1.6 and 2.3 GB) through gloo, seconds each.
+TPT_GRAD_ARCHS = ["llama3.2-3b", "granite-moe-1b-a400m", "internvl2-26b"]
+TPT_GRAD_STEPS = {"llama3.2-3b": 1, "granite-moe-1b-a400m": 2, "internvl2-26b": 1}
+TPT_GRAD_BATCH, TPT_GRAD_SEQ, TPT_GRAD_LR = 2, 128, 1e-3
+TPT_SKETCHES = 4
+# fp32 at tp 2 (TP or FSDP) against tp 1 on the card: the losses, the
+# gradient's global norm, and each gradient leaf's norm and sketches
+# relative to the leaf's norm. Readings: tools/tp_train_readings.py
+# (PERF.md §6).
+TPT_LOSS_TOL = 1e-5
+TPT_GRAD_TOL = 1e-4
+# The gradient's global norm (AdamW's clip input), relative: sound 0-1.3e-7;
+# a replicated piece counted by every rank that holds it 7.9e-5 (llama's
+# norms at (1, 2)) to 0.28.
+TPT_NORM_TOL = 1e-5
+# Each leaf's update, relative to its norm: AdamW's first step turns an
+# element's gradient g into lr·g / (|g| + ε), ±lr whatever its size, so an
+# element whose gradient lies near 0 and rounds to the other sign moves its
+# update by 2 lr: a share f of them moves the leaf's update by 2√f of its
+# norm (the CPU rehearsal at reduced width: up to 2.8e-3, a share of 2e-6).
+# The check holds the update to its pieces and their moments (a rank that
+# updated the wrong piece, or none, is 1.0 off; one whose moments lie at
+# another piece's place is off in the second step), not to its scale:
+# AdamW's update is nearly invariant to the gradient's scale, so the clip's
+# norm is held by the norm check instead.
+TPT_UPDATE_TOL = 1e-2
+TPT_TIMEOUT = 300.0
+# the meshes of phase 17: (data, model)
+TPT_MESHES = [(1, 2), (2, 1)]
+
+
+def tpt_moe_cfg():
+    """(b)'s granite: ``TPT_MOE_LAYERS`` layers, fp32, capacity factor
+    ``TPT_MOE_CF``."""
+    import dataclasses
+
+    cfg = tpf_cfg("granite-moe-1b-a400m", TPT_MOE_LAYERS, "float32")
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=TPT_MOE_CF))
+
+
+def tpt_flash_shapes():
+    """(tag, (B, Hq, Hkv, Tq, Tk, Dh), dtype name) of each ``flash_attention``
+    launch a run of phase 17 makes at one rank (all causal): (a) llama in
+    bf16 at 2 x 512, (b) granite in fp32 at 2 x 512, (c) each of its archs in
+    fp32 at 2 x 128 (the vlm's patches before the text), at tp 1 (the (d)
+    runs' shapes) and on each of ``TPT_MESHES``."""
+    runs = [("(a) llama3.2-3b", tpf_cfg("llama3.2-3b", TPT_LAYERS), TPT_BATCH, TPT_SEQ),
+            ("(b) granite-moe-1b-a400m", tpt_moe_cfg(), 2, 512)]
+    runs += [(f"(c) {arch}", family_parity_cfg(arch), TPT_GRAD_BATCH, TPT_GRAD_SEQ)
+             for arch in TPT_GRAD_ARCHS]
+    out = []
+    for tag, cfg, b, t in runs:
+        t += cfg.vlm_patches if cfg.family == "vlm" else 0
+        for dp, tp in [(1, 1)] + TPT_MESHES:
+            h, kv, _ = cfg.padded_heads(tp)
+            out.append((f"tp train {tag} ({dp}, {tp}) rank",
+                        (b // dp, h // tp, kv // tp, t, t, cfg.d_head), cfg.dtype))
+    return out
+
+
+def tpt_sketch(name, t, whole, idx, k=TPT_SKETCHES):
+    """(Σ t², the k sketches Σ t · (u_1 ⊗ ... ⊗ u_n)[idx]) of a piece ``t``
+    at index ``idx`` of a leaf of shape ``whole``, fp32 on the card; the
+    u_d ~ N(0, 1) of each dim are drawn whole from a generator seeded by
+    (name, sketch, dim), so the ranks' pieces of a leaf sum to the whole
+    leaf's sketch. A sketch of a difference has the spread of its norm: a
+    leaf whose sketches lie within e·‖g‖ of another's differs from it by
+    about e of its norm."""
+    import zlib
+
+    import torch
+
+    x = t.detach().float()
+    out = [float(x.square().sum())]
+    for j in range(k):
+        y = x
+        for d in reversed(range(x.dim())):
+            gen = torch.Generator(device=x.device).manual_seed(zlib.crc32(f"{name}/{j}/{d}".encode()))
+            u = torch.randn(whole[d], generator=gen, device=x.device)[idx[d]]
+            y = y @ u
+        out.append(float(y))
+    return out
+
+
+def tpt_state_sketch(model, shard=None, before=None):
+    """name -> (gradient sketch, parameter sketch) of every parameter of
+    ``model`` (``tpt_sketch``): its pieces under a ``shard`` (the counted
+    ones only), the whole leaves otherwise. With ``before`` (the parameters
+    before the step, whole) the second is the update's sketch, its norm
+    exact."""
+    out = {}
+    for name, p in model.named_parameters():
+        if shard is not None and not shard.counted(name):
+            continue
+        whole, idx = model.tp_layout.get(name, (tuple(p.shape), tuple(slice(0, n) for n in p.shape)))
+        x = p.detach().float() if before is None else p.detach().float() - before[name]
+        out[name] = (tpt_sketch(name, p.grad, whole, idx) if p.grad is not None else None,
+                     tpt_sketch(name, x, whole, idx))
+    return out
+
+
+def tpt_train(argv, cfg):
+    """``launch.train.main(argv, info, cfg=cfg)`` in this process (a rank or
+    the smoke's own), its counts zeroed just before and read just after,
+    the flash launches' (q, k) shapes and each MoE call's routes (this
+    rank's rows), expert loads and the first call's output recorded.
+    Returns (losses, info, the MoE record)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import layers
+
+    info, rec = {}, {"routes": [], "loads": [], "outputs": []}
+    real_moe = layers.moe_ffn
+
+    def recording_moe(params, x, **kw):
+        out = real_moe(params, x, **kw)
+        logits = x.detach().reshape(-1, x.shape[-1]).float() @ params["router"].detach()
+        top = torch.sort(torch.softmax(logits, -1), dim=-1, descending=True, stable=True).indices
+        rec["routes"].append(top[:, :kw["top_k"]].sort(-1).values.cpu().numpy())
+        rec["loads"].append(out[2].detach().cpu().numpy())
+        if not rec["outputs"]:
+            rec["outputs"].append(out[0].detach().float().cpu().numpy())
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    layers.moe_ffn = recording_moe
+    try:
+        with FlashShapes() as fl:
+            ops.reset_launch_counts()
+            losses = train.main(argv, info=info, cfg=cfg)
+            info["counts"] = ops.launch_counts()
+    finally:
+        layers.moe_ffn = real_moe
+    if info["peak_bytes"] is not None:
+        info["peak_bytes"] -= base  # what the run itself held at its peak
+    info["flash_shapes"] = sorted(set(fl.shapes))
+    info["flash_keys"] = sorted(set(fl.keys))
+    info.pop("grad_flags", None)
+    torch.cuda.empty_cache()
+    return losses, info, rec
+
+
+def tpt_step(cfg, tp=None):
+    """``TPT_GRAD_STEPS[cfg.name]`` (else 1) training steps on ``cfg`` at a
+    constant lr (``TPT_GRAD_LR``) on the first 2 x 128 batches of
+    ``SyntheticTokens``, each ``launch.train.make_step``'s without remat:
+    ``lm.loss_fn`` + ``backward()`` + ``lm.reduce_grads`` +
+    ``optim.adamw.adamw_update``; with no process group at ``tp`` None, else
+    on this rank's train shard of a (world / tp, tp) mesh of the group
+    already joined. Returns (the losses, info: the first step's
+    collectives, the steps' launch counts and flash launches
+    (``flash_keys``), the first gradient's global norm
+    (``optim.adamw.global_norm`` on this rank's pieces: the function AdamW's
+    clip calls) and each leaf's sketches — the first step's gradient's, and
+    the steps' update's, the latter as the difference of the parameters'
+    sketches over ranks (no copy of the parameters: both ranks' state
+    shares the card), with its exact norm on one rank — an empty MoE
+    record). A second step reads the moments the first wrote."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as meshes
+    from repro_torch.launch import sharding, train
+    from repro_torch.models import lm
+    from repro_torch.models.tp import NO_SHARD
+    from repro_torch.optim import adamw
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    shard = NO_SHARD
+    if tp is not None:
+        shard = sharding.shard_for(cfg, meshes.make_local_mesh(tp, "cuda"), mode="train")
+    rows, shard = sharding.rank_rows(shard, TPT_GRAD_BATCH)
+    model, state = train.build_state(cfg, dev, tp or 1, 0, shard)
+    params = state["params"]
+    sharded = shard if shard.mesh.size > 1 else None
+    before = (tpt_state_sketch(model, sharded) if sharded is not None
+              else {n: p.detach().float().clone() for n, p in params.items()})
+    data = SyntheticTokens(cfg, ShapeConfig("tpt", TPT_GRAD_SEQ, TPT_GRAD_BATCH, "train"), seed=0)
+
+    def step(i):
+        batch = {k: torch.as_tensor(v[rows]).to(dev) for k, v in data.batch_at(i).items()}
+        for p in params.values():
+            p.grad = None
+        loss, _ = lm.loss_fn(model, cfg, batch, tp=tp or 1, remat=False, shard=shard)
+        loss.backward()
+        lm.reduce_grads(model, shard)
+        adamw.adamw_update({n: p.grad for n, p in params.items()}, state["opt"], params,
+                           TPT_GRAD_LR, shard=shard)
+        return loss.item()
+
+    with FlashShapes() as fl:
+        ops.reset_launch_counts()
+        coll0 = {op: list(v) for op, v in shard.stats.items()}
+        losses = [step(0)]
+        info = dict(collectives={op: [n - coll0.get(op, [0, 0])[0], b - coll0.get(op, [0, 0])[1]]
+                                 for op, (n, b) in shard.stats.items()
+                                 if n - coll0.get(op, [0, 0])[0]})
+        info["grad_norm"] = float(adamw.global_norm({n: p.grad for n, p in params.items()}, shard))
+        first = {n: g for n, (g, _) in tpt_state_sketch(model, sharded).items()}
+        losses += [step(i) for i in range(1, TPT_GRAD_STEPS.get(cfg.name, 1))]
+        info["counts"] = ops.launch_counts()
+    info["flash_keys"] = sorted(set(fl.keys))
+    if sharded is None:
+        after = {n: x for n, (_, x) in tpt_state_sketch(model, before=before).items()}
+    else:
+        after = {n: [float("nan")] + [a - b for a, b in zip(x[1:], before[n][1][1:])]
+                 for n, (_, x) in tpt_state_sketch(model, sharded).items()}
+    info["sketch"] = {n: (first[n], after[n]) for n in after}
+    del model, state, params, before
+    torch.cuda.empty_cache()
+    return losses, info, {}
+
+
+def tpt_jobs(tp, backend, store):
+    """The runs of one rank of phase 17 at ``--tp tp`` (world 2): (a) and
+    (b) through the launcher, then each of (c), as (kind, argv or tp,
+    cfg)."""
+    dist = ["--tp", str(tp), "--dist-backend", backend, "--dist-init", f"file://{store}"]
+    jobs = [("main", TPT_ARGS + dist, tpf_cfg("llama3.2-3b", TPT_LAYERS)),
+            ("main", TPT_MOE_ARGS + dist, tpt_moe_cfg())]
+    jobs += [("step", tp, family_parity_cfg(arch)) for arch in TPT_GRAD_ARCHS]
+    return jobs
+
+
+def tpt_run(job):
+    kind, arg, cfg = job
+    return tpt_train(arg, cfg) if kind == "main" else tpt_step(cfg, arg)
+
+
+def tpt_rank(rank, jobs, go=None):
+    """One rank of phase 17 (a spawned process): cuBLAS's workspaces taken
+    first (``tp_rank``), the modules a training step imports at its first
+    call imported, its group joined as the first job's argv says (the
+    launcher then joins it as it is); then, when the file ``go`` exists
+    (the smoke's own runs are done: a rank starts while they run), one step
+    of a reduced model over the group (its first-call costs), then each
+    job (``tpt_run``)."""
+    sys.path.insert(0, SRC)
+    import importlib
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as meshes
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    a = torch.ones((64, 64), device="cuda", dtype=torch.bfloat16)
+    _ = (a @ a, torch.mm(a, a, out_dtype=torch.float32), a.float() @ a.float(),
+         torch.bmm(a[None], a[None]))
+    torch.cuda.synchronize()
+    del a, _
+    for name in ("torch.utils.checkpoint", "torch.distributed.tensor", "torch._dynamo"):
+        importlib.import_module(name)
+    argv0 = jobs[0][1]
+    backend = argv0[argv0.index("--dist-backend") + 1]
+    meshes.init_ranks(backend, torch.device("cuda"), argv0[argv0.index("--dist-init") + 1])
+    while go is not None and not os.path.exists(go):
+        time.sleep(0.05)
+    if go is not None and open(go).read() == "stop":  # the smoke failed before phase 17
+        return []
+    t0 = time.perf_counter()
+    tpt_step(get_config("llama3.2-3b").reduced(), torch.distributed.get_world_size())
+    walls = [time.perf_counter() - t0]
+    out = []
+    for job in jobs:
+        t0 = time.perf_counter()
+        out.append(tpt_run(job))
+        walls.append(time.perf_counter() - t0)
+    out[0][1]["walls_s"] = walls  # the warm-up step's, then each job's
+    return out
+
+
+def tpt_grad_check(arch, want, runs, what):
+    """Holds the ranks' summed sketches (``tpt_state_sketch``) of every
+    gradient leaf to tp 1's within ``TPT_GRAD_TOL`` of the leaf's norm (the
+    norm too), and of every update within ``TPT_UPDATE_TOL`` of the
+    update's norm. Returns the worst relative errors (gradients,
+    updates)."""
+    import numpy as np
+
+    worst = [0.0, 0.0]
+    for name in sorted(want):
+        check(any(name in r for r in runs), f"tp train (c) {arch} {what}: {name} held by a rank")
+        for j, tol in ((0, TPT_GRAD_TOL), (1, TPT_UPDATE_TOL)):
+            ref = np.array(want[name][j])
+            got = sum(np.array(r[name][j]) for r in runs if name in r)
+            norm = np.sqrt(ref[0])
+            err = float(np.abs(got[1:] - ref[1:]).max())
+            if j == 0:
+                err = max(err, abs(np.sqrt(max(got[0], 0.0)) - norm))
+            rel = err / norm if err else 0.0
+            worst[j] = max(worst[j], rel)
+            check(rel <= tol, f"tp train (c) {arch} {what}: {('gradient', 'update')[j]} of {name} "
+                              f"within {tol} of its norm ({rel:.3e})")
+    return worst
+
+
+def tpt_moe_check(want, got, dp, what):
+    """(b): the ranks' MoE record against tp 1's: routes of every call (the
+    data ranks' rows concatenated), expert loads (the plan's, over the
+    whole batch: so its dropped pairs), the first call's output. Returns
+    the numbers it read."""
+    import numpy as np
+
+    cfg = tpt_moe_cfg()
+    recs = [g[2] for g in got]
+    n_calls = len(want["routes"])
+    check(all(len(r["routes"]) == n_calls for r in recs), f"tp train (b) {what}: as many MoE calls as tp 1")
+    routes = ([np.concatenate([r["routes"][i] for r in recs]) for i in range(n_calls)]
+              if dp > 1 else recs[0]["routes"])
+    flips = sum(int((a != b).any(-1).sum()) for a, b in zip(routes, want["routes"]))
+    loads_equal = all(np.array_equal(r["loads"][i], want["loads"][i])
+                      for r in recs for i in range(n_calls))
+    n_tok = 2 * 512
+    cap = int(cfg.moe.capacity_factor * n_tok * cfg.moe.top_k / cfg.moe.n_experts)
+    cap = max(8, -(-cap // 8) * 8)
+    drops = [int(np.maximum(load - cap, 0).sum()) for load in want["loads"]]
+    out1 = want["outputs"][0]
+    outs = np.concatenate([r["outputs"][0] for r in recs]) if dp > 1 else recs[0]["outputs"][0]
+    y_err = float(np.abs(outs - out1).max())
+    y_scale = max(1.0, float(np.abs(out1).max()))
+    check(flips == 0, f"tp train (b) {what}: every MoE call routes every token as tp 1 ({flips} differ)")
+    check(loads_equal, f"tp train (b) {what}: every MoE call's expert loads (so its dropped pairs) "
+                       "equal tp 1's")
+    check(sum(drops) > 0, f"tp train (b) {what}: pairs were dropped")
+    check(y_err <= TPT_GRAD_TOL * y_scale,
+          f"tp train (b) {what}: the first MoE layer's output within {TPT_GRAD_TOL} of its scale")
+    return dict(calls=n_calls, flips=flips, loads_equal=loads_equal, cap=cap, drops=drops,
+                y_err=y_err, y_scale=y_scale)
+
+
+def tpt_start():
+    """Phase 17's two ranks spawned ahead of the phase (a background thread
+    joins them with a timeout): their processes, imports and gloo group
+    get ready while other work runs, and they wait for ``tpt_release``.
+    Returns what ``phase_tp_train`` takes."""
+    from repro_torch.launch import mesh as meshes
+
+    store, go = tp_store("tpt-gloo"), tp_store("tpt-go")
+    jobs = [tpt_jobs(tp, "gloo", store) for _, tp in TPT_MESHES]
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    future = pool.submit(meshes.spawn, tpt_rank, 2,
+                         ([job for mesh_jobs in jobs for job in mesh_jobs], go),
+                         timeout=TPT_TIMEOUT)
+    return dict(jobs=jobs, go=go, pool=pool, future=future, t0=time.perf_counter())
+
+
+def tpt_release(pending, run: bool = True) -> None:
+    """Lets the ranks of ``tpt_start`` run their jobs, or (``run`` False)
+    return at once."""
+    with open(pending["go"], "w") as f:
+        f.write("run" if run else "stop")
+
+
+def phase_tp_train(pending=None):
+    """(a) Llama-3.2-3B (2 of 28 layers, full width, bf16, 2 x 512, 3 steps)
+    through ``launch.train.main`` at tp 1 in this process, in fp32 at tp 1
+    (the bf16 floor), then as two gloo ranks on cuda:0 at ``--tp 2`` (mesh
+    (1, 2), TP) and ``--tp 1`` (mesh (2, 1), FSDP) (spawned; a file store
+    under ``build/chip_smoke/tp``; one group for both meshes, its ranks
+    started while tp 1 runs; joined with a timeout): step ms,
+    tokens/s, peak a rank, collectives a step; flash launches a step by
+    body, ``wgmma`` at 12 local heads under TP; losses equal on both ranks
+    and within the bf16 run's distance from fp32 of tp 1's. (b)
+    granite-moe-1b-a400m (2 of 24 layers, full width, fp32, capacity factor
+    1.0), one step at 2 x 512, at tp 1 and in the same ranks (EP on (1, 2), the whole-batch
+    plan on (2, 1)): every MoE call's routes and expert loads (so its
+    dropped pairs) equal to tp 1's, the loss within ``TPT_LOSS_TOL``. (c)
+    Two full-width fp32 layers of llama, granite and internvl, a training
+    step at 2 x 128 (``tpt_step``; granite two): the losses, the gradient's
+    global norm, every gradient leaf and each leaf's update against tp 1's
+    (sketches); every flash launch of the ranks and of (d) at a shape phase
+    5 holds to the plain version. (d) NCCL at world 1: (a)'s losses and
+    (c)'s llama sketches bit-equal to the run with no group (in this
+    process, while the ranks start); with two cards, (a) at tp 2 over NCCL
+    on cuda:0-1. ``pending``: the ranks ``tpt_start`` spawned ahead (else
+    they are spawned here). Returns the ranks' launch counts, with (d)'s."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import mesh as meshes
+
+    card = card_line()
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    # The ranks start (their processes and imports, on the host) before this
+    # process runs tp 1 (in the smoke, while phase 16 runs: ``tpt_start``);
+    # they touch the card once the file `go` says so.
+    t0 = time.perf_counter()
+    pending = pending or tpt_start()
+    jobs, go, pool, spawned = pending["jobs"], pending["go"], pending["pool"], pending["future"]
+    try:
+        llama = tpf_cfg("llama3.2-3b", TPT_LAYERS)
+        ref_a = tpt_train(TPT_ARGS, llama)
+        fine_a = tpt_train(TPT_ARGS, tpf_cfg("llama3.2-3b", TPT_LAYERS, "float32"))
+        ref_b = tpt_train(TPT_MOE_ARGS, tpt_moe_cfg())
+        ref_c = {arch: tpt_step(family_parity_cfg(arch)) for arch in TPT_GRAD_ARCHS}
+        log(f"tp train: tp 1 runs {time.perf_counter() - t0:.1f}s")
+        # (d) here too, while the ranks start: a group of one rank over NCCL
+        t1 = time.perf_counter()
+        meshes.init_ranks("nccl", torch.device("cuda"), f"file://{tp_store('tpt-nccl-1')}")
+        try:
+            one = [tpt_run(("main", TPT_ARGS + ["--dist-backend", "nccl"], llama)),
+                   tpt_run(("step", 1, family_parity_cfg("llama3.2-3b")))]
+        finally:
+            torch.distributed.destroy_process_group()
+        t_nccl = time.perf_counter() - t1
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        tpt_release(pending)
+        ranks = spawned.result()
+        pool.shutdown()
+    log(f"tp train: meshes {TPT_MESHES} as two gloo ranks on cuda:0 (one group), "
+        f"{time.perf_counter() - pending['t0']:.1f}s from their spawn (tp 1's runs and "
+        f"anything before the phase included), {time.perf_counter() - t0:.1f}s in this phase")
+    floor = max(abs(a - b) for a, b in zip(ref_a[0], fine_a[0]))
+    loss_tol = max(floor, 1e-4)
+    n_jobs = len(jobs[0])
+    runs = {mesh: [rank_runs[i * n_jobs:(i + 1) * n_jobs] for rank_runs in ranks]
+            for i, mesh in enumerate(TPT_MESHES)}
+    walls = ranks[0][0][1]["walls_s"]
+    log("tp train: rank 0's walls (s): warm-up step " + f"{walls[0]:.1f}, then "
+        + ", ".join(f"{mesh} {what} {w:.1f}" for (mesh, what), w in zip(
+            [(m, w) for m in TPT_MESHES for w in ["(a)", "(b)"] + [f"(c) {a}" for a in TPT_GRAD_ARCHS]],
+            walls[1:])))
+    h, kv, _ = llama.padded_heads(2)
+    launched = set()  # (q shape, k shape, dtype, causal) of the ranks' and (d)'s flash launches
+    for (dp, tp), ranks in runs.items():
+        what = f"({dp}, {tp})"
+        for rank_runs in ranks:
+            for _, info, _ in rank_runs:
+                add(info["counts"])
+                launched.update(info["flash_keys"])
+        # (a)
+        for r, rank_runs in enumerate(ranks):
+            losses, info, _ = rank_runs[0]
+            check(info["rank_losses"] == [losses, losses],
+                  f"tp train (a) {what} rank {r}: the losses equal on both ranks")
+            check(len(losses) == TPT_STEPS and np.isfinite(losses).all(), f"tp train (a) {what}: finite losses")
+            diff = max(abs(a - b) for a, b in zip(losses, ref_a[0]))
+            check(diff <= loss_tol, f"tp train (a) {what}: losses within the bf16 run's distance from "
+                                    f"fp32 of tp 1's ({diff:.5f} <= {loss_tol:.5f})")
+            n = 2 * llama.n_layers
+            check(all(b.get("wgmma", 0) == n and sum(b.values()) == n for b in info["flash_bodies"]),
+                  f"tp train (a) {what} rank {r}: {n} flash launches a step, all wgmma")
+            local = ((TPT_BATCH // dp, h // tp, TPT_SEQ, llama.d_head),
+                     (TPT_BATCH // dp, kv // tp, TPT_SEQ, llama.d_head))
+            check(info["flash_shapes"] == [local],
+                  f"tp train (a) {what} rank {r}: flash at {info['flash_shapes']} == {[local]}")
+            if r == 0:
+                coll = info["collectives"][-1]
+                log(f"tp train (a) llama3.2-3b ({llama.n_layers} layers) mesh {what} gloo B={TPT_BATCH} "
+                    f"seq={TPT_SEQ} [{card}]: losses={[round(x, 5) for x in losses]} (tp 1: "
+                    f"{[round(x, 5) for x in ref_a[0]]}; fp32: {[round(x, 5) for x in fine_a[0]]}; "
+                    f"bf16 floor {floor:.5f}) step_ms={[round(s * 1e3, 3) for s in info['step_s']]} "
+                    f"(tp 1: {[round(s * 1e3, 3) for s in ref_a[1]['step_s']]}) tokens_per_s="
+                    f"{TPT_BATCH * TPT_SEQ / min(info['step_s']):.1f} (tp 1: "
+                    f"{TPT_BATCH * TPT_SEQ / min(ref_a[1]['step_s']):.1f}) peak_GiB per rank="
+                    f"{[round(x / 2**30, 3) for x in info['peak_bytes_per_rank']]} (tp 1: "
+                    f"{ref_a[1]['peak_bytes'] / 2**30:.3f}) flash a step={info['flash_bodies'][-1]} "
+                    f"shapes={info['flash_shapes']}")
+                log(f"tp train (a) mesh {what} collectives a step (count, bytes a rank): "
+                    + ", ".join(f"{op} {n_} {nb}" for op, (n_, nb) in sorted(coll.items())))
+        # (b)
+        got = [rank_runs[1] for rank_runs in ranks]
+        m = tpt_moe_check(ref_b[2], got, dp, what)
+        loss_b = got[0][0][0]
+        log(f"tp train (b) granite-moe-1b-a400m ({TPT_MOE_LAYERS} layers, fp32) mesh {what}: "
+            f"loss={loss_b:.6f} (tp 1: {ref_b[0][0]:.6f}) MoE calls={m['calls']} tokens routed "
+            f"differently={m['flips']} loads equal={int(m['loads_equal'])} dropped pairs a call (tp 1, "
+            f"capacity {m['cap']}): {m['drops']}; first MoE output max_abs_err={m['y_err']:.3e} (scale "
+            f"{m['y_scale']:.3f}); step_ms={got[0][1]['step_s'][0] * 1e3:.1f} (tp 1: "
+            f"{ref_b[1]['step_s'][0] * 1e3:.1f}) peak_GiB per rank="
+            f"{[round(x / 2**30, 3) for x in got[0][1]['peak_bytes_per_rank']]}")
+        check(all(g[0] == got[0][0] for g in got), f"tp train (b) {what}: the loss equal on both ranks")
+        check(abs(loss_b - ref_b[0][0]) <= TPT_LOSS_TOL * abs(ref_b[0][0]),
+              f"tp train (b) {what}: the loss within {TPT_LOSS_TOL} of tp 1's")
+        # (c)
+        for i, arch in enumerate(TPT_GRAD_ARCHS):
+            out = [rank_runs[2 + i] for rank_runs in ranks]
+            losses, losses1 = out[0][0], ref_c[arch][0]
+            check(len(losses) == len(losses1) == TPT_GRAD_STEPS[arch],
+                  f"tp train (c) {arch} {what}: {TPT_GRAD_STEPS[arch]} steps run")
+            check(all(o[0] == losses for o in out), f"tp train (c) {arch} {what}: the losses equal on both ranks")
+            for j, (loss, loss1) in enumerate(zip(losses, losses1)):
+                check(abs(loss - loss1) <= TPT_LOSS_TOL * abs(loss1),
+                      f"tp train (c) {arch} {what}: step {j} loss {loss:.6f} within {TPT_LOSS_TOL} of "
+                      f"tp 1's {loss1:.6f}")
+            norm, norm1 = out[0][1]["grad_norm"], ref_c[arch][1]["grad_norm"]
+            norm_err = abs(norm - norm1) / norm1
+            check(all(o[1]["grad_norm"] == norm for o in out),
+                  f"tp train (c) {arch} {what}: the gradient's global norm equal on both ranks")
+            check(norm_err <= TPT_NORM_TOL, f"tp train (c) {arch} {what}: the gradient's global norm "
+                                            f"{norm:.6f} within {TPT_NORM_TOL} of tp 1's {norm1:.6f}")
+            worst = tpt_grad_check(arch, ref_c[arch][1]["sketch"], [o[1]["sketch"] for o in out], what)
+            log(f"tp train (c) {arch} (2 layers, fp32, {len(losses)} steps) mesh {what}: losses="
+                f"{[round(x, 6) for x in losses]} (tp 1 {[round(x, 6) for x in losses1]}) global norm "
+                f"{norm:.6f} (tp 1 {norm1:.6f}, relative error {norm_err:.3e}); worst gradient / update "
+                f"error over {len(ref_c[arch][1]['sketch'])} leaves, relative to the leaf's norm: "
+                f"{worst[0]:.3e} / {worst[1]:.3e}; collectives a step: "
+                + ", ".join(f"{op} {n_}" for op, (n_, _) in sorted(out[0][1]["collectives"].items())))
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d), run above
+    for _, info, _ in one:
+        add(info["counts"])
+        launched.update(info["flash_keys"])
+    held = {((b, hq, tq, dh), (b, hkv, tk, dh), dtype, True)
+            for _, (b, hq, hkv, tq, tk, dh), dtype in tpt_flash_shapes()}
+    check(launched <= held, f"tp train: every flash launch at a shape phase 5 held to the plain "
+                            f"version (not held: {sorted(launched - held)})")
+    log(f"tp train: flash launched at {len(launched)} (q, k, dtype, causal) keys, each held in phase 5")
+    check(one[0][1]["backend"] == "nccl" and one[0][1]["world"] == 1,
+          "tp train (d): the NCCL group of one rank ran")
+    check(one[0][0] == ref_a[0], "tp train (d): NCCL at world 1 gives tp 1's losses bit for bit")
+    check(one[1][1]["sketch"] == ref_c["llama3.2-3b"][1]["sketch"]
+          and one[1][1]["grad_norm"] == ref_c["llama3.2-3b"][1]["grad_norm"],
+          "tp train (d): NCCL at world 1 gives tp 1's gradients, norm and update bit for bit (sketches)")
+    log(f"tp train (d) NCCL world 1: (a)'s losses and (c)'s llama sketches bit-equal to the run with "
+        f"no group; {t_nccl:.1f}s")
+    if torch.cuda.device_count() >= 2:
+        t0 = time.perf_counter()
+        store = tp_store("tpt-nccl-2")
+        ranks = meshes.spawn(tpt_rank, 2, ([("main", TPT_ARGS + ["--tp", "2", "--dist-backend", "nccl",
+                                                                 "--dist-init", f"file://{store}"],
+                                             llama)],), timeout=TPT_TIMEOUT)
+        for r, rank_runs in enumerate(ranks):
+            add(rank_runs[0][1]["counts"])
+            diff = max(abs(a - b) for a, b in zip(rank_runs[0][0], ref_a[0]))
+            check(diff <= loss_tol, f"tp train (d) rank {r}: NCCL on two cards within the bf16 floor")
+        log(f"tp train (d) NCCL on cuda:0-1: losses={ranks[0][0][0]} step_ms="
+            f"{[round(s * 1e3, 3) for s in ranks[0][0][1]['step_s']]}; {time.perf_counter() - t0:.1f}s")
+    else:
+        log(f"tp train (d) NCCL across two cards: not run: {torch.cuda.device_count()} card(s)")
+    return total
+
 
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -3641,6 +4265,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    pending = None
     try:
         log(card_line())
         log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -3758,12 +4383,20 @@ def main() -> int:
         for name in ("window_score", "segment_sum"):
             check(rank_counts[name] > 0, f"{name} launched on the ranks' path")
             counts[name] += rank_counts[name]
+        pending = tpt_start()  # phase 17's ranks get ready while phase 16 runs
         t0 = time.perf_counter()
         tpf_counts = phase_tp_families()
         log(f"phase 16 (tensor-parallel serving, the other families): {time.perf_counter() - t0:.1f}s "
             f"launches={tpf_counts}")
         check(tpf_counts["flash_attention"] > 0, "flash_attention launched on the families' tensor-parallel path")
         counts["flash_attention"] += tpf_counts["flash_attention"]
+        t0 = time.perf_counter()
+        tpt_counts = phase_tp_train(pending)
+        pending = None
+        log(f"phase 17 (tensor-parallel + FSDP training): {time.perf_counter() - t0:.1f}s "
+            f"launches={tpt_counts}")
+        check(tpt_counts["flash_attention"] > 0, "flash_attention launched on the sharded training path")
+        counts["flash_attention"] += tpt_counts["flash_attention"]
         sources = {"window_score": ws_mod, "segment_sum": ss_mod, "flash_attention": fa_mod}
         kernels = []
         for name, row in kernel_rows.items():
@@ -3782,6 +4415,9 @@ def main() -> int:
         log(json.dumps({"kernels": kernels}))
     except Exception:
         traceback.print_exc()
+        if pending is not None:  # phase 17's ranks, started ahead, return at once
+            tpt_release(pending, run=False)
+            pending["pool"].shutdown()
         print(f"chip_smoke: FAILED after {len(CHECKS)} passing checks", file=sys.stderr)
         return 1
     print(json.dumps({"ok": True, "device": {

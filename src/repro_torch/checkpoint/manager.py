@@ -23,6 +23,14 @@ because the port's train step updates its state in place:
 
 Each array is stored bit-exactly: a bfloat16 tensor (which numpy cannot
 hold) as its int16 bit pattern, with the dtype recorded in the manifest.
+
+Over ranks (``pieces``: a state whose leaves are the ranks' pieces, as
+training over a mesh holds it) the checkpoint is still the single-host
+layout, whole leaves: every rank calls `save`, each piece is gathered to
+rank 0 (``torch.distributed.gather`` over the default group), which
+assembles the whole leaves on the host and writes them; a leaf not in
+``pieces`` (the step) is rank 0's. `restore` waits for rank 0's write,
+then every rank reads the whole leaves and copies its pieces back.
 """
 from __future__ import annotations
 
@@ -35,6 +43,9 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch import dist as ranks
 
 __all__ = ["CheckpointManager"]
 
@@ -66,10 +77,16 @@ def _dtype_name(dtype: torch.dtype) -> str:
 
 
 class CheckpointManager:
-    def __init__(self, root: str, keep: int = 3, async_write: bool = True):
+    """``pieces`` (over ranks): keypath ("params/embed", "opt/m/embed", ...)
+    -> (the whole leaf's shape, the index of each rank's piece in rank
+    order) for every leaf held in pieces."""
+
+    def __init__(self, root: str, keep: int = 3, async_write: bool = True,
+                 pieces: Optional[Dict[str, Any]] = None):
         self.root = root
         self.keep = keep
         self.async_write = async_write
+        self.pieces = pieces
         self._thread: Optional[threading.Thread] = None
         os.makedirs(root, exist_ok=True)
 
@@ -78,7 +95,12 @@ class CheckpointManager:
     def save(self, step: int, tree: Any, meta: Optional[Dict] = None) -> None:
         self.wait()
         leaves = _leaves(tree)
-        flat = {k: _host_array(t) for k, t in leaves.items()}  # device→host before thread
+        if self.pieces is not None:
+            flat = self._gathered(leaves)  # whole leaves on rank 0, None elsewhere
+            if flat is None:
+                return
+        else:
+            flat = {k: _host_array(t) for k, t in leaves.items()}  # device→host before thread
         dtypes = {k: _dtype_name(t.dtype) for k, t in leaves.items()}
         if self.async_write:
             self._thread = threading.Thread(
@@ -87,6 +109,28 @@ class CheckpointManager:
             self._thread.start()
         else:
             self._write(step, flat, dtypes, meta or {})
+
+    def _gathered(self, leaves: Dict[str, torch.Tensor]) -> Optional[Dict[str, np.ndarray]]:
+        """Each leaf whole on rank 0 (None on the other ranks): the ranks'
+        pieces gathered to it, placed at their indices."""
+        me, world = ranks.rank(), ranks.world_size()
+        flat: Dict[str, np.ndarray] = {}
+        for key, t in leaves.items():
+            if key not in self.pieces:
+                if me == 0:
+                    flat[key] = _host_array(t)
+                continue
+            shape, indices = self.pieces[key]
+            t = t.detach().contiguous()
+            parts = [torch.empty_like(t) for _ in range(world)] if me == 0 else None
+            dist.gather(t, parts, dst=0)
+            if me == 0:
+                first = _host_array(parts[0])
+                whole = np.empty(tuple(shape), dtype=first.dtype)
+                for idx, part in zip(indices, parts):
+                    whole[tuple(idx)] = _host_array(part)
+                flat[key] = whole
+        return flat if me == 0 else None
 
     def _write(self, step: int, flat: Dict[str, np.ndarray], dtypes: Dict[str, str],
                meta: Dict) -> None:
@@ -113,6 +157,8 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self.pieces is not None:
+            ranks.barrier()  # rank 0's write is on disk before any rank reads
 
     def _gc(self) -> None:
         steps = self.all_steps()
@@ -144,12 +190,15 @@ class CheckpointManager:
         d = os.path.join(self.root, f"step_{step:09d}")
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
+        me = ranks.rank()
         with np.load(os.path.join(d, "arrays.npz")) as z:
             for key, leaf in _leaves(template).items():
                 saved = torch.from_numpy(z[key])
                 dtype = getattr(torch, manifest["dtypes"][key])
                 if dtype in _BITS:
                     saved = saved.view(dtype)
+                if self.pieces is not None and key in self.pieces:
+                    saved = saved[tuple(self.pieces[key][1][me])]
                 if tuple(saved.shape) != tuple(leaf.shape):
                     raise ValueError(f"{key}: {tuple(saved.shape)} != {tuple(leaf.shape)}")
                 leaf.copy_(saved)

@@ -18,7 +18,7 @@ package's shapes.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +42,7 @@ __all__ = [
     "opt_state_to_numpy",
     "cache_from_numpy",
     "cache_to_numpy",
+    "whole_leaves",
 ]
 
 _PADDED = {"cached_rcs": 0.0, "cached_ver_u": -1, "cached_ver_v": -1}
@@ -200,7 +201,9 @@ def _nest(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
     return out
 
 
-def _numpy(t: torch.Tensor) -> np.ndarray:
+def _numpy(t) -> np.ndarray:
+    if not isinstance(t, torch.Tensor):
+        return np.asarray(t)
     t = t.detach().cpu()
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
@@ -210,8 +213,9 @@ def lm_params_to_numpy(params: "lm.LM | Mapping[str, torch.Tensor]") -> Dict[str
     into ``blocks`` / ``enc_blocks`` along a leading layer axis) as numpy
     arrays, from an
     :class:`~repro_torch.models.lm.LM` or a mapping of its parameter names
-    to tensors (its gradients, an optimizer moment); bfloat16 comes out as
-    float32 (exact)."""
+    to tensors or numpy arrays (its gradients, an optimizer moment, the
+    whole leaves of :func:`whole_leaves`); bfloat16 comes out as float32
+    (exact)."""
     named = dict(params.named_parameters()) if isinstance(params, torch.nn.Module) else params
     flat = {}
     for key, names in jax_leaves(named).items():
@@ -279,3 +283,33 @@ def cache_to_numpy(cache: lm.Cache) -> Dict[str, Any]:
     """The cache as numpy arrays in the JAX layout and structure; a bfloat16
     leaf comes out as float32 (exact)."""
     return _map_tree(cache, _numpy)
+
+
+def whole_leaves(ranks: Sequence[Tuple[Mapping[str, Any], Mapping[str, Tuple[tuple, tuple]]]]
+                 ) -> Dict[str, np.ndarray]:
+    """Whole leaves by name from the ranks' pieces: one (pieces, layout) per
+    rank, ``pieces`` a name -> array (or tensor) mapping of the rank's part
+    of each leaf (its parameters, gradients, moments or residual) and
+    ``layout`` name -> (whole shape, index), as ``LM.tp_layout`` gives it.
+    Every element must be covered, and a piece several ranks hold must be
+    equal on each of them; either fault raises naming the leaf. The result
+    goes to the JAX layout with :func:`lm_params_to_numpy`."""
+    out: Dict[str, np.ndarray] = {}
+    seen: Dict[str, np.ndarray] = {}
+    for pieces, layout in ranks:
+        for name, piece in pieces.items():
+            a = _numpy(piece)
+            shape, idx = layout[name]
+            if name not in out:
+                out[name] = np.zeros(tuple(shape), a.dtype)
+                seen[name] = np.zeros(tuple(shape), bool)
+            idx = tuple(idx)
+            held = seen[name][idx]
+            if held.any() and not np.array_equal(out[name][idx][held], a[held]):
+                raise ValueError(f"whole_leaves: {name}: ranks hold different values of one piece")
+            out[name][idx] = a
+            seen[name][idx] = True
+    for name, cover in seen.items():
+        if not cover.all():
+            raise ValueError(f"whole_leaves: {name}: {int((~cover).sum())} elements held by no rank")
+    return out

@@ -31,6 +31,12 @@ JAX lays a mesh over devices; here a mesh is laid over the ranks of a
                                       torchrun sets them): its device set
                                       before anything is allocated, then the
                                       default process group
+  join_ranks(ap, args, cfg, device, — a launcher's (shard, device, world):
+             mode)                    its flags read (``--tp``,
+                                      ``--dist-backend``, ``--dist-init``),
+                                      the group joined, the mesh built and
+                                      this rank's ``Shard`` of ``mode``
+  per_rank(value, device, shard)    — an int from every rank, in rank order
   spawn(fn, world, args)            — ``fn(rank, *args)`` in ``world``
                                       spawned processes with that
                                       environment; returns their results in
@@ -65,6 +71,8 @@ __all__ = [
     "barrier",
     "shared_tmpdir",
     "init_ranks",
+    "join_ranks",
+    "per_rank",
     "spawn",
 ]
 
@@ -143,6 +151,47 @@ def init_ranks(backend: str, device: torch.device, init_method: str = "env://"
         raise RuntimeError(f"repro_torch.launch.mesh.init_ranks: the process group runs "
                            f"{dist.get_backend()}, not {backend}")
     return dist.get_rank(), dist.get_world_size(), device
+
+
+def join_ranks(ap, args, cfg, device: torch.device, mode: str = "serve"):
+    """(shard, device, world) of a launcher's run: its environment read, the
+    device made current, the group joined (``args.dist_backend``: NCCL on
+    ``cuda``, gloo on ``cpu`` by default; ``args.dist_init``), the (data,
+    model) mesh of ``args.tp`` built, and this rank's ``Shard`` in ``mode``
+    ('serve', or 'train': ``launch.sharding.shard_for``). With no process
+    group (none initialised, no ``WORLD_SIZE``): (NO_SHARD, device, 1), and
+    ``--tp`` must be 1. Exits through ``ap`` (code 2) naming what it
+    refuses."""
+    from repro_torch.launch import sharding
+    from repro_torch.models.tp import NO_SHARD
+
+    who = f"repro_torch.launch.{mode}"
+    if not dist.is_initialized() and "WORLD_SIZE" not in os.environ:
+        if args.tp != 1:
+            ap.exit(2, f"{who}: --tp > 1 needs a process group: run it under "
+                       "torchrun (RANK / WORLD_SIZE / LOCAL_RANK) with world size a multiple of "
+                       "--tp\n")
+        return NO_SHARD, device, 1
+    world = dist.get_world_size() if dist.is_initialized() else int(os.environ["WORLD_SIZE"])
+    if world % args.tp:
+        ap.exit(2, f"{who}: world size {world} is not a multiple of "
+                   f"--tp {args.tp}\n")
+    backend = args.dist_backend or ("nccl" if device.type == "cuda" else "gloo")
+    _, world, device = init_ranks(backend, device, args.dist_init)
+    mesh = make_local_mesh(args.tp, device.type)
+    return sharding.shard_for(cfg, mesh, backend, mode=mode), device, world
+
+
+def per_rank(value: int, device: torch.device, shard) -> list:
+    """``value`` from every rank, in rank order (``[value]`` under
+    ``NO_SHARD``)."""
+    from repro_torch.models.tp import NO_SHARD
+
+    if shard is NO_SHARD:
+        return [value]
+    parts = [torch.zeros(1, dtype=torch.int64, device=device) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, torch.tensor([value], dtype=torch.int64, device=device))
+    return [int(p) for p in parts]
 
 
 def _child(rank: int, fn: Callable, world: int, args: Sequence[Any], out) -> None:

@@ -36,7 +36,6 @@ SSM family whose heads ``--tp`` does not divide, and for whisper frames
 from __future__ import annotations
 
 import argparse
-import os
 import time
 from typing import Optional
 
@@ -101,15 +100,6 @@ def decode(model, cfg, cache, tok: torch.Tensor, pos: int, steps: int, tp: int =
     return outs, last, cache
 
 
-def _rows(shard: Shard, batch: int) -> slice:
-    """This rank's rows of the batch, as ``launch.sharding.batch_specs``
-    places a batch: its share by data coordinate when the data axes divide
-    the batch, else all."""
-    rows = {"rows": torch.empty(batch, device="meta")}
-    spec = sharding.batch_specs(None, shard.mesh, rows)["rows"]
-    return sharding.local_slice((batch,), spec, shard.mesh, shard.coord)[0]
-
-
 def _whole_batch(x: torch.Tensor, shard: Shard, batch: int) -> torch.Tensor:
     """The batch's rows from every data rank (``x`` holds this rank's)."""
     if x.shape[0] == batch:
@@ -126,26 +116,6 @@ def _phase(before: dict, after: dict) -> dict:
 
 def _snapshot(shard: Shard) -> dict:
     return {op: list(v) for op, v in shard.stats.items()}
-
-
-def _distributed(ap, args, cfg, dev):
-    """(shard, device, world) of a sharded run: the launcher's environment
-    read, the device made current, the group joined, the mesh built. With
-    no process group (none initialised, no ``WORLD_SIZE``): (NO_SHARD, dev,
-    1), and ``--tp`` must be 1. Exits (code 2) naming what it refuses."""
-    if not dist.is_initialized() and "WORLD_SIZE" not in os.environ:
-        if args.tp != 1:
-            ap.exit(2, "repro_torch.launch.serve: --tp > 1 needs a process group: run it under "
-                       "torchrun (RANK / WORLD_SIZE / LOCAL_RANK) with world size a multiple of "
-                       "--tp\n")
-        return NO_SHARD, dev, 1
-    world = dist.get_world_size() if dist.is_initialized() else int(os.environ["WORLD_SIZE"])
-    if world % args.tp:
-        ap.exit(2, f"repro_torch.launch.serve: world size {world} is not a multiple of "
-                   f"--tp {args.tp}\n")
-    backend = args.dist_backend or ("nccl" if dev.type == "cuda" else "gloo")
-    _, world, dev = meshes.init_ranks(backend, dev, args.dist_init)
-    return sharding.shard_for(cfg, meshes.make_local_mesh(args.tp, dev.type), backend), dev, world
 
 
 def main(argv=None, info: Optional[dict] = None, keep_logits: bool = False, cfg=None):
@@ -188,7 +158,7 @@ def main(argv=None, info: Optional[dict] = None, keep_logits: bool = False, cfg=
             cfg = cfg.reduced()
     dev = compat.resolve_device(args.device)
     owns_group = not dist.is_initialized()
-    shard, dev, world = _distributed(ap, args, cfg, dev)
+    shard, dev, world = meshes.join_ranks(ap, args, cfg, dev)
     try:
         return _serve(args, cfg, dev, shard, world, info, keep_logits)
     finally:
@@ -205,7 +175,7 @@ def _serve(args, cfg, dev, shard: Shard, world: int, info: Optional[dict], keep_
     max_seq = args.prompt_len + args.gen
     cache = lm.init_cache(cfg, b, max_seq, tp=tp, device=dev, shard=shard)
     prompts, kw, offset = family_inputs(cfg, b, args.prompt_len, rng, dev)
-    rows = _rows(shard, b)
+    rows, shard = sharding.rank_rows(shard, b)
     prompts, kw = prompts[rows], {k: v[rows] for k, v in kw.items()}
     kept = [] if keep_logits else None
 
@@ -258,20 +228,11 @@ def _serve(args, cfg, dev, shard: Shard, world: int, info: Optional[dict], keep_
             policy=shard.policy if shard is not NO_SHARD else None,
             prefill_collectives=_phase(coll0, coll1),
             decode_collectives=_phase(coll1, coll2),
-            peak_bytes_per_rank=None if peak is None else _per_rank(peak, dev, shard),
+            peak_bytes_per_rank=None if peak is None else meshes.per_rank(peak, dev, shard),
         )
         if kept is not None:
             info["logits"] = [_whole_batch(x, shard, b).float().cpu().numpy() for x in kept]
     return gen_tokens
-
-
-def _per_rank(value: int, dev: torch.device, shard: Shard) -> list:
-    """``value`` from every rank, in rank order."""
-    if shard is NO_SHARD:
-        return [value]
-    parts = [torch.zeros(1, dtype=torch.int64, device=dev) for _ in range(dist.get_world_size())]
-    dist.all_gather(parts, torch.tensor([value], dtype=torch.int64, device=dev))
-    return [int(p) for p in parts]
 
 
 if __name__ == "__main__":

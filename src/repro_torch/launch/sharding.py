@@ -62,6 +62,10 @@ __all__ = [
     "local_shape",
     "tree_map_with_path",
     "shard_for",
+    "rank_coords",
+    "piece_indices",
+    "batch_rows",
+    "rank_rows",
 ]
 
 Spec = Tuple[Any, ...]
@@ -229,6 +233,23 @@ def batch_specs(cfg: ArchConfig, mesh, batch_shape: Any) -> Any:
     return tree_map_with_path(one, batch_shape)
 
 
+def batch_rows(shard: Shard, batch: int) -> slice:
+    """This rank's rows of a batch of ``batch`` rows, as :func:`batch_specs`
+    places a batch: its share by data coordinate when the data axes divide
+    the batch, else all."""
+    rows = {"rows": np.broadcast_to(np.int8(0), (batch,))}
+    spec = batch_specs(None, shard.mesh, rows)["rows"]
+    return local_slice((batch,), spec, shard.mesh, shard.coord)[0]
+
+
+def rank_rows(shard: Shard, batch: int) -> Tuple[slice, Shard]:
+    """(this rank's rows of the batch (:func:`batch_rows`), the shard told
+    whether they are its share: ``Shard.with_rows``, so that the MoE plans
+    over the whole batch)."""
+    rows = batch_rows(shard, batch)
+    return rows, shard.with_rows(rows.stop - rows.start < batch)
+
+
 def cache_spec(cfg: ArchConfig, mesh, tp: int, path: str, shape) -> Spec:
     """The spec of one cache leaf at ``path`` ("kv/0", "s", ...): the KV
     cache's sequence over 'model', its batch over the data axes when they
@@ -294,17 +315,18 @@ def _cache_index(cfg: ArchConfig, mesh, tp: int, coords: Mapping[str, int], path
 
 def shard_for(cfg: ArchConfig, mesh, backend: Optional[str] = None,
               ep_override: Optional[bool] = None,
-              coords: Optional[Tuple[int, ...]] = None) -> Shard:
+              coords: Optional[Tuple[int, ...]] = None, mode: str = "serve") -> Shard:
     """The :class:`~repro_torch.models.tp.Shard` of this rank: its place on
     ``mesh``, the head policy at the mesh's model size, and the layout —
-    the index of its slice of each parameter (:func:`param_specs`,
-    mode='serve') and of each cache leaf (:func:`cache_spec`).
+    the spec and index of its piece of each parameter (:func:`param_specs`
+    in ``mode``: 'serve', TP only, or 'train', FSDP over the data axes
+    too) and the index of each cache leaf (:func:`cache_spec`).
 
     ``mesh`` is a ``DeviceMesh`` with axes ("data", "model")
     (``launch.mesh.make_local_mesh``), whose coordinates and groups the
     shard takes; or a :class:`~repro_torch.models.tp.MeshShape` with the
     rank's ``coords``, a shard with no process group (it can allocate and
-    fill slices but issues no collective)."""
+    fill pieces but issues no collective)."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import mesh_shape
@@ -320,9 +342,27 @@ def shard_for(cfg: ArchConfig, mesh, backend: Optional[str] = None,
     tp = shape.shape["model"]
     coord = dict(zip(shape.axis_names, coords))
     whole = lm.LM(cfg, tp, device="meta")
-    specs = param_specs(cfg, shape, tp, whole, mode="serve", ep_override=ep_override)
+    specs = param_specs(cfg, shape, tp, whole, mode=mode, ep_override=ep_override)
     index = {name: local_slice(p.shape, specs[name], shape, coord)
              for name, p in whole.named_parameters()}
     return Shard(mesh=shape, coords=tuple(coords), policy=cfg.padded_heads(tp)[2], backend=backend,
-                 ep_override=ep_override, param_index=index,
+                 ep_override=ep_override, mode=mode, param_index=index, param_spec=specs,
                  cache_index=functools.partial(_cache_index, cfg, shape, tp, coord), **groups)
+
+
+def rank_coords(mesh, rank: int) -> Dict[str, int]:
+    """The mesh coordinates of ``rank``: its row-major position on the
+    mesh, as ``launch.mesh.make_local_mesh`` lays the ranks out."""
+    coords, rest = {}, rank
+    for ax, n in reversed(list(zip(mesh.axis_names, mesh.sizes))):
+        coords[ax], rest = rest % n, rest // n
+    return coords
+
+
+def piece_indices(shard: Shard, shapes: Mapping[str, Tuple[int, ...]]) -> Dict[str, list]:
+    """Every rank's index of its piece of each parameter (whole shapes
+    ``shapes``, by name) under ``shard``'s layout, in rank order."""
+    mesh = shard.mesh
+    coords = [rank_coords(mesh, r) for r in range(mesh.size)]
+    return {name: [local_slice(shape, shard.param_spec[name], mesh, c) for c in coords]
+            for name, shape in shapes.items()}

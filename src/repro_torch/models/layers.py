@@ -38,6 +38,16 @@ no collective. The KV cache holds this rank's slice of the sequence, all
 KV heads (``launch.sharding.cache_specs``); see :func:`attention`. A norm
 over columns split over the model group (RWKV-6's ``ln_x``, Mamba-2's
 gated norm) is :func:`rms_norm_tp`.
+
+Under autograd (training over ranks: the dense, moe and vlm layers) the
+same calls differentiate: a row-split sum's backward is the identity, and
+a tensor every rank holds whole that enters a split product (a
+column-split projection's input, the replicated K/V a 'shard_q' / 'pad'
+rank selects heads of, the MoE's token rows and gate weights) passes
+``Shard.enter``, whose backward sums its gradient over the model group; so
+every leaf's gradient is JAX's, whole or the rank's part, with no sum
+afterwards. The layers see each leaf in its serve layout (the train
+layout's FSDP pieces are gathered by ``models.lm`` first).
 """
 from __future__ import annotations
 
@@ -229,20 +239,57 @@ def _fp32_product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``a @ w`` (``w`` 2-D, or both 3-D: a batched product) with an fp32
     result. A 16-bit product on the card keeps its operands and takes
     cuBLAS's fp32 accumulator as the result (``out_dtype``: the tensor-core
-    rate, no fp32 copy of the weight); elsewhere the operands are taken to
-    fp32, which holds them exactly (the CPU has no such kernel)."""
+    rate, no fp32 copy of the weight); that op has no derivative, so under
+    autograd it runs inside :class:`_Fp32Product`. Elsewhere the operands
+    are taken to fp32, which holds them exactly (the CPU has no such
+    kernel)."""
     if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16):
-        if w.dim() == 3:
-            return torch.bmm(a, w, out_dtype=torch.float32)
-        out = torch.mm(a.reshape(-1, a.shape[-1]), w, out_dtype=torch.float32)
-        return out.reshape(*a.shape[:-1], w.shape[-1])
+        if torch.is_grad_enabled() and (a.requires_grad or w.requires_grad):
+            return _Fp32Product.apply(a, w)
+        return _mm_fp32(a, w)
     return torch.matmul(a.float(), w.float())
+
+
+def _mm_fp32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    if w.dim() == 3:
+        return torch.bmm(a, w, out_dtype=torch.float32)
+    out = torch.mm(a.reshape(-1, a.shape[-1]), w, out_dtype=torch.float32)
+    return out.reshape(*a.shape[:-1], w.shape[-1])
+
+
+class _Fp32Product(torch.autograd.Function):
+    """The card's 16-bit product into an fp32 result, differentiable: the
+    backward casts the fp32 gradient to the operands' dtype and runs both
+    products in it, as the backward of a 16-bit ``a @ w`` does."""
+
+    @staticmethod
+    def forward(ctx, a, w):
+        ctx.save_for_backward(a, w)
+        return _mm_fp32(a, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, w = ctx.saved_tensors
+        g = g.to(a.dtype)
+        da = dw = None
+        if w.dim() == 3:
+            if ctx.needs_input_grad[0]:
+                da = torch.bmm(g, w.transpose(1, 2))
+            if ctx.needs_input_grad[1]:
+                dw = torch.bmm(a.transpose(1, 2), g)
+            return da, dw
+        if ctx.needs_input_grad[0]:
+            da = g @ w.T
+        if ctx.needs_input_grad[1]:
+            dw = a.reshape(-1, a.shape[-1]).T @ g.reshape(-1, g.shape[-1])
+        return da, dw
 
 
 def _row_split_product(a: torch.Tensor, w: torch.Tensor, shard: Shard) -> torch.Tensor:
     """``a @ w`` where ``w`` holds this rank's rows (and ``a`` the matching
     columns): the partial product in fp32, summed over the model group in
-    fp32, cast once to ``a.dtype``."""
+    fp32, cast once to ``a.dtype``. Under autograd the sum's backward is the
+    identity: every rank's rows of ``w`` get the whole gradient."""
     return shard.all_reduce(_fp32_product(a, w)).to(a.dtype)
 
 
@@ -261,7 +308,8 @@ def _attention_tp(params, x, *, h, kv, dh, rope_theta, causal, cache, cache_pos,
                   shard: Shard):
     """Attention on one rank of a model axis above 1 (serving: a call with
     a cache, a cache-less call such as whisper's encoder, or a
-    cross-attention; the training forward is not sharded).
+    cross-attention; training: a cache-less call under autograd, the
+    column-split projections' input through ``Shard.enter``).
 
     ``wq`` holds the rank's q heads (all of them under the 'replicate'
     policy), ``wk`` / ``wv`` its KV heads under 'shard' (all of them under
@@ -298,14 +346,16 @@ def _attention_tp(params, x, *, h, kv, dh, rope_theta, causal, cache, cache_pos,
     hl, kvl = params["wq"].shape[1] // dh, params["wk"].shape[1] // dh
     q_split, kv_split = hl < h, kvl < kv
     h0 = shard.model_rank * hl if q_split else 0
-    q = x @ params["wq"]
+    xq = shard.enter(x) if q_split else x
+    q = xq @ params["wq"]
     if "bq" in params:
         q = q + params["bq"]
     q = q.reshape(b, t, hl, dh)
     pos = 0 if xattn_kv is not None else int(cache_pos)
     if xattn_kv is None:
-        kx = x @ params["wk"]
-        vx = x @ params["wv"]
+        xk = xq if kv_split else x
+        kx = xk @ params["wk"]
+        vx = xk @ params["wv"]
         if "bk" in params:
             kx, vx = kx + params["bk"], vx + params["bv"]
         kx = kx.reshape(b, t, kvl, dh)
@@ -323,7 +373,7 @@ def _attention_tp(params, x, *, h, kv, dh, rope_theta, causal, cache, cache_pos,
     elif cache is None or t > 1:
         kk, vv = xattn_kv if xattn_kv is not None else (kx, vx)
         if not (kv_split or hl == h):  # 'shard_q' / 'pad': the KV heads the local q heads read
-            kk, vv = (_kv_heads_of(z, h0, hl, h // kv) for z in (kk, vv))
+            kk, vv = (_kv_heads_of(shard.enter(z), h0, hl, h // kv) for z in (kk, vv))
         out = ops.flash_attention(q, kk, vv, causal=causal and xattn_kv is None, scale=1.0)
     if cache is not None and xattn_kv is None:
         if kv_split:
@@ -389,8 +439,11 @@ def mlp(params: Params, x: torch.Tensor, shard: Shard = NO_SHARD,
     """SwiGLU: (silu(x @ w_gate) * (x @ w_up)) @ w_down. Under a shard,
     ``d_ff`` (the full width) tells a ``w_down`` that holds this rank's rows
     (a row-split product) from a whole one."""
+    split = shard.tp > 1 and params["w_down"].shape[0] < _full(d_ff, "mlp")
+    if split:
+        x = shard.enter(x)
     hidden = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
-    if shard.tp > 1 and params["w_down"].shape[0] < _full(d_ff, "mlp"):
+    if split:
         return _row_split_product(hidden, params["w_down"], shard)
     return hidden @ params["w_down"]
 
@@ -441,23 +494,36 @@ def moe_ffn(
     token (``index_add_``, whose order on the card differs from XLA's
     scatter-add: equal within fp32 rounding, not bit for bit).
 
-    Under a shard every rank computes the whole router, sort, capacity and
-    ``dest`` plan (the router is replicated, so ``aux`` and the load are
-    equal on every rank). With the experts split (EP: ``w_gate`` holds this
-    rank's E / tp experts) a rank runs ``bmm`` over its experts' capacity
-    rows only; with ``d_ff`` split (each expert's columns) it runs every
-    expert on its slice, the last product in fp32. Either way it combines
-    its partial rows into the fp32 ``out``, which is summed over the model
-    group before the cast.
+    The plan is the whole batch's. When ``x`` holds this rank's share of
+    rows of a batch split over the data axes (``shard.rows_split``), the
+    router logits (fp32, (rows, E): what routing needs of a token) are
+    gathered over the data group in data coordinate order, and the
+    capacity, the sorts, ``dest`` and ``aux`` are computed over every
+    token, as one device computes them; the rank then dispatches and
+    combines its own tokens only, at the slots the plan gave them. Under
+    autograd the gather's backward sums the logits' gradient over the data
+    group (``aux`` reads every rank's rows) and keeps the rank's rows.
+
+    Under a model axis above 1 every rank computes the whole plan (the
+    router is replicated, so ``aux`` and the load are equal on every
+    rank). With the experts split (EP: ``w_gate`` holds this rank's E / tp
+    experts) a rank runs ``bmm`` over its experts' capacity rows only; with
+    ``d_ff`` split (each expert's columns) it runs every expert on its
+    slice, the last product in fp32. Either way it combines its partial
+    rows into the fp32 ``out``, which is summed over the model group
+    before the cast; under autograd the token rows and the gate weights
+    entering that split compute sum their gradients over the model group
+    (``Shard.enter``).
     """
     b, t, d = x.shape
-    n_tok = b * t
+    n_mine = b * t
     e, k = n_experts, top_k
+    xf = x.reshape(n_mine, d)
+
+    logits = shard.gather_rows(xf.float() @ params["router"])
+    n_tok, lo = logits.shape[0], shard.row_offset(n_mine)
     cap = int(capacity_factor * n_tok * k / e)
     cap = max(8, -(-cap // 8) * 8)
-    xf = x.reshape(n_tok, d)
-
-    logits = xf.float() @ params["router"]
     if router_bias is not None:
         logits = logits + router_bias[None, :]
     probs = torch.softmax(logits, dim=-1)
@@ -478,13 +544,18 @@ def moe_ffn(
     rank = torch.arange(n_tok * k, device=x.device) - starts[se]
     keep = rank < cap
     dest = torch.where(keep, se * cap + rank, e * cap)  # overflow -> the dump row
+    if n_tok != n_mine:  # this rank's pairs, its tokens counted from its first row
+        own = (st_ >= lo) & (st_ < lo + n_mine)
+        se, st_, sw, keep, dest = se[own], st_[own] - lo, sw[own], keep[own], dest[own]
 
-    xs = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
-    xs[dest] = xf[st_]
-    xs = xs[:-1].reshape(e, cap, d)
     el = params["w_gate"].shape[0]
     ep = shard.tp > 1 and el < e
     ff_split = shard.tp > 1 and params["w_down"].shape[1] < _full(d_ff, "moe_ffn")
+    if ep or ff_split:
+        xf, sw = shard.enter(xf), shard.enter(sw)
+    xs = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
+    xs[dest] = xf[st_]
+    xs = xs[:-1].reshape(e, cap, d)
     if ep:
         xs = xs[shard.model_rank * el:(shard.model_rank + 1) * el]
     hidden = F.silu(torch.bmm(xs, params["w_gate"])) * torch.bmm(xs, params["w_up"])
@@ -494,14 +565,14 @@ def moe_ffn(
         ys = torch.bmm(hidden, params["w_down"])  # (E, C, D)
 
     if ep:  # the pairs routed to this rank's experts, rows counted from its first
-        y_rows, lo = ys.reshape(el * cap, d), shard.model_rank * el * cap
-        mine = keep & (dest >= lo) & (dest < lo + el * cap)
-        gathered = torch.where(mine[:, None], y_rows[(dest - lo).clamp(0, el * cap - 1)], 0.0)
+        y_rows, lo_e = ys.reshape(el * cap, d), shard.model_rank * el * cap
+        mine = keep & (dest >= lo_e) & (dest < lo_e + el * cap)
+        gathered = torch.where(mine[:, None], y_rows[(dest - lo_e).clamp(0, el * cap - 1)], 0.0)
     else:
         y_rows = ys.reshape(e * cap, d)
         gathered = torch.where(keep[:, None], y_rows[dest.clamp_max(e * cap - 1)], 0.0)
-    out = torch.zeros((n_tok, d), dtype=torch.float32, device=x.device)
+    out = torch.zeros((n_mine, d), dtype=torch.float32, device=x.device)
     out.index_add_(0, st_, gathered.float() * sw[:, None])
     if ep or ff_split:
-        shard.all_reduce(out)
+        out = shard.all_reduce(out)
     return out.reshape(b, t, d).to(x.dtype), aux, counts.float()

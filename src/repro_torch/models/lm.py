@@ -12,9 +12,11 @@ every family of the JAX package:
   init_params(cfg, generator, tp)                  — an :class:`LM` with random
                                                      weights drawn on the
                                                      generator's device
-  forward_train(model, cfg, batch, tp)             — logits for the next-token
+  forward_train(model, cfg, batch, tp, shard=)     — logits for the next-token
                                                      loss (or the hidden states)
-  loss_fn(model, cfg, batch, tp)                   — chunked cross-entropy
+  loss_fn(model, cfg, batch, tp, shard=)           — chunked cross-entropy
+  reduce_grads(model, shard)                       — the data-group sum of the
+                                                     gradients FSDP leaves whole
   attention_calls(cfg, remat)                      — flash_attention launches
                                                      and backward calls of
                                                      one training step
@@ -50,10 +52,20 @@ divides), and
 :func:`forward_cached` takes the rank's rows of the batch and returns the
 whole logits. The default :data:`~repro_torch.models.tp.NO_SHARD` changes
 nothing.
+
+Training over ranks (``shard=`` from ``shard_for(mode="train")``; the
+dense, moe and vlm families — ssm, hybrid and encdec raise naming ROADMAP.md
+item 15f): :class:`LM` holds the rank's FSDP + TP piece of each leaf,
+:func:`forward_train` gathers each block's pieces over the data axes
+inside the block's checkpointed call (ZeRO-3: the recompute gathers them
+again), :func:`loss_fn` returns the whole batch's loss (the data ranks'
+mean) and :func:`reduce_grads` finishes the gradients of the leaves not
+split over data.
 """
 from __future__ import annotations
 
 import dataclasses
+import types
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -68,7 +80,8 @@ from repro_torch.models.names import tree_map_with_path
 from repro_torch.models.tp import NO_SHARD, Shard
 
 __all__ = ["ModelDims", "model_dims", "Block", "RwkvBlock", "MambaBlock", "LM", "init_params",
-           "forward_train", "loss_fn", "attention_calls", "init_cache", "forward_cached"]
+           "forward_train", "loss_fn", "reduce_grads", "attention_calls", "init_cache",
+           "forward_cached"]
 
 Cache = Dict[str, Any]
 
@@ -453,16 +466,65 @@ def _mamba_block(blk: MambaBlock, x, cfg: ArchConfig, state=None, shard: Shard =
     return x + out, s_new
 
 
-def _patch_prefix(model: LM, patches: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+def _patch_prefix(model: LM, patches: torch.Tensor, dtype: torch.dtype,
+                  vit_proj: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The vlm's ``patches @ vit_proj`` in the promoted dtype (fp32 patches
     against a bf16 projection multiply in fp32, as JAX promotes them), cast
-    to the model's dtype."""
-    ct = torch.promote_types(patches.dtype, model.vit_proj.dtype)
-    return (patches.to(ct) @ model.vit_proj.to(ct)).to(dtype)
+    to the model's dtype. ``vit_proj`` (gathered over the data axes under a
+    train shard) replaces the model's."""
+    vit_proj = model.vit_proj if vit_proj is None else vit_proj
+    ct = torch.promote_types(patches.dtype, vit_proj.dtype)
+    return (patches.to(ct) @ vit_proj.to(ct)).to(dtype)
 
 
-def _head(model: LM, cfg: ArchConfig) -> torch.Tensor:
-    return model.embed.T if cfg.tie_embeddings else model.head
+def _head(model: LM, cfg: ArchConfig, shard: Shard = NO_SHARD) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return model.embed.T
+    return _leaf(model, "head", shard)
+
+
+def _train_sharded(cfg: ArchConfig, tp: int, shard: Shard) -> bool:
+    """Whether a training call runs over ranks (:func:`_sharded`); the
+    ssm, hybrid and encdec families refuse (ROADMAP.md item 15f)."""
+    if shard.mesh.size > 1 and cfg.family in ("ssm", "hybrid", "encdec"):
+        raise NotImplementedError(
+            f"repro_torch.models.lm: training the {cfg.family} family over ranks is not ported "
+            "(norms over split channels, RWKV-6's gate gather and whisper's cross-attention "
+            "under autograd); see ROADMAP.md port queue 1, item 15f")
+    return _sharded(cfg, tp, shard)
+
+
+def _leaf(model: LM, name: str, shard: Shard) -> torch.Tensor:
+    """Parameter ``name`` as the layers read it: gathered over the data axes
+    into its serve-layout piece under a train shard (``Shard.fsdp_gather``),
+    else itself."""
+    p = model.get_parameter(name)
+    return shard.fsdp_gather([p], [shard.fsdp_dim(name)])[0]
+
+
+def _gathered(module: nn.Module, prefix: str, shard: Shard) -> types.SimpleNamespace:
+    """A block's leaves as the layers read them: each gathered over the data
+    axes into its serve-layout piece under a train shard, in one
+    ``Shard.fsdp_gather`` (one collective per dtype), as a namespace with the
+    block's attributes (``ln1``, ``attn``: a dict of its leaves, ...)."""
+    named = list(module.named_parameters(prefix=prefix))
+    whole = shard.fsdp_gather([p for _, p in named], [shard.fsdp_dim(n) for n, _ in named])
+    ns: Dict[str, Any] = {}
+    for (name, _), t in zip(named, whole):
+        head, _, leaf = name[len(prefix) + 1:].partition(".")
+        if leaf:
+            ns.setdefault(head, {})[leaf] = t
+        else:
+            ns[head] = t
+    return types.SimpleNamespace(**ns)
+
+
+def _block_over_ranks(blk: Block, prefix: str, x, cfg: ArchConfig, dims: ModelDims,
+                      shard: Shard):
+    """:func:`_attn_block` on a train shard: the block's leaves gathered over
+    the data axes first, inside the call (so under remat the recompute
+    gathers them again, and no gathered weight outlives its block)."""
+    return _attn_block(_gathered(blk, prefix, shard), x, cfg, dims, shard=shard)
 
 
 def forward_train(
@@ -472,6 +534,7 @@ def forward_train(
     tp: int = 1,
     remat: bool = True,
     return_hidden: bool = False,
+    shard: Shard = NO_SHARD,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (B, S, V), moe_aux_loss ()); the final-normed hidden
     states (B, S, D) in place of the logits if asked.
@@ -488,9 +551,21 @@ def forward_train(
     The vlm's patch prefix is dropped after the final norm (text positions
     only). The auxiliary loss is the MoE's, summed over the layers of a
     dense / moe / vlm model (a zero without an MoE).
+
+    Over ranks (``shard`` from ``launch.sharding.shard_for(mode="train")``;
+    the dense, moe and vlm families) the model holds the rank's FSDP + TP
+    pieces and the batch the rank's rows (``shard.rows_split`` when they
+    are its share). Each block's leaves are gathered over the data axes into
+    their serve-layout pieces inside the block's call (``_gathered``), the
+    ``head`` and ``vit_proj`` before their use; the blocks then run the
+    sharded layers under autograd (``models.tp``'s collectives), the
+    vocab-split embedding summed over the model group. The logits (not the
+    hidden states) are gathered over the vocab.
     """
     dims = model_dims(cfg, tp)
-    x = model.embed[batch["tokens"]]
+    sharded = _train_sharded(cfg, tp, shard)
+    tokens = batch["tokens"]
+    x = _embed_tp(model, cfg, tokens, shard) if sharded else model.embed[tokens]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     fam = cfg.family
 
@@ -500,10 +575,14 @@ def forward_train(
         return fn(*args, **kw)
 
     if fam == "vlm":
-        x = torch.cat([_patch_prefix(model, batch["patches"], x.dtype), x], dim=1)
+        vit = _leaf(model, "vit_proj", shard) if sharded else model.vit_proj
+        x = torch.cat([_patch_prefix(model, batch["patches"], x.dtype, vit), x], dim=1)
     if fam in ("dense", "moe", "vlm"):
-        for blk in model.blocks:
-            x, a = run(_attn_block, blk, x, cfg, dims)
+        for i, blk in enumerate(model.blocks):
+            if sharded:
+                x, a = run(_block_over_ranks, blk, f"blocks.{i}", x, cfg, dims, shard)
+            else:
+                x, a = run(_attn_block, blk, x, cfg, dims)
             if cfg.moe:
                 aux = aux + a
     elif fam == "ssm":
@@ -529,7 +608,11 @@ def forward_train(
         x = x[:, batch["patches"].shape[1]:]  # text positions only
     if return_hidden:
         return x, aux
-    return x @ _head(model, cfg), aux
+    head = _head(model, cfg, shard)
+    split = sharded and head.shape[1] < cfg.vocab
+    if split:
+        return shard.all_gather(shard.enter(x) @ head, -1), aux
+    return x @ head, aux
 
 
 def loss_fn(
@@ -539,15 +622,46 @@ def loss_fn(
     tp: int = 1,
     remat: bool = True,
     aux_weight: float = 0.01,
+    shard: Shard = NO_SHARD,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross-entropy (+ MoE aux): (loss, dict(ce, moe_aux)), the
     JAX keys. ``batch["tokens"]``: (B, S+1); ``patches`` / ``frames`` as
-    :func:`forward_train` takes them."""
+    :func:`forward_train` takes them.
+
+    Over ranks each rank computes the loss of its rows (the MoE's aux over
+    the whole batch's plan), and the three values returned are their means
+    over the data group (``Shard.data_mean``, one all-reduce): the whole
+    batch's loss, equal on every rank, whose backward gives each rank 1/dp
+    of its rows' gradient. A vocab-split head's chunks gather their logits
+    over the vocab (``_chunk_loss``)."""
+    sharded = _train_sharded(cfg, tp, shard)
     tokens = batch["tokens"]
     hidden, aux = forward_train(model, cfg, dict(batch, tokens=tokens[:, :-1]), tp=tp,
-                                remat=remat, return_hidden=True)
-    ce = _chunked_ce(hidden, _head(model, cfg), tokens[:, 1:], remat=remat)
-    return ce + aux_weight * aux, dict(ce=ce, moe_aux=aux)
+                                remat=remat, return_hidden=True, shard=shard)
+    head = _head(model, cfg, shard)
+    split = sharded and head.shape[1] < cfg.vocab
+    ce = _chunked_ce(hidden, head, tokens[:, 1:], remat=remat, shard=shard if split else NO_SHARD)
+    loss = ce + aux_weight * aux
+    if sharded and shard.dp > 1:
+        loss, ce, aux = shard.data_mean(torch.stack([loss, ce, aux])).unbind()
+    return loss, dict(ce=ce, moe_aux=aux)
+
+
+@torch.no_grad()
+def reduce_grads(model: LM, shard: Shard) -> None:
+    """After ``loss_fn(..., shard=).backward()``: the gradients of the
+    leaves not split over the data axes (``embed``'s ``("model", None)``, the
+    norms, a dim the rules left whole) summed over the data group, in place,
+    packed into one all-reduce per dtype; the FSDP-split leaves' were
+    reduce-scattered by their gathers' backward. With a data axis of 1,
+    nothing."""
+    if shard.dp == 1:
+        return
+    for name, p in model.named_parameters():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    shard.data_sum([p.grad for name, p in model.named_parameters()
+                    if shard.fsdp_dim(name) is None])
 
 
 def attention_calls(cfg: ArchConfig, remat: bool = True) -> Tuple[int, int]:
@@ -563,8 +677,18 @@ def attention_calls(cfg: ArchConfig, remat: bool = True) -> Tuple[int, int]:
     return (2 if remat else 1) * n, n
 
 
-def _chunk_loss(x_c: torch.Tensor, head: torch.Tensor, y_c: torch.Tensor) -> torch.Tensor:
-    logits = (x_c @ head).float()
+def _chunk_loss(x_c: torch.Tensor, head: torch.Tensor, y_c: torch.Tensor,
+                shard: Shard = NO_SHARD) -> torch.Tensor:
+    """A chunk's summed CE. Under a ``shard`` the ``head`` holds this rank's
+    columns of the vocab: the chunk's hidden states enter the split product
+    (``Shard.enter``) and its logits are gathered over the vocab (the
+    backward keeps the rank's columns), so every rank takes the CE over the
+    whole vocab row, as one device does."""
+    # staticcheck: disable=SC002 torch.utils.checkpoint runs eagerly: shard is a frozen context, never traced
+    if shard.tp > 1:
+        logits = shard.all_gather(shard.enter(x_c) @ head, -1).float()
+    else:
+        logits = (x_c @ head).float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, y_c[..., None].long())[..., 0]
     return (logz - gold).sum()
@@ -576,6 +700,7 @@ def _chunked_ce(
     labels: torch.Tensor,  # (B, S)
     n_chunks: int = 8,
     remat: bool = True,
+    shard: Shard = NO_SHARD,
 ) -> torch.Tensor:
     """Sequence-chunked cross-entropy, mean over the B·S tokens.
 
@@ -583,6 +708,7 @@ def _chunked_ce(
     fp32 logits; with ``remat`` each chunk is checkpointed, so only one
     (B, S/n, V) slice of logits is live, in the forward and in the backward.
     The gold logit is a ``gather``, equal to the JAX package's one-hot sum.
+    A ``shard`` means a vocab-split ``head`` (:func:`_chunk_loss`).
     """
     b, s, _ = hidden.shape
     n_chunks = min(n_chunks, s)
@@ -590,7 +716,7 @@ def _chunked_ce(
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for lo in range(0, s, cs):
         hi = min(s, lo + cs)
-        args = (hidden[:, lo:hi], head, labels[:, lo:hi])
+        args = (hidden[:, lo:hi], head, labels[:, lo:hi], shard)
         if remat:
             total = total + checkpoint(_chunk_loss, *args, use_reentrant=False)
         else:

@@ -24,6 +24,7 @@ from typing import Dict, Mapping, Tuple
 import torch
 
 from repro_torch.models.names import jax_leaves
+from repro_torch.models.tp import NO_SHARD, Shard
 
 __all__ = ["adamw_init", "adamw_update", "cosine_schedule", "global_norm"]
 
@@ -41,13 +42,27 @@ def adamw_init(params: Tree) -> Dict[str, object]:
     )
 
 
-def global_norm(tree: Tree) -> torch.Tensor:
+def global_norm(tree: Tree, shard: Shard = NO_SHARD) -> torch.Tensor:
     """√(Σ x²) over every leaf, in fp32, the leaves added in the order of
-    JAX's tree (a stacked ``blocks`` leaf is the sum of its layers)."""
-    return torch.sqrt(sum(
-        sum(torch.sum(torch.square(tree[n].float())) for n in group)
-        for group in jax_leaves(tree).values()
-    ))
+    JAX's tree (a stacked ``blocks`` leaf is the sum of its layers).
+
+    Under a ``shard`` of more than one rank the tree holds this rank's
+    pieces (``shard.param_spec``): each JAX leaf's squares are summed over
+    the rank's pieces that it counts (a piece held by several ranks is
+    counted by one, ``Shard.counted``), the per-leaf sums are summed over
+    every rank in one all-reduce, then added in the tree's order."""
+    groups = jax_leaves(tree).values()
+    if shard.mesh.size == 1:
+        return torch.sqrt(sum(
+            sum(torch.sum(torch.square(tree[n].float())) for n in group) for group in groups))
+    dev = next(iter(tree.values())).device
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    sums = torch.stack([
+        sum((torch.sum(torch.square(tree[n].float())) if shard.counted(n) else zero
+             for n in group), zero)
+        for group in groups])
+    sums = shard.world_sum(sums)
+    return torch.sqrt(sum(sums.unbind()))
 
 
 def cosine_schedule(base_lr: float, warmup: int, total: int):
@@ -76,18 +91,23 @@ def adamw_update(
     eps: float = 1e-8,
     weight_decay: float = 0.1,
     clip_norm: float = 1.0,
+    shard: Shard = NO_SHARD,
 ) -> Tuple[Tree, Dict[str, object]]:
     """One AdamW step, in place on ``params`` and ``state``; returns them.
 
     ``lr`` is a float or a 0-dim tensor (see :func:`cosine_schedule`). The
-    update runs inside a profiler range named ``adamw_update``."""
+    update runs inside a profiler range named ``adamw_update``. Under a
+    ``shard`` every tree holds this rank's pieces, laid out alike
+    (``launch.sharding.opt_specs``): the clip reads the whole tree's norm
+    (:func:`global_norm`), and each piece is updated where it lies; the
+    ``step`` counter is replicated."""
     with torch.profiler.record_function("adamw_update"):
         step = state["step"]
         step.add_(1)
         stepf = step.float()
         bc1 = 1 - torch.pow(b1, stepf)
         bc2 = 1 - torch.pow(b2, stepf)
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, shard)
         scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
         for name, p in params.items():
             m, v = state["m"][name], state["v"][name]

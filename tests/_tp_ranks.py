@@ -34,15 +34,14 @@ def forward_rank(rank, cfg, tp, params, batch, max_seq, prompts, extras, tokens,
     torch.set_num_threads(1)
     from repro_torch import convert
     from repro_torch.launch import mesh as meshes
-    from repro_torch.launch.serve import _rows
-    from repro_torch.launch.sharding import shard_for
+    from repro_torch.launch.sharding import batch_rows, shard_for
     from repro_torch.models import lm
 
     _, _, dev = meshes.init_ranks("gloo", torch.device(device), f"file://{store}")
     shard = shard_for(cfg, meshes.make_local_mesh(tp, dev.type), ep_override=ep_override)
     model = convert.lm_params_from_numpy(params, cfg, dev, tp=tp, shard=shard)
     cache = lm.init_cache(cfg, batch, max_seq, tp=tp, device=dev, shard=shard)
-    rows = _rows(shard, batch)
+    rows = batch_rows(shard, batch)
     kw = {k: torch.from_numpy(v[rows]).to(dev) for k, v in extras.items()}
     step_stats = []
 

@@ -994,3 +994,48 @@ def test_two_ranks_on_one_card_serve_the_tokens_of_tp1(cuda, tmp_path, arch):
             np.testing.assert_allclose(got, w, rtol=1e-4, atol=1e-4 * scale)
         assert info["prefill_launches"]["flash_attention"] == cfg.n_layers
         assert (info["tp"], info["world"], info["backend"]) == (2, 2, "gloo")
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_fp32_product_under_autograd_matches_fp32_gradients(cuda, batched):
+    """The card's bf16 product into an fp32 result (``torch.mm(out_dtype=)``,
+    which has no derivative) under autograd (``layers._Fp32Product``): the
+    forward bit-equal to the bare op, and the bf16 gradients of both
+    operands within 1e-2 relative norm of the fp32 product's (the
+    backward's two bf16 products round the fp32 gradient once, at 2^-8)."""
+    from repro_torch.models import layers
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shape_a, shape_w = ((4, 96, 160), (4, 160, 72)) if batched else ((2, 48, 160), (160, 72))
+    a = torch.randn(shape_a, generator=gen, device="cuda").bfloat16().requires_grad_(True)
+    w = torch.randn(shape_w, generator=gen, device="cuda").bfloat16().requires_grad_(True)
+    g = torch.randn(shape_a[:-1] + shape_w[-1:], generator=gen, device="cuda")
+    y = layers._fp32_product(a, w)
+    assert y.dtype == torch.float32 and y.grad_fn is not None
+    assert torch.equal(y.detach(), layers._mm_fp32(a.detach(), w.detach()))
+    da, dw = torch.autograd.grad(y, (a, w), g)
+    a32, w32 = a.detach().float().requires_grad_(True), w.detach().float().requires_grad_(True)
+    ra, rw = torch.autograd.grad(torch.matmul(a32, w32), (a32, w32), g)
+    for got, want in ((da, ra), (dw, rw)):
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        assert ((got.float() - want).norm() / want.norm()).item() <= 1e-2
+
+
+def test_one_layer_tp_step_at_world1_over_nccl_is_bit_equal(cuda, tmp_path):
+    """``launch.train`` at world 1 over NCCL (a group of one rank, ``--tp
+    1``) on a one-layer reduced llama: the losses and the parameters after
+    three steps bit-equal to the run with no group."""
+    import dataclasses
+
+    import _train_ranks
+    from repro_torch.launch import mesh as meshes
+
+    cfg = dataclasses.replace(get_config("llama3.2-3b").reduced(), n_layers=1)
+    argv = ["--arch", "llama3.2-3b", "--steps", "3", "--batch", "2", "--seq", "32", "--lr", "1e-2",
+            "--device", "cuda"]
+    want, params = _train_ranks.train_and_params(argv, cfg)
+    ((losses, got),) = meshes.spawn(_train_ranks.card_train_rank, 1,
+                                    (str(tmp_path / "store"), argv, cfg), timeout=300)
+    assert losses == want
+    for n, p in params.items():
+        np.testing.assert_array_equal(got[n], p, err_msg=n)

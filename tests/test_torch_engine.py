@@ -155,16 +155,18 @@ def test_launch_prints_the_jax_lines(capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--arch", "llama3.2-3b", "--reduced", "--tp", "2"], "item 15"),
+    (["--arch", "rwkv6-7b", "--reduced", "--tp", "2"], "item 15"),
     (["--arch", "granite-moe-1b", "--reduced", "--steps", "2"], None),
 ])
 def test_launch_names_the_roadmap_item_for_unported_paths(argv, item, capsys):
     """What the port still lacks exits naming its ROADMAP.md item (the
     partition launcher has no such path left: graph files run, see
     test_launch_runs_graph_files_like_jax; serving and training run every
-    family, and serving runs tensor-parallel, see tests/test_torch_tp.py):
-    ``--tp > 1`` on the train launcher (item 15c). Training a non-dense
-    family (``item`` None) runs: two finite losses."""
+    family, serving runs tensor-parallel, and the dense, moe and vlm
+    families train over ranks, see tests/test_torch_tp.py and
+    tests/test_torch_tp_train.py): ``--tp > 1`` for an ssm family on the
+    train launcher (item 15f). Training a non-dense family (``item`` None)
+    runs: two finite losses."""
     from repro_torch.launch.train import main as train_main
 
     if item is None:

@@ -122,7 +122,7 @@ ROOT = SRC.parent
 CHIP_SCRIPTS = [
     "chip_smoke.py", "tools/time_flash_attention.py", "tools/time_segment_sum.py",
     "tools/time_partition.py", "tools/time_collectives.py", "tools/tp_readings.py",
-    "tools/tp_family_readings.py",
+    "tools/tp_family_readings.py", "tools/tp_train_readings.py",
 ]
 
 
@@ -135,7 +135,7 @@ def test_chip_scripts_import_no_jax_or_repro(script):
     assert any("repro_torch" in ln for ln in lines)
 
 
-@pytest.mark.parametrize("helper", ["_tp_ranks", "_graph_ranks"])
+@pytest.mark.parametrize("helper", ["_tp_ranks", "_graph_ranks", "_train_ranks"])
 def test_rank_helpers_import_with_jax_and_repro_blocked(helper):
     """The tests' rank functions run in spawned processes and on the card
     machine, which has no JAX: each helper imports, and runs its imports,

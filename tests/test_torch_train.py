@@ -401,7 +401,9 @@ def test_topk_compression_error_feedback_recovers_sum():
 
 
 def test_topk_compression_refuses_a_reduction_group():
-    with pytest.raises(NotImplementedError, match="item 15"):
+    """A reduction group needs a process group (tests/test_torch_tp_train.py
+    runs the group path over ranks against JAX's ``axis_name`` path)."""
+    with pytest.raises(ValueError, match="initialised process group"):
         topk_compress_allreduce({"w": torch.ones(3)}, {"w": torch.zeros(3)}, "data")
 
 
