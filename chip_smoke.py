@@ -68,13 +68,13 @@ Phases (any failure exits non-zero, and no result line is printed):
    top-2 margin exceeds that.
 8. The paper's comparison set through the registry, launch counts zeroed
    just before and read just after: ``hdrf`` and ``greedy`` on brain_like at
-   scale 0.15 (a depth cut that keeps the run inside its time limit with
+   scale 0.12 (a depth cut that keeps the run inside its time limit with
    phases 10 and 17), k = 32 (steps/s, µs per edge), each bit-equal to its numpy
    oracle; ``hash``, ``2ps-l`` (bit-equal to the numpy oracles of both
    phases), ``2ps`` (the same clustering phase) and
    ``adwise-restream`` with 2 passes at W = 256 (one ``window_score`` launch
    per step of each pass, pass 2 included; RD(ADWISE) below RD(hash)) at
-   scale 0.05 (``bench_total_latency.py``'s is 0.08: a depth cut for phase
+   scale 0.04 (``bench_total_latency.py``'s is 0.08: a depth cut for phase
    17's room); every partition run through 30
    pagerank supersteps on the card (``segment_sum``) and billed for
    pagerank_300. Then non-lazy ``adwise-restream`` (W = 64) and ``2ps`` on
@@ -96,7 +96,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    0.02, z = 4, spread 8), and a skewed batch of two length buckets
    against z = 1 runs; (d) the batched card against the batched CPU path
    (scale 0.005, non-lazy where the phase-3 rule asks); (e) a traced
-   ``adwise-restream`` run at scale 0.05 equal to phase 8's untraced run,
+   ``adwise-restream`` run at scale 0.04 equal to phase 8's untraced run,
    its Chrome trace export (``build/chip_smoke/trace.json``)
    validated, one scan span per scan call, two pass lanes, 30 superstep
    spans.
@@ -114,8 +114,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    z = 8 ADWISE, 30 ``segment_sum`` launches; ``hdrf`` at the same z from
    the file bit-equal to phase 9a's; (d) ``adwise-restream`` (2 passes,
    pass 2 adopting the ring: ``h2d_bytes == 12 m``), ``2ps``, ``2ps-l``,
-   ``dbh`` and ``hash`` at scale 0.05 from files (chunk 32,768), each
-   bit-equal to the in-memory run on the card; (e) at scale 0.05, ADWISE
+   ``dbh`` and ``hash`` at scale 0.04 from files (chunk 32,768), each
+   bit-equal to the in-memory run on the card; (e) at scale 0.04, ADWISE
    with prefetch 0 equal to prefetch 2, the latter traced: ``refill``
    total = ``h2d_wait_s``, ``stage`` total = ``prestage_wall_s``, one scan
    span per scan call, the export (``build/chip_smoke/oocore_trace.json``)
@@ -148,8 +148,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    rwkv6 none) and per decode step (whisper 4 ``wgmma``, the others none);
    prefill ms, decode ms per step, peak memory; then the same model again,
    a second prefill and decode steps under torch.profiler (busy time and
-   idle share); (b) each family at full width cut to 2 layers (zamba2 7,
-   its shared block after the 6th; whisper 2 + 2), fp32 (TF32 off), batch
+   idle share); (b) each family at full width cut in depth
+   (``FAMILY_PARITY_CUTS``: 2 layers, internvl and rwkv6 1, zamba2 3 with
+   its shared block after the 2nd; whisper 2 + 2), fp32 (TF32 off), batch
    1, prompt 128, 4 decode steps, on the card against the CPU from the
    same weights, logits within ``FAMILY_PARITY_TOL`` of their scale; for
    the MoE the tokens whose top-k experts differ between the devices are
@@ -161,16 +162,17 @@ Phases (any failure exits non-zero, and no result line is printed):
    (a); (b) bf16, random weights from seed 0, counts zeroed just before
    each run and read just after: granite-moe-1b-a400m (batch 1, seq 4,096)
    and whisper-tiny (batch 8, seq 448, 224 frames) at full depth through
-   ``launch.train.main``, internvl2-26b (6 of 48 layers; 4,096 tokens + 256
-   patches), zamba2-7b (39 of 81 layers: 6 applications of the shared
-   block and a 3-layer remainder) and rwkv6-7b (12 of 32 layers) at seq
+   ``launch.train.main``, internvl2-26b (3 of 48 layers; 4,096 tokens + 256
+   patches), zamba2-7b (13 of 81 layers: 2 applications of the shared
+   block and a 1-layer remainder) and rwkv6-7b (4 of 32 layers) at seq
    4,096 through ``build_state`` + ``make_step`` — depth cuts that keep each
-   at <= 3.6 B parameters; flash launches per step by body (48, 24, 12
-   ``wgmma``; 6 ``mma_sync``, the shared block not rematerialised; none)
+   at <= 3.6 B parameters (internvl's, zamba2's and rwkv6's deeper, for
+   the smoke's time); flash launches per step by body (48, 24, 6
+   ``wgmma``; 2 ``mma_sync``, the shared block not rematerialised; none)
    and attention backward calls, every gradient at the first step finite
    and non-zero, granite's MoE aux positive, the last loss below the first;
    step wall, tokens/s, the share of the bf16 peak and peak memory; (c)
-   each family cut to 2 full-width layers (zamba2 7, whisper 2 + 2) in fp32
+   each family cut in depth as in 12 (b) (``family_parity_cfg``) in fp32
    (TF32 off), batch 1, seq 128: one ``make_step`` on the card against
    ``loss_fn`` + ``backward()`` on the CPU from the same weights, the MoE's
    routes counted first, then the loss, the MoE aux and every gradient
@@ -223,7 +225,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    launches 4 a step), one decode merge per attention a step, each rank's
    peak memory below tp 1's; prefill ms, decode ms a step, peak GiB a
    rank, collectives a decode step; (b) each family's 2 full-width layers
-   (zamba2 7, whisper 2 + 2) in fp32, batch 1, prompt 128, 3 decode steps,
+   (``family_parity_cfg``: zamba2 3, rwkv6 1, whisper 2 + 2) in fp32, batch 1, prompt 128, 3 decode steps,
    at tp 2 against tp 1 within ``TPF_PARITY_TOL`` of the logits' scale;
    (c) with two cards, zamba2 at tp 2 over NCCL on cuda:0-1: (a)'s tokens
    (logged as not run on one card).
@@ -236,13 +238,18 @@ Phases (any failure exits non-zero, and no result line is printed):
    process and tp 1 in fp32: losses equal on both ranks and within the
    bf16 run's distance from fp32 of tp 1's, 4 flash launches a step, all
    ``wgmma``, at the rank's local heads (12 under TP); step ms, tokens/s,
-   peak a rank, collectives a step; (b) granite-moe-1b-a400m at full width
+   peak a rank, collectives a step; the same for whisper-tiny at full
+   width and depth, bf16, 8 × 448 with 224 frames (24 ``wgmma`` launches a
+   step: encoder, decoder self- and cross-attention at 3 heads a rank
+   under TP, 4 rows under FSDP); (b) granite-moe-1b-a400m at full width
    cut to 2 layers, fp32, capacity factor 1.0, one step at 2 × 512 (EP on
    (1, 2), the whole-batch plan on (2, 1)): every MoE call's routes and
    expert loads equal to tp 1's, pairs dropped, the first MoE output and
    the loss within ``TPT_GRAD_TOL`` / ``TPT_LOSS_TOL``; (c) two full-width
-   fp32 layers of llama, granite and internvl, a training step at 2 × 128
-   without remat (granite two): the losses, the first gradient's global norm (within
+   fp32 layers of llama and granite, and internvl2-26b and rwkv6-7b (1
+   layer), zamba2-7b (3 layers, the shared block after the 2nd) and
+   whisper-tiny (4 + 4) at full width in fp32 (``tpt_grad_cfg``), a training step at
+   2 × 128 without remat (granite two): the losses, the first gradient's global norm (within
    ``TPT_NORM_TOL``) and every leaf of it (norm and 4 random sketches)
    within ``TPT_GRAD_TOL`` of its norm,
    every leaf's two-step update within ``TPT_UPDATE_TOL``
@@ -880,9 +887,9 @@ def phase_profile(k):
 # The window of bench_total_latency.py's adwise-restream rows at W = 256
 # (benchmarks/common.py: window_init = W // 4), and its default scale.
 RESTREAM_CFG = dict(passes=2, window_max=256, window_init=64)
-# The restreaming set's scale: bench_total_latency.py's 0.08, cut to 0.05 for
+# The restreaming set's scale: bench_total_latency.py's 0.08, cut to 0.04 for
 # the smoke's time limit (phases 8, 9 e and 10 d run it).
-BENCH_SCALE = 0.05
+BENCH_SCALE = 0.04
 
 
 def profile_per_edge(run, m_short: int, m_long: int) -> tuple[float, float]:
@@ -921,7 +928,7 @@ def bill(name, res, edges, n, k, graph):
                 wall_s=res.stats["wall_time_s"], t_partition_s=t_part, t_process_s=t_proc)
 
 
-SINGLE_EDGE_SCALE = 0.15  # phase 8's hdrf / greedy: one torch step per edge
+SINGLE_EDGE_SCALE = 0.12  # phase 8's hdrf / greedy: one torch step per edge
 
 
 def phase_comparison(k):
@@ -1262,7 +1269,7 @@ OOC_CHUNK_SMALL = 32768  # phase 10(d): B = 49,152 rows >= m, so restream adopts
 OOC_FILE_SCALE = 0.3
 # Phase 10(e)'s scale (a depth cut): its stream still wraps the 12,288-row
 # ring of the 8,192-row chunk.
-OOC_PREFETCH_SCALE = 0.05
+OOC_PREFETCH_SCALE = 0.04
 
 
 def ooc_dir() -> str:
@@ -1613,8 +1620,8 @@ def phase_flash():
     measure("whisper cross tp 2 rank", (4, 3, 3, 448, 224, 64), torch.bfloat16, causal=False)
     # Phase 17's launches, under autograd: each of its runs at each mesh's
     # rank heads (wgmma in bf16, fma in fp32). Checked once, not timed plain.
-    for tag, shape, dtype in tpt_flash_shapes():
-        measure(tag, shape, getattr(torch, dtype), time_plain=False)
+    for tag, shape, dtype, causal in tpt_flash_shapes():
+        measure(tag, shape, getattr(torch, dtype), causal=causal, time_plain=False)
     return row
 
 
@@ -2236,20 +2243,29 @@ def phase_families():
     return total
 
 
+# The depth of phases 12 (b), 13 (c), 16 (b) and 17 (c) where it is not 2
+# layers (whisper: 2 encoder and 2 decoder layers), cut for the smoke's
+# time: internvl and rwkv6 one layer (the CPU's fp32 work grows with their
+# 6,144- and 4,096-wide layers; each layer runs the same code); zamba2 3
+# with the shared block after the 2nd (one application, then a one-layer
+# remainder).
+FAMILY_PARITY_CUTS = {"internvl2-26b": dict(n_layers=1), "rwkv6-7b": dict(n_layers=1),
+                      "zamba2-7b": dict(n_layers=3, shared_every=2)}
+
+
 def family_parity_cfg(arch, dtype="float32"):
-    """``arch`` at full width cut to 2 layers (the hybrid to
-    ``shared_every`` + 1, so its shared block runs after the 6th and a
-    remainder layer follows; whisper to 2 encoder and 2 decoder layers), in
-    ``dtype``: the depth of phases 12 (b) and 13 (c)."""
+    """``arch`` at full width cut to 2 layers or its ``FAMILY_PARITY_CUTS``
+    (whisper to 2 encoder and 2 decoder layers), in ``dtype``: the depth of
+    phases 12 (b), 13 (c), 16 (b) and 17 (c)."""
     import dataclasses
 
     from repro_torch.configs import get_config
 
     base = get_config(arch)
-    cut = dict(n_layers=base.shared_every + 1 if base.family == "hybrid" else 2, dtype=dtype)
+    cut = dict(n_layers=2, dtype=dtype)
     if base.family == "encdec":
         cut["n_enc_layers"] = 2
-    return dataclasses.replace(base, **cut)
+    return dataclasses.replace(base, **(cut | FAMILY_PARITY_CUTS.get(arch, {})))
 
 
 def family_models(cfg, *copies):
@@ -2447,10 +2463,13 @@ FAMILY_TRAIN_ATTN_SHAPES = [
 # by body, attention backward calls per step. The cuts keep each model at
 # <= 3.6 B parameters: AdamW's fp32 moments and the fp32 residual take 12 B
 # a parameter beside 2 each for the bf16 weights and gradients, and
-# Llama-3.2-3B's 3.21 B peaked at 52.4 GiB in phase 11. Zamba2 keeps 6
-# applications of its shared block and a 3-layer remainder. The peak rates
+# Llama-3.2-3B's 3.21 B peaked at 52.4 GiB in phase 11. Internvl keeps 3
+# layers, zamba2 2 applications of its shared block and a 1-layer
+# remainder, rwkv6 4 layers (cut for the smoke's time: each layer runs the
+# same code, and phase 17 trains each family again). The peak rates
 # of the cut runs come from a sweep under this schedule over 6 steps (NVIDIA
-# H100 80GB HBM3 at 700 W): at 1e-3 internvl's loss climbed 11.94 -> 12.48
+# H100 80GB HBM3 at 700 W; internvl, zamba2 and rwkv6 then at 6, 39 and 12
+# layers): at 1e-3 internvl's loss climbed 11.94 -> 12.48
 # before it fell and rwkv6's wandered, so both take 3e-4 (falls of 0.96 and
 # 0.71); zamba2's moves slowly at any rate (3e-4 rose 0.016, 1e-3 fell
 # 0.026, 3e-3 fell 0.074), so it takes 3e-3. Granite's bf16 routes, and so
@@ -2461,9 +2480,9 @@ FAMILY_TRAIN_ATTN_SHAPES = [
 FAMILY_TRAIN_RUNS = [
     ("granite-moe-1b-a400m", 1, TRAIN_SEQ, None, 10, 2e-3, {"wgmma": 48}, 24),
     ("whisper-tiny", 8, 448, None, 6, 1e-3, {"wgmma": 24}, 12),
-    ("internvl2-26b", 1, TRAIN_SEQ, dict(n_layers=6), 6, 3e-4, {"wgmma": 12}, 6),
-    ("zamba2-7b", 1, TRAIN_SEQ, dict(n_layers=39), 6, 3e-3, {"mma_sync": 6}, 6),
-    ("rwkv6-7b", 1, TRAIN_SEQ, dict(n_layers=12), 6, 3e-4, {}, 0),
+    ("internvl2-26b", 1, TRAIN_SEQ, dict(n_layers=3), 6, 3e-4, {"wgmma": 6}, 3),
+    ("zamba2-7b", 1, TRAIN_SEQ, dict(n_layers=13), 6, 3e-3, {"mma_sync": 2}, 2),
+    ("rwkv6-7b", 1, TRAIN_SEQ, dict(n_layers=4), 6, 3e-4, {}, 0),
 ]
 
 
@@ -2643,7 +2662,7 @@ FAMILY_BF16_TOL = {
 
 
 def phase_family_train_parity():
-    """(c) Each family at full width cut to 2 layers (``family_parity_cfg``),
+    """(c) Each family at full width cut in depth (``family_parity_cfg``),
     batch 1, seq 128 (+ 256 patches; 64 frames, from ``SyntheticTokens``),
     from the same weights (seed 0 drawn in bf16, which fp32 holds exactly):
     ``loss_fn`` + ``backward()`` on the CPU in fp32 (what the step runs
@@ -3451,7 +3470,7 @@ TPF_RUNS = [
     ("rwkv6-7b", 4, 4, 512),
     ("zamba2-7b", 13, 4, 512),
 ]
-# (b): each family's 2 full-width layers (``family_parity_cfg``) in fp32,
+# (b): each family's full-width layers of ``family_parity_cfg`` in fp32,
 # batch 1, prompt 128 (whisper: 64 frames), 3 decode steps; prompt + gen
 # divides by 4, so whisper's cross cache (half the length) splits over 2.
 TPF_PARITY_PROMPT, TPF_PARITY_GEN = 128, 4
@@ -3692,16 +3711,27 @@ TPT_ARGS = ["--arch", "llama3.2-3b", "--batch", str(TPT_BATCH), "--seq", str(TPT
 TPT_MOE_LAYERS, TPT_MOE_CF = 2, 1.0
 TPT_MOE_ARGS = ["--arch", "granite-moe-1b-a400m", "--batch", "2", "--seq", "512", "--steps", "1",
                 "--lr", "3e-4", "--seed", "0"]
-# (c) two full-width fp32 layers of each (the depth of phases 12 b and 13
-# c), ``TPT_GRAD_STEPS`` training steps at 2 x 128 at a constant lr without
+# (a) also: whisper-tiny at full width and depth (4 encoder and 4 decoder
+# layers, 6 heads of 64: 3 a rank under TP), bf16, 8 x 448 with 224 frames
+# (phase 13's shape), 3 steps through ``launch.train.main``.
+TPT_WHISPER_ARGS = ["--arch", "whisper-tiny", "--batch", "8", "--seq", "448", "--steps",
+                    str(TPT_STEPS), "--lr", "3e-4", "--seed", "0"]
+# (c) full-width fp32 layers of each at the depth of phases 12 b and 13 c
+# (``family_parity_cfg``: 2 layers, internvl 1), ``TPT_GRAD_STEPS`` training steps at 2 x 128 at a constant lr without
 # remat (FSDP then gathers each block once; (a) runs the launcher's remat
 # path), compared leaf by leaf through sketches (``tpt_sketch``): the first
 # step's gradient, and the steps' update. granite takes a second step, which
 # reads the moments the first wrote (AdamW on pieces is the same code for
 # every family); llama's and internvl's FSDP steps move their fp32
-# embeddings' gradients (1.6 and 2.3 GB) through gloo, seconds each.
-TPT_GRAD_ARCHS = ["llama3.2-3b", "granite-moe-1b-a400m", "internvl2-26b"]
+# embeddings' gradients (1.6 and 2.3 GB) through gloo, seconds each. The
+# ssm, hybrid and encdec families too: rwkv6 1 layer (its untied fp32
+# embedding and head are 2.1 GB) and zamba2 3 layers with the shared block
+# after the 2nd, as ``family_parity_cfg`` cuts them; whisper at full depth
+# (4 + 4 layers, ``TPT_GRAD_CUTS``).
+TPT_GRAD_ARCHS = ["llama3.2-3b", "granite-moe-1b-a400m", "internvl2-26b", "rwkv6-7b", "zamba2-7b",
+                  "whisper-tiny"]
 TPT_GRAD_STEPS = {"llama3.2-3b": 1, "granite-moe-1b-a400m": 2, "internvl2-26b": 1}
+TPT_GRAD_CUTS = {"whisper-tiny": dict(n_layers=4, n_enc_layers=4)}
 TPT_GRAD_BATCH, TPT_GRAD_SEQ, TPT_GRAD_LR = 2, 128, 1e-3
 TPT_SKETCHES = 4
 # fp32 at tp 2 (TP or FSDP) against tp 1 on the card: the losses, the
@@ -3725,7 +3755,7 @@ TPT_NORM_TOL = 1e-5
 # AdamW's update is nearly invariant to the gradient's scale, so the clip's
 # norm is held by the norm check instead.
 TPT_UPDATE_TOL = 1e-2
-TPT_TIMEOUT = 300.0
+TPT_TIMEOUT = 420.0
 # the meshes of phase 17: (data, model)
 TPT_MESHES = [(1, 2), (2, 1)]
 
@@ -3739,23 +3769,53 @@ def tpt_moe_cfg():
     return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=TPT_MOE_CF))
 
 
+def tpt_grad_cfg(arch):
+    """(c)'s config of ``arch``: full-width fp32 layers at
+    ``family_parity_cfg``'s depth, or its ``TPT_GRAD_CUTS``."""
+    import dataclasses
+
+    return dataclasses.replace(family_parity_cfg(arch), **TPT_GRAD_CUTS.get(arch, {}))
+
+
+def tpt_rank_attn(cfg, b, t, dp, tp):
+    """((B, Hq, Hkv, Tq, Tk, Dh), causal) of each kind of ``flash_attention``
+    launch one rank of a (dp, tp) mesh makes in a training step of ``cfg``
+    at batch ``b``, ``t`` tokens (the 'shard' head policy: a rank's heads
+    and KV heads; the batch's rows by data coordinate): the causal
+    self-attention (over the vlm's patches too; the hybrid's shared block);
+    whisper's encoder over its t // 2 frames and cross-attention onto them,
+    non-causal; none in RWKV-6."""
+    h, kv, _ = cfg.padded_heads(tp)
+    lead = (b // dp, h // tp, kv // tp)
+    t += cfg.vlm_patches if cfg.family == "vlm" else 0
+    if cfg.family == "ssm":
+        return []
+    out = [(lead + (t, t, cfg.d_head), True)]
+    if cfg.family == "encdec":
+        te = t // 2
+        out += [(lead + (te, te, cfg.d_head), False), (lead + (t, te, cfg.d_head), False)]
+    return out
+
+
 def tpt_flash_shapes():
-    """(tag, (B, Hq, Hkv, Tq, Tk, Dh), dtype name) of each ``flash_attention``
-    launch a run of phase 17 makes at one rank (all causal): (a) llama in
-    bf16 at 2 x 512, (b) granite in fp32 at 2 x 512, (c) each of its archs in
-    fp32 at 2 x 128 (the vlm's patches before the text), at tp 1 (the (d)
-    runs' shapes) and on each of ``TPT_MESHES``."""
+    """(tag, (B, Hq, Hkv, Tq, Tk, Dh), dtype name, causal) of each kind of
+    ``flash_attention`` launch a run of phase 17 makes at one rank, each
+    once: (a) llama and whisper in bf16 at 2 x 512 and 8 x 448, (b) granite
+    in fp32 at 2 x 512, (c) each of its archs in fp32 at 2 x 128
+    (``tpt_rank_attn``), at tp 1 (the (d) runs' shapes) and on each of
+    ``TPT_MESHES``."""
     runs = [("(a) llama3.2-3b", tpf_cfg("llama3.2-3b", TPT_LAYERS), TPT_BATCH, TPT_SEQ),
+            ("(a) whisper-tiny", tpf_cfg("whisper-tiny"), 8, 448),
             ("(b) granite-moe-1b-a400m", tpt_moe_cfg(), 2, 512)]
-    runs += [(f"(c) {arch}", family_parity_cfg(arch), TPT_GRAD_BATCH, TPT_GRAD_SEQ)
+    runs += [(f"(c) {arch}", tpt_grad_cfg(arch), TPT_GRAD_BATCH, TPT_GRAD_SEQ)
              for arch in TPT_GRAD_ARCHS]
-    out = []
+    out, seen = [], set()
     for tag, cfg, b, t in runs:
-        t += cfg.vlm_patches if cfg.family == "vlm" else 0
         for dp, tp in [(1, 1)] + TPT_MESHES:
-            h, kv, _ = cfg.padded_heads(tp)
-            out.append((f"tp train {tag} ({dp}, {tp}) rank",
-                        (b // dp, h // tp, kv // tp, t, t, cfg.d_head), cfg.dtype))
+            for shape, causal in tpt_rank_attn(cfg, b, t, dp, tp):
+                if (shape, cfg.dtype, causal) not in seen:
+                    seen.add((shape, cfg.dtype, causal))
+                    out.append((f"tp train {tag} ({dp}, {tp}) rank", shape, cfg.dtype, causal))
     return out
 
 
@@ -3858,8 +3918,9 @@ def tpt_step(cfg, tp=None):
     clip calls) and each leaf's sketches — the first step's gradient's, and
     the steps' update's, the latter as the difference of the parameters'
     sketches over ranks (no copy of the parameters: both ranks' state
-    shares the card), with its exact norm on one rank — an empty MoE
-    record). A second step reads the moments the first wrote."""
+    shares the card), with its exact norm on one rank — each step's wall
+    (host clock to the loss's sync) and the peak memory the call added, an
+    empty MoE record). A second step reads the moments the first wrote."""
     import torch
 
     from repro_torch.configs.base import ShapeConfig
@@ -3872,6 +3933,8 @@ def tpt_step(cfg, tp=None):
     from repro_torch.optim import adamw
 
     dev = torch.device("cuda", torch.cuda.current_device())
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     shard = NO_SHARD
     if tp is not None:
         shard = sharding.shard_for(cfg, meshes.make_local_mesh(tp, "cuda"), mode="train")
@@ -3882,8 +3945,10 @@ def tpt_step(cfg, tp=None):
     before = (tpt_state_sketch(model, sharded) if sharded is not None
               else {n: p.detach().float().clone() for n, p in params.items()})
     data = SyntheticTokens(cfg, ShapeConfig("tpt", TPT_GRAD_SEQ, TPT_GRAD_BATCH, "train"), seed=0)
+    walls = []
 
     def step(i):
+        t0 = time.perf_counter()
         batch = {k: torch.as_tensor(v[rows]).to(dev) for k, v in data.batch_at(i).items()}
         for p in params.values():
             p.grad = None
@@ -3892,7 +3957,9 @@ def tpt_step(cfg, tp=None):
         lm.reduce_grads(model, shard)
         adamw.adamw_update({n: p.grad for n, p in params.items()}, state["opt"], params,
                            TPT_GRAD_LR, shard=shard)
-        return loss.item()
+        loss = loss.item()  # the device sync that ends the step
+        walls.append(time.perf_counter() - t0)
+        return loss
 
     with FlashShapes() as fl:
         ops.reset_launch_counts()
@@ -3906,6 +3973,7 @@ def tpt_step(cfg, tp=None):
         losses += [step(i) for i in range(1, TPT_GRAD_STEPS.get(cfg.name, 1))]
         info["counts"] = ops.launch_counts()
     info["flash_keys"] = sorted(set(fl.keys))
+    info["step_s"], info["peak_bytes"] = walls, torch.cuda.max_memory_allocated() - base
     if sharded is None:
         after = {n: x for n, (_, x) in tpt_state_sketch(model, before=before).items()}
     else:
@@ -3918,13 +3986,14 @@ def tpt_step(cfg, tp=None):
 
 
 def tpt_jobs(tp, backend, store):
-    """The runs of one rank of phase 17 at ``--tp tp`` (world 2): (a) and
-    (b) through the launcher, then each of (c), as (kind, argv or tp,
-    cfg)."""
+    """The runs of one rank of phase 17 at ``--tp tp`` (world 2): (a)'s
+    llama and whisper and (b) through the launcher, then each of (c), as
+    (kind, argv or tp, cfg)."""
     dist = ["--tp", str(tp), "--dist-backend", backend, "--dist-init", f"file://{store}"]
     jobs = [("main", TPT_ARGS + dist, tpf_cfg("llama3.2-3b", TPT_LAYERS)),
+            ("main", TPT_WHISPER_ARGS + dist, tpf_cfg("whisper-tiny")),
             ("main", TPT_MOE_ARGS + dist, tpt_moe_cfg())]
-    jobs += [("step", tp, family_parity_cfg(arch)) for arch in TPT_GRAD_ARCHS]
+    jobs += [("step", tp, tpt_grad_cfg(arch)) for arch in TPT_GRAD_ARCHS]
     return jobs
 
 
@@ -4067,16 +4136,20 @@ def phase_tp_train(pending=None):
     started while tp 1 runs; joined with a timeout): step ms,
     tokens/s, peak a rank, collectives a step; flash launches a step by
     body, ``wgmma`` at 12 local heads under TP; losses equal on both ranks
-    and within the bf16 run's distance from fp32 of tp 1's. (b)
+    and within the bf16 run's distance from fp32 of tp 1's; the same for
+    whisper-tiny (full width and depth, bf16, 8 x 448, 224 frames, 3 steps;
+    wgmma at 3 local heads under TP: encoder, self- and cross-attention).
+    (b)
     granite-moe-1b-a400m (2 of 24 layers, full width, fp32, capacity factor
     1.0), one step at 2 x 512, at tp 1 and in the same ranks (EP on (1, 2), the whole-batch
     plan on (2, 1)): every MoE call's routes and expert loads (so its
     dropped pairs) equal to tp 1's, the loss within ``TPT_LOSS_TOL``. (c)
-    Two full-width fp32 layers of llama, granite and internvl, a training
-    step at 2 x 128 (``tpt_step``; granite two): the losses, the gradient's
-    global norm, every gradient leaf and each leaf's update against tp 1's
-    (sketches); every flash launch of the ranks and of (d) at a shape phase
-    5 holds to the plain version. (d) NCCL at world 1: (a)'s losses and
+    Full-width fp32 layers of llama, granite, internvl, rwkv6, zamba2 and
+    whisper at ``tpt_grad_cfg``'s depths, a training step at 2 x 128
+    (``tpt_step``; granite two): the losses, the gradient's global norm,
+    every gradient leaf and each leaf's update against tp 1's (sketches);
+    every flash launch of the ranks and of (d) at a shape phase 5 holds to
+    the plain version. (d) NCCL at world 1: (a)'s losses and
     (c)'s llama sketches bit-equal to the run with no group (in this
     process, while the ranks start); with two cards, (a) at tp 2 over NCCL
     on cuda:0-1. ``pending``: the ranks ``tpt_start`` spawned ahead (else
@@ -4087,6 +4160,7 @@ def phase_tp_train(pending=None):
     import torch
 
     from repro_torch.launch import mesh as meshes
+    from repro_torch.models import lm
 
     card = card_line()
     total = {}
@@ -4102,11 +4176,13 @@ def phase_tp_train(pending=None):
     pending = pending or tpt_start()
     jobs, go, pool, spawned = pending["jobs"], pending["go"], pending["pool"], pending["future"]
     try:
-        llama = tpf_cfg("llama3.2-3b", TPT_LAYERS)
+        llama, whisper = tpf_cfg("llama3.2-3b", TPT_LAYERS), tpf_cfg("whisper-tiny")
         ref_a = tpt_train(TPT_ARGS, llama)
         fine_a = tpt_train(TPT_ARGS, tpf_cfg("llama3.2-3b", TPT_LAYERS, "float32"))
+        ref_w = tpt_train(TPT_WHISPER_ARGS, whisper)
+        fine_w = tpt_train(TPT_WHISPER_ARGS, tpf_cfg("whisper-tiny", None, "float32"))
         ref_b = tpt_train(TPT_MOE_ARGS, tpt_moe_cfg())
-        ref_c = {arch: tpt_step(family_parity_cfg(arch)) for arch in TPT_GRAD_ARCHS}
+        ref_c = {arch: tpt_step(tpt_grad_cfg(arch)) for arch in TPT_GRAD_ARCHS}
         log(f"tp train: tp 1 runs {time.perf_counter() - t0:.1f}s")
         # (d) here too, while the ranks start: a group of one rank over NCCL
         t1 = time.perf_counter()
@@ -4128,15 +4204,16 @@ def phase_tp_train(pending=None):
         f"anything before the phase included), {time.perf_counter() - t0:.1f}s in this phase")
     floor = max(abs(a - b) for a, b in zip(ref_a[0], fine_a[0]))
     loss_tol = max(floor, 1e-4)
+    floor_w = max(abs(a - b) for a, b in zip(ref_w[0], fine_w[0]))
     n_jobs = len(jobs[0])
     runs = {mesh: [rank_runs[i * n_jobs:(i + 1) * n_jobs] for rank_runs in ranks]
             for i, mesh in enumerate(TPT_MESHES)}
     walls = ranks[0][0][1]["walls_s"]
     log("tp train: rank 0's walls (s): warm-up step " + f"{walls[0]:.1f}, then "
         + ", ".join(f"{mesh} {what} {w:.1f}" for (mesh, what), w in zip(
-            [(m, w) for m in TPT_MESHES for w in ["(a)", "(b)"] + [f"(c) {a}" for a in TPT_GRAD_ARCHS]],
+            [(m, w) for m in TPT_MESHES for w in ["(a)", "(a) whisper", "(b)"]
+             + [f"(c) {a}" for a in TPT_GRAD_ARCHS]],
             walls[1:])))
-    h, kv, _ = llama.padded_heads(2)
     launched = set()  # (q shape, k shape, dtype, causal) of the ranks' and (d)'s flash launches
     for (dp, tp), ranks in runs.items():
         what = f"({dp}, {tp})"
@@ -4144,38 +4221,51 @@ def phase_tp_train(pending=None):
             for _, info, _ in rank_runs:
                 add(info["counts"])
                 launched.update(info["flash_keys"])
-        # (a)
-        for r, rank_runs in enumerate(ranks):
-            losses, info, _ = rank_runs[0]
-            check(info["rank_losses"] == [losses, losses],
-                  f"tp train (a) {what} rank {r}: the losses equal on both ranks")
-            check(len(losses) == TPT_STEPS and np.isfinite(losses).all(), f"tp train (a) {what}: finite losses")
-            diff = max(abs(a - b) for a, b in zip(losses, ref_a[0]))
-            check(diff <= loss_tol, f"tp train (a) {what}: losses within the bf16 run's distance from "
-                                    f"fp32 of tp 1's ({diff:.5f} <= {loss_tol:.5f})")
-            n = 2 * llama.n_layers
-            check(all(b.get("wgmma", 0) == n and sum(b.values()) == n for b in info["flash_bodies"]),
-                  f"tp train (a) {what} rank {r}: {n} flash launches a step, all wgmma")
-            local = ((TPT_BATCH // dp, h // tp, TPT_SEQ, llama.d_head),
-                     (TPT_BATCH // dp, kv // tp, TPT_SEQ, llama.d_head))
-            check(info["flash_shapes"] == [local],
-                  f"tp train (a) {what} rank {r}: flash at {info['flash_shapes']} == {[local]}")
-            if r == 0:
-                coll = info["collectives"][-1]
-                log(f"tp train (a) llama3.2-3b ({llama.n_layers} layers) mesh {what} gloo B={TPT_BATCH} "
-                    f"seq={TPT_SEQ} [{card}]: losses={[round(x, 5) for x in losses]} (tp 1: "
-                    f"{[round(x, 5) for x in ref_a[0]]}; fp32: {[round(x, 5) for x in fine_a[0]]}; "
-                    f"bf16 floor {floor:.5f}) step_ms={[round(s * 1e3, 3) for s in info['step_s']]} "
-                    f"(tp 1: {[round(s * 1e3, 3) for s in ref_a[1]['step_s']]}) tokens_per_s="
-                    f"{TPT_BATCH * TPT_SEQ / min(info['step_s']):.1f} (tp 1: "
-                    f"{TPT_BATCH * TPT_SEQ / min(ref_a[1]['step_s']):.1f}) peak_GiB per rank="
-                    f"{[round(x / 2**30, 3) for x in info['peak_bytes_per_rank']]} (tp 1: "
-                    f"{ref_a[1]['peak_bytes'] / 2**30:.3f}) flash a step={info['flash_bodies'][-1]} "
-                    f"shapes={info['flash_shapes']}")
-                log(f"tp train (a) mesh {what} collectives a step (count, bytes a rank): "
-                    + ", ".join(f"{op} {n_} {nb}" for op, (n_, nb) in sorted(coll.items())))
+        # (a): llama, whisper
+        for j, cfg, ref, fine, tol, b, t in ((0, llama, ref_a, fine_a, loss_tol, TPT_BATCH, TPT_SEQ),
+                                            (1, whisper, ref_w, fine_w, max(floor_w, 1e-4), 8, 448)):
+            arch = cfg.name
+            n = lm.attention_calls(cfg)[0]
+            local = sorted(((bq, hq, tq, dh), (bq, hkv, tk, dh))
+                           for (bq, hq, hkv, tq, tk, dh), _ in tpt_rank_attn(cfg, b, t, dp, tp))
+            for r, rank_runs in enumerate(ranks):
+                losses, info, _ = rank_runs[j]
+                check(info["rank_losses"] == [losses, losses],
+                      f"tp train (a) {arch} {what} rank {r}: the losses equal on both ranks")
+                check(len(losses) == TPT_STEPS and np.isfinite(losses).all(),
+                      f"tp train (a) {arch} {what}: finite losses")
+                diff = max(abs(x - y) for x, y in zip(losses, ref[0]))
+                check(diff <= tol, f"tp train (a) {arch} {what}: losses within the bf16 run's distance "
+                                   f"from fp32 of tp 1's ({diff:.5f} <= {tol:.5f})")
+                check(all(bd.get("wgmma", 0) == n and sum(bd.values()) == n for bd in info["flash_bodies"]),
+                      f"tp train (a) {arch} {what} rank {r}: {n} flash launches a step, all wgmma")
+                check(info["flash_shapes"] == local,
+                      f"tp train (a) {arch} {what} rank {r}: flash at {info['flash_shapes']} == {local}")
+                ops = set(info["collectives"][0]) - {"world_all_reduce_sum"}  # the clip's norm
+                need, allowed = (({"all_reduce_sum"}, {"all_reduce_sum", "all_gather"}) if tp > 1 else
+                                 ({"data_all_gather", "data_reduce_scatter"},
+                                  {"data_all_gather", "data_reduce_scatter", "data_all_reduce_sum"}))
+                check(all(c == info["collectives"][0] for c in info["collectives"])
+                      and need <= ops <= allowed,
+                      f"tp train (a) {arch} {what} rank {r}: the same collectives every step, over "
+                      f"the mesh's groups only ({sorted(ops)})")
+                check(all(p < ref[1]["peak_bytes"] for p in info["peak_bytes_per_rank"]),
+                      f"tp train (a) {arch} {what}: each rank's peak memory below tp 1's")
+                if r == 0:
+                    coll = info["collectives"][-1]
+                    log(f"tp train (a) {arch} ({cfg.n_layers} layers) mesh {what} gloo B={b} seq={t} "
+                        f"[{card}]: losses={[round(x, 5) for x in losses]} (tp 1: "
+                        f"{[round(x, 5) for x in ref[0]]}; fp32: {[round(x, 5) for x in fine[0]]}; "
+                        f"bf16 floor {tol:.5f}) step_ms={[round(x * 1e3, 3) for x in info['step_s']]} "
+                        f"(tp 1: {[round(x * 1e3, 3) for x in ref[1]['step_s']]}) tokens_per_s="
+                        f"{b * t / min(info['step_s']):.1f} (tp 1: {b * t / min(ref[1]['step_s']):.1f}) "
+                        f"peak_GiB per rank={[round(x / 2**30, 3) for x in info['peak_bytes_per_rank']]} "
+                        f"(tp 1: {ref[1]['peak_bytes'] / 2**30:.3f}) flash a step="
+                        f"{info['flash_bodies'][-1]} shapes={info['flash_shapes']}")
+                    log(f"tp train (a) {arch} mesh {what} collectives a step (count, bytes a rank): "
+                        + ", ".join(f"{op} {n_} {nb}" for op, (n_, nb) in sorted(coll.items())))
         # (b)
-        got = [rank_runs[1] for rank_runs in ranks]
+        got = [rank_runs[2] for rank_runs in ranks]
         m = tpt_moe_check(ref_b[2], got, dp, what)
         loss_b = got[0][0][0]
         log(f"tp train (b) granite-moe-1b-a400m ({TPT_MOE_LAYERS} layers, fp32) mesh {what}: "
@@ -4190,10 +4280,10 @@ def phase_tp_train(pending=None):
               f"tp train (b) {what}: the loss within {TPT_LOSS_TOL} of tp 1's")
         # (c)
         for i, arch in enumerate(TPT_GRAD_ARCHS):
-            out = [rank_runs[2 + i] for rank_runs in ranks]
+            out = [rank_runs[3 + i] for rank_runs in ranks]
             losses, losses1 = out[0][0], ref_c[arch][0]
-            check(len(losses) == len(losses1) == TPT_GRAD_STEPS[arch],
-                  f"tp train (c) {arch} {what}: {TPT_GRAD_STEPS[arch]} steps run")
+            check(len(losses) == len(losses1) == TPT_GRAD_STEPS.get(arch, 1),
+                  f"tp train (c) {arch} {what}: {TPT_GRAD_STEPS.get(arch, 1)} steps run")
             check(all(o[0] == losses for o in out), f"tp train (c) {arch} {what}: the losses equal on both ranks")
             for j, (loss, loss1) in enumerate(zip(losses, losses1)):
                 check(abs(loss - loss1) <= TPT_LOSS_TOL * abs(loss1),
@@ -4206,12 +4296,19 @@ def phase_tp_train(pending=None):
             check(norm_err <= TPT_NORM_TOL, f"tp train (c) {arch} {what}: the gradient's global norm "
                                             f"{norm:.6f} within {TPT_NORM_TOL} of tp 1's {norm1:.6f}")
             worst = tpt_grad_check(arch, ref_c[arch][1]["sketch"], [o[1]["sketch"] for o in out], what)
-            log(f"tp train (c) {arch} (2 layers, fp32, {len(losses)} steps) mesh {what}: losses="
-                f"{[round(x, 6) for x in losses]} (tp 1 {[round(x, 6) for x in losses1]}) global norm "
+            layers = tpt_grad_cfg(arch).n_layers
+            step_s, step1_s = out[0][1]["step_s"], ref_c[arch][1]["step_s"]
+            tokens = TPT_GRAD_BATCH * TPT_GRAD_SEQ
+            log(f"tp train (c) {arch} ({layers} layers, fp32, {len(losses)} steps) mesh {what} [{card}]: "
+                f"losses={[round(x, 6) for x in losses]} (tp 1 {[round(x, 6) for x in losses1]}) global norm "
                 f"{norm:.6f} (tp 1 {norm1:.6f}, relative error {norm_err:.3e}); worst gradient / update "
                 f"error over {len(ref_c[arch][1]['sketch'])} leaves, relative to the leaf's norm: "
-                f"{worst[0]:.3e} / {worst[1]:.3e}; collectives a step: "
-                + ", ".join(f"{op} {n_}" for op, (n_, _) in sorted(out[0][1]["collectives"].items())))
+                f"{worst[0]:.3e} / {worst[1]:.3e}; step_ms={[round(x * 1e3, 3) for x in step_s]} (tp 1: "
+                f"{[round(x * 1e3, 3) for x in step1_s]}) tokens_per_s={tokens / min(step_s):.1f} (tp 1: "
+                f"{tokens / min(step1_s):.1f}) peak_GiB per rank="
+                f"{[round(o[1]['peak_bytes'] / 2**30, 3) for o in out]} (tp 1: "
+                f"{ref_c[arch][1]['peak_bytes'] / 2**30:.3f}); collectives a step (count, bytes a rank): "
+                + ", ".join(f"{op} {n_} {nb}" for op, (n_, nb) in sorted(out[0][1]["collectives"].items())))
     del runs
     gc.collect()
     torch.cuda.empty_cache()
@@ -4220,8 +4317,8 @@ def phase_tp_train(pending=None):
     for _, info, _ in one:
         add(info["counts"])
         launched.update(info["flash_keys"])
-    held = {((b, hq, tq, dh), (b, hkv, tk, dh), dtype, True)
-            for _, (b, hq, hkv, tq, tk, dh), dtype in tpt_flash_shapes()}
+    held = {((b, hq, tq, dh), (b, hkv, tk, dh), dtype, causal)
+            for _, (b, hq, hkv, tq, tk, dh), dtype, causal in tpt_flash_shapes()}
     check(launched <= held, f"tp train: every flash launch at a shape phase 5 held to the plain "
                             f"version (not held: {sorted(launched - held)})")
     log(f"tp train: flash launched at {len(launched)} (q, k, dtype, causal) keys, each held in phase 5")

@@ -269,14 +269,23 @@ def cache_from_numpy(cache: Mapping[str, Any], device=None, shard: Shard = NO_SH
     (the fp32 SSM states of a bf16 model stay fp32).
 
     Under a ``shard`` each leaf is cut to the rank's part
-    (``shard.cache_index``, from ``launch.sharding.cache_spec``); a rank's
+    (``shard.cache_index``, from ``launch.sharding.cache_spec``), a KV
+    piece that reaches past the sequence's end padded with zeros; a rank's
     cache goes back with :func:`cache_to_numpy`, and the ranks' parts tile
     the whole (``launch.sharding.local_slice``)."""
     dev = compat.resolve_device(device)
     if shard.mesh.size > 1:
         cache = sharding.tree_map_with_path(
-            lambda path, a: np.asarray(a)[shard.cache_index(path, np.shape(a))], cache)
+            lambda path, a: _cache_piece(np.asarray(a), shard.cache_index(path, np.shape(a))),
+            cache)
     return _map_tree(cache, lambda a: _as_torch(a, None, dev))
+
+
+def _cache_piece(a: np.ndarray, idx) -> np.ndarray:
+    """``a[idx]``, zeros where ``idx`` reaches past ``a``'s end."""
+    piece = a[idx]
+    short = [(0, (i.stop - i.start) - n) for i, n in zip(idx, piece.shape)]
+    return np.pad(piece, short) if any(p for _, p in short) else piece
 
 
 def cache_to_numpy(cache: lm.Cache) -> Dict[str, Any]:

@@ -27,11 +27,12 @@ draws the whole model from the seed as the one-device run draws it and
 keeps its shard, draws the inputs (the prompts, then whisper's frames or
 the vlm's patches) from one numpy generator in JAX's order and keeps its
 rows of the batch when the data axis divides it. Rank 0 prints; every rank
-returns the whole batch's tokens. With no process group ``--tp`` above 1
-exits naming the cause, as do a world size that ``--tp`` does not divide
-and NCCL asked to put two ranks on one device; the model raises for an
-SSM family whose heads ``--tp`` does not divide, and for whisper frames
-(``--prompt-len // 2``) or a cache length that it does not divide.
+returns the whole batch's tokens. Any cache length, frame count and head
+count serves: a sequence ``--tp`` does not divide is laid out over
+⌈S / tp⌉ · tp positions, and an SSM mixer whose heads it does not divide
+runs whole on every rank (``launch.sharding``). With no process group
+``--tp`` above 1 exits naming the cause, as do a world size that ``--tp``
+does not divide and NCCL asked to put two ranks on one device.
 """
 from __future__ import annotations
 

@@ -17,6 +17,19 @@ Policy (mesh axes ('pod',)? + ('data', 'model')), the JAX package's:
                    axis is merged across ranks)
   * SSM state    → heads over 'model', batch over ('pod','data') if divisible
 
+Two departures from the JAX rules, both where the port's ranks run what
+JAX runs as one program (its ``serve --tp T`` builds a mesh and never
+uses it, so its specs only place data):
+  * an ssm / hybrid mixer whose heads tp does not divide (RWKV-6's ``att``
+    and ``cm``, Mamba-2's ``mamba``) is replicated over 'model': every
+    rank runs it whole, with no collective, where the JAX rules would split
+    its columns off head boundaries;
+  * a cache sequence split over 'model' is laid out over ⌈S / tp⌉ · tp
+    positions (:func:`_cache_index`): the KV caches are padded (positions
+    past ``max_seq`` are never written, and the decode merge gives them
+    weight 0), a cross-attention K/V sequence is cut at the same bounds but
+    holds only its frames.
+
 A spec is a plain tuple with one entry per dimension: an axis name, a tuple
 of names (split over them in order, major to minor) or None (replicated) —
 what the JAX package's ``PartitionSpec`` holds. A mesh is anything with
@@ -85,6 +98,8 @@ def _rules(cfg: ArchConfig, mesh, tp: int, ep_override=None):
     _, _, policy = cfg.padded_heads(tp)
     kv_shard = "model" if policy == "shard" else None
     q_shard = "model" if policy in ("shard", "shard_q", "pad") else None
+    # An SSM mixer splits by heads, or not at all (module docstring).
+    mix = "model" if cfg.n_heads % tp == 0 else None
     ep = cfg.moe is not None and cfg.moe.n_experts % tp == 0
     if ep_override is not None:
         ep = ep_override
@@ -113,29 +128,29 @@ def _rules(cfg: ArchConfig, mesh, tp: int, ep_override=None):
         ("*moe/w_up", ("model", F, None) if ep else (None, F, "model")),
         ("*moe/w_down", ("model", None, F) if ep else (None, "model", F)),
         # RWKV-6 time-mix / channel-mix.
-        ("*att/wr", (F, "model")),
-        ("*att/wk", (F, "model")),
-        ("*att/wv", (F, "model")),
-        ("*att/wg", (F, "model")),
-        ("*att/wo", ("model", F)),
+        ("*att/wr", (F, mix)),
+        ("*att/wk", (F, mix)),
+        ("*att/wv", (F, mix)),
+        ("*att/wg", (F, mix)),
+        ("*att/wo", (mix, F)),
         ("*att/w_a", (F, None)),
         ("*att/w_b", (None, F)),
-        ("*att/u", ("model", None) if cfg.n_heads % tp == 0 else (None, None)),
-        ("*cm/wk", (F, "model")),
-        ("*cm/wv", ("model", F)),
-        ("*cm/wr", (F, "model")),
+        ("*att/u", (mix, None)),
+        ("*cm/wk", (F, mix)),
+        ("*cm/wv", (mix, F)),
+        ("*cm/wr", (F, mix)),
         # Mamba-2: head-aligned TP (z/x out dims are head-major H·P; dt is H).
         # B/C are shared across heads — replicated.
-        ("*mamba/w_z", (F, "model")),
-        ("*mamba/w_x", (F, "model")),
+        ("*mamba/w_z", (F, mix)),
+        ("*mamba/w_x", (F, mix)),
         ("*mamba/w_B", (F, None)),
         ("*mamba/w_C", (F, None)),
-        ("*mamba/w_dt", (F, "model")),
-        ("*mamba/a_log", ("model",)),
-        ("*mamba/dt_bias", ("model",)),
-        ("*mamba/d_skip", ("model",)),
-        ("*mamba/norm", ("model",)),
-        ("*mamba/w_out", ("model", F)),
+        ("*mamba/w_dt", (F, mix)),
+        ("*mamba/a_log", (mix,)),
+        ("*mamba/dt_bias", (mix,)),
+        ("*mamba/d_skip", (mix,)),
+        ("*mamba/norm", (mix,)),
+        ("*mamba/w_out", (mix, F)),
         # Everything small (norms, mixes, decays, biases): replicated.
         ("*", ()),
     ]
@@ -310,7 +325,18 @@ def local_shape(shape, spec: Spec, mesh) -> Tuple[int, ...]:
 
 def _cache_index(cfg: ArchConfig, mesh, tp: int, coords: Mapping[str, int], path: str,
                  shape) -> Tuple[slice, ...]:
-    return local_slice(shape, cache_spec(cfg, mesh, tp, path, shape), mesh, coords)
+    """The index of the rank's piece of the cache leaf at ``path`` (whole
+    ``shape``): a dim split over 'model' is laid out over its length
+    rounded up to a multiple of tp, so a KV piece may reach past the whole
+    length (the rank allocates it, padded); a cross-attention K/V piece
+    (``xkv``) is cut at the whole length (the last ranks hold fewer
+    positions, or none)."""
+    spec = cache_spec(cfg, mesh, tp, path, shape)
+    padded = tuple(-(-n // tp) * tp if entry == "model" else n for n, entry in zip(shape, spec))
+    idx = local_slice(padded, spec, mesh, coords)
+    if path.startswith("xkv"):
+        idx = tuple(slice(min(i.start, n), min(i.stop, n)) for i, n in zip(idx, shape))
+    return idx
 
 
 def shard_for(cfg: ArchConfig, mesh, backend: Optional[str] = None,

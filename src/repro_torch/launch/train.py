@@ -21,7 +21,7 @@ parameters and moments in place. Every family trains; the vlm's patches
 and whisper's frames come with each batch, as ``SyntheticTokens`` draws
 them.
 
-Over ranks (the dense, moe and vlm families): under torchrun (``RANK``,
+Over ranks (every family): under torchrun (``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK``) or in a process group already initialised,
 N = D·T ranks train on a (data=D, model=T) mesh (``--tp T``; ``--tp 1`` at
 N > 1 is pure FSDP), joined as ``launch.serve`` joins them
@@ -35,13 +35,11 @@ sum of the gradients of leaves not split over data
 (``lm.reduce_grads``) + the sharded top-k + AdamW on the pieces: the
 update JAX's ``value_and_grad(loss_fn(tp=T))`` + ``adamw_update`` makes
 over the whole batch. Rank 0 prints and writes checkpoints (whole leaves,
-the single-host layout); every rank returns the losses. The ssm, hybrid
-and encdec families over ranks exit naming ROADMAP.md item 15f.
+the single-host layout); every rank returns the losses.
 """
 from __future__ import annotations
 
 import argparse
-import os
 from typing import Optional
 
 import numpy as np
@@ -198,11 +196,6 @@ def main(argv=None, info: Optional[dict] = None, cfg=None):
         cfg = get_config(args.arch)
         if args.reduced:
             cfg = cfg.reduced()
-    world = dist.get_world_size() if dist.is_initialized() else int(os.environ.get("WORLD_SIZE", 1))
-    if cfg.family in ("ssm", "hybrid", "encdec") and (args.tp > 1 or world > 1):
-        ap.exit(2, f"repro_torch.launch.train: training the {cfg.family} family over ranks (--tp "
-                   f"{args.tp}, world {world}) is not ported; see ROADMAP.md port queue 1, item "
-                   "15f\n")
     dev = compat.resolve_device(args.device)
     owns_group = not dist.is_initialized()
     shard, dev, world = meshes.join_ranks(ap, args, cfg, dev, mode="train")

@@ -39,12 +39,12 @@ KV heads (``launch.sharding.cache_specs``); see :func:`attention`. A norm
 over columns split over the model group (RWKV-6's ``ln_x``, Mamba-2's
 gated norm) is :func:`rms_norm_tp`.
 
-Under autograd (training over ranks: the dense, moe and vlm layers) the
-same calls differentiate: a row-split sum's backward is the identity, and
-a tensor every rank holds whole that enters a split product (a
-column-split projection's input, the replicated K/V a 'shard_q' / 'pad'
-rank selects heads of, the MoE's token rows and gate weights) passes
-``Shard.enter``, whose backward sums its gradient over the model group; so
+Under autograd (training over ranks) the same calls differentiate: a
+row-split sum's backward is the identity, and a tensor every rank holds
+whole that enters a split product (a column-split projection's input, the
+replicated K/V a 'shard_q' / 'pad' rank selects heads of, the MoE's token
+rows and gate weights) passes ``Shard.enter``, whose backward sums its
+gradient over the model group; so
 every leaf's gradient is JAX's, whole or the rank's part, with no sum
 afterwards. The layers see each leaf in its serve layout (the train
 layout's FSDP pieces are gathered by ``models.lm`` first).
@@ -102,11 +102,15 @@ def rms_norm_tp(x: torch.Tensor, gamma: torch.Tensor, shard: Shard, width: int,
     """:func:`rms_norm` over a last dimension of ``width`` of which ``x``
     holds this rank's columns (and ``gamma`` their scales): the rank's sum
     of squares, in fp32, summed over the model group before the scale is
-    taken. A whole ``x`` (or tp 1) is :func:`rms_norm` itself."""
+    taken. A whole ``x`` (or tp 1) is :func:`rms_norm` itself.
+
+    Under autograd the summed squares feed every rank's split columns, so
+    their gradient is summed over the model group (``Shard.enter``) before
+    it reaches a rank's own squares (the sum's backward, the identity)."""
     if shard.tp == 1 or x.shape[-1] == width:
         return rms_norm(x, gamma, eps)
     xf = x.float()
-    sq = shard.all_reduce((xf * xf).sum(dim=-1, keepdim=True))
+    sq = shard.enter(shard.all_reduce((xf * xf).sum(dim=-1, keepdim=True)))
     return (xf * torch.rsqrt(sq / width + eps)).to(x.dtype) * gamma
 
 
@@ -398,8 +402,9 @@ def _merge_slices(q, kk, vv, live, *, h, kv, h0, shard: Shard) -> torch.Tensor:
     """Attention of the query rows ``q`` (B, Hl, T, Dh: the rank's heads
     from ``h0``, gathered to all H when Hl < H) over a sequence split over
     the model group: this rank holds ``kk`` / ``vv`` (B, KV, S_l, Dh),
-    positions ``live`` (S_l,) of them attended. Returns the rank's heads'
-    rows (B, Hl, T, Dh).
+    positions ``live`` (S_l,) of them attended; a rank that holds no
+    position (S_l = 0: a cross K/V sequence that ends before its slice)
+    attends one dead one. Returns the rank's heads' rows (B, Hl, T, Dh).
 
     Each rank attends its slice for every head with the single device's
     decode roundings: fp32 logits, dead positions masked with the finite
@@ -409,6 +414,9 @@ def _merge_slices(q, kk, vv, live, *, h, kv, h0, shard: Shard) -> torch.Tensor:
     with w = l·exp(m − M); out = Σ(o·w) / Σw. A slice with no live position
     has m = -1e30 and weight 0 (no NaN, as an -inf mask would give)."""
     hl = q.shape[1]
+    if kk.shape[2] == 0:
+        kk, vv = (z.new_zeros(z.shape[:2] + (1,) + z.shape[3:]) for z in (kk, vv))
+        live = torch.zeros(1, dtype=torch.bool, device=kk.device)
     qa = shard.all_gather(q, 1) if hl < h else q  # (B, H, T, Dh)
     b, _, t, dh = qa.shape
     logits = torch.einsum("bkgqd,bksd->bkgqs", qa.reshape(b, kv, h // kv, t, dh).float(),

@@ -53,14 +53,14 @@ divides), and
 whole logits. The default :data:`~repro_torch.models.tp.NO_SHARD` changes
 nothing.
 
-Training over ranks (``shard=`` from ``shard_for(mode="train")``; the
-dense, moe and vlm families — ssm, hybrid and encdec raise naming ROADMAP.md
-item 15f): :class:`LM` holds the rank's FSDP + TP piece of each leaf,
+Training over ranks (``shard=`` from ``shard_for(mode="train")``; every
+family): :class:`LM` holds the rank's FSDP + TP piece of each leaf,
 :func:`forward_train` gathers each block's pieces over the data axes
 inside the block's checkpointed call (ZeRO-3: the recompute gathers them
-again), :func:`loss_fn` returns the whole batch's loss (the data ranks'
-mean) and :func:`reduce_grads` finishes the gradients of the leaves not
-split over data.
+again; the hybrid's shared block, which is not rematerialised, once for all
+its applications), :func:`loss_fn` returns the whole batch's loss (the data
+ranks' mean) and :func:`reduce_grads` finishes the gradients of the leaves
+not split over data.
 """
 from __future__ import annotations
 
@@ -105,16 +105,11 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
 
 def _sharded(cfg: ArchConfig, tp: int, shard: Shard) -> bool:
     """Whether ``shard`` splits anything (a mesh of more than one rank);
-    raises for a ``tp`` that is not the mesh's model size, or that does not
-    divide an SSM family's heads: the rules would then split the D / d_in
-    columns off head boundaries while the state stays whole."""
+    raises for a ``tp`` that is not the mesh's model size. (An SSM mixer
+    whose heads tp does not divide is left whole by the rules, and runs
+    whole on every rank.)"""
     if shard.mesh.size == 1:
         return False
-    if cfg.family in ("ssm", "hybrid") and cfg.n_heads % shard.tp:
-        raise ValueError(
-            f"repro_torch.models.lm: the {cfg.family} family's {cfg.n_heads} heads do not split "
-            f"over tp={shard.tp}: its columns would split off head boundaries while its state "
-            "stays whole")
     if shard.tp != tp:
         raise ValueError(f"repro_torch.models.lm: tp={tp} but the mesh's model axis is {shard.tp}")
     if not shard.param_index or shard.cache_index is None:
@@ -359,25 +354,20 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, tp: int = 1, device=No
       1), Dh), the cross-attention K/V, which prefill replaces.
 
     Under a ``shard`` (``batch`` is the global batch) each leaf is this
-    rank's slice as ``shard.cache_index`` places it: positions
-    [r·S/tp, (r+1)·S/tp) of each KV and cross K/V sequence (the hybrid's
-    per-application pairs too) for model coordinate r, the rank's heads of
-    an SSM state, the token-shift carries whole, and rows of the batch by
-    data coordinate when the data axis divides it (every row otherwise).
-    Each sequence (``max_seq``, plus ``vlm_patches`` in the vlm;
-    ``xkv``'s) must divide by tp.
+    rank's slice as ``shard.cache_index`` places it: for model coordinate
+    r, positions [r·S_l, (r+1)·S_l) of each KV sequence (the hybrid's
+    per-application pairs too; S_l = ⌈S / tp⌉, S = ``max_seq``, plus
+    ``vlm_patches`` in the vlm), padded past S (never written: a decode
+    step masks every position past ``pos``); the same positions of a cross
+    K/V sequence that lie below its length (a rank past its end holds
+    none); the rank's heads of an SSM state (all of them when tp does not
+    divide the heads), the token-shift carries whole, and rows of the batch
+    by data coordinate when the data axis divides it (every row otherwise).
     """
     if _sharded(cfg, tp, shard):
         dev = compat.resolve_device(device)
 
         def local(path, t):
-            if path.startswith(("kv", "xkv")) and t.shape[-2] % tp:
-                what = (f"cross-attention cache's {t.shape[-2]} positions (max_seq {max_seq} // 2)"
-                        if path.startswith("xkv") else
-                        f"cache's {t.shape[-2]} positions (max_seq {max_seq}"
-                        + (f" + vlm_patches {cfg.vlm_patches}" if cfg.family == "vlm" else "") + ")")
-                raise ValueError(f"repro_torch.models.lm.init_cache: the {what} do not split over "
-                                 f"tp={tp}")
             idx = shard.cache_index(path, t.shape)
             return torch.zeros([i.stop - i.start for i in idx], dtype=t.dtype, device=dev)
 
@@ -429,7 +419,10 @@ def _attn_block(blk: Block, x, cfg: ArchConfig, dims: ModelDims, cache=None, pos
     # staticcheck: disable=SC002 torch.utils.checkpoint runs eagerly: enc_out is None or a tensor, never traced
     if xattn_kv is None and enc_out is not None:
         b, te = enc_out.shape[:2]
-        xattn_kv = tuple((enc_out @ blk.xattn[w]).reshape(b, te, dims.kv, dims.dh).transpose(1, 2)
+        # staticcheck: disable=SC002 torch.utils.checkpoint runs eagerly: shapes are ints, never traced
+        if blk.xattn["wk"].shape[1] < dims.kv * dims.dh:  # the rank's KV heads' columns
+            enc_out = shard.enter(enc_out)
+        xattn_kv = tuple((enc_out @ blk.xattn[w]).reshape(b, te, -1, dims.dh).transpose(1, 2)
                          for w in ("wk", "wv"))
     # staticcheck: disable=SC002 torch.utils.checkpoint runs eagerly: xattn_kv is None or a pair of tensors, never traced
     if xattn_kv is not None:
@@ -483,17 +476,6 @@ def _head(model: LM, cfg: ArchConfig, shard: Shard = NO_SHARD) -> torch.Tensor:
     return _leaf(model, "head", shard)
 
 
-def _train_sharded(cfg: ArchConfig, tp: int, shard: Shard) -> bool:
-    """Whether a training call runs over ranks (:func:`_sharded`); the
-    ssm, hybrid and encdec families refuse (ROADMAP.md item 15f)."""
-    if shard.mesh.size > 1 and cfg.family in ("ssm", "hybrid", "encdec"):
-        raise NotImplementedError(
-            f"repro_torch.models.lm: training the {cfg.family} family over ranks is not ported "
-            "(norms over split channels, RWKV-6's gate gather and whisper's cross-attention "
-            "under autograd); see ROADMAP.md port queue 1, item 15f")
-    return _sharded(cfg, tp, shard)
-
-
 def _leaf(model: LM, name: str, shard: Shard) -> torch.Tensor:
     """Parameter ``name`` as the layers read it: gathered over the data axes
     into its serve-layout piece under a train shard (``Shard.fsdp_gather``),
@@ -519,12 +501,14 @@ def _gathered(module: nn.Module, prefix: str, shard: Shard) -> types.SimpleNames
     return types.SimpleNamespace(**ns)
 
 
-def _block_over_ranks(blk: Block, prefix: str, x, cfg: ArchConfig, dims: ModelDims,
-                      shard: Shard):
-    """:func:`_attn_block` on a train shard: the block's leaves gathered over
-    the data axes first, inside the call (so under remat the recompute
-    gathers them again, and no gathered weight outlives its block)."""
-    return _attn_block(_gathered(blk, prefix, shard), x, cfg, dims, shard=shard)
+def _block_over_ranks(fn, blk: nn.Module, prefix: str, x, cfg: ArchConfig, shard: Shard,
+                      *args, **kw):
+    """``fn(blk, x, cfg, *args, shard=shard, **kw)`` (:func:`_attn_block`,
+    :func:`_rwkv_block`, :func:`_mamba_block`) on a train shard: the
+    block's leaves gathered over the data axes first, inside the call (so
+    under remat the recompute gathers them again, and no gathered weight
+    outlives its block)."""
+    return fn(_gathered(blk, prefix, shard), x, cfg, *args, shard=shard, **kw)
 
 
 def forward_train(
@@ -553,23 +537,34 @@ def forward_train(
     dense / moe / vlm model (a zero without an MoE).
 
     Over ranks (``shard`` from ``launch.sharding.shard_for(mode="train")``;
-    the dense, moe and vlm families) the model holds the rank's FSDP + TP
-    pieces and the batch the rank's rows (``shard.rows_split`` when they
-    are its share). Each block's leaves are gathered over the data axes into
-    their serve-layout pieces inside the block's call (``_gathered``), the
-    ``head`` and ``vit_proj`` before their use; the blocks then run the
-    sharded layers under autograd (``models.tp``'s collectives), the
-    vocab-split embedding summed over the model group. The logits (not the
-    hidden states) are gathered over the vocab.
+    every family) the model holds the rank's FSDP + TP pieces and the
+    batch the rank's rows (``shard.rows_split`` when they are its share;
+    whisper's frames follow them). Each block's leaves are gathered over the
+    data axes into their serve-layout pieces inside the block's call
+    (``_gathered``), the ``head`` and ``vit_proj`` before their use, the
+    hybrid's shared block once before its first application (it is not
+    rematerialised, so the gathered leaves serve every application and
+    their gradient, summed over the applications, is reduce-scattered
+    once); the blocks then run the sharded layers and mixers under autograd
+    (``models.tp``'s collectives; whisper's encoder output enters each
+    decoder block's column-split cross K/V), the vocab-split embedding
+    summed over the model group. The logits (not the hidden states) are
+    gathered over the vocab.
     """
     dims = model_dims(cfg, tp)
-    sharded = _train_sharded(cfg, tp, shard)
+    sharded = _sharded(cfg, tp, shard)
     tokens = batch["tokens"]
     x = _embed_tp(model, cfg, tokens, shard) if sharded else model.embed[tokens]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     fam = cfg.family
 
-    def run(fn, *args, **kw):
+    def run(fn, blk, prefix, x, *args, **kw):
+        """``fn(blk, x, cfg, *args, **kw)``, over ranks through
+        :func:`_block_over_ranks`, under remat if asked."""
+        if sharded:
+            fn, args = _block_over_ranks, (fn, blk, prefix, x, cfg, shard) + args
+        else:
+            args = (blk, x, cfg) + args
         if remat:
             return checkpoint(fn, *args, use_reentrant=False, **kw)
         return fn(*args, **kw)
@@ -579,27 +574,27 @@ def forward_train(
         x = torch.cat([_patch_prefix(model, batch["patches"], x.dtype, vit), x], dim=1)
     if fam in ("dense", "moe", "vlm"):
         for i, blk in enumerate(model.blocks):
-            if sharded:
-                x, a = run(_block_over_ranks, blk, f"blocks.{i}", x, cfg, dims, shard)
-            else:
-                x, a = run(_attn_block, blk, x, cfg, dims)
+            x, a = run(_attn_block, blk, f"blocks.{i}", x, dims)
             if cfg.moe:
                 aux = aux + a
     elif fam == "ssm":
-        for blk in model.blocks:
-            x = run(_rwkv_block, blk, x, cfg)[0]
-    elif fam == "hybrid":
         for i, blk in enumerate(model.blocks):
-            x = run(_mamba_block, blk, x, cfg)[0]
+            x = run(_rwkv_block, blk, f"blocks.{i}", x)[0]
+    elif fam == "hybrid":
+        shared, sh = model.shared, NO_SHARD
+        if sharded and cfg.n_layers >= cfg.shared_every:
+            shared, sh = _gathered(model.shared, "shared", shard), shard
+        for i, blk in enumerate(model.blocks):
+            x = run(_mamba_block, blk, f"blocks.{i}", x)[0]
             if (i + 1) % cfg.shared_every == 0:
-                x, _ = _attn_block(model.shared, x, cfg, dims)
+                x, _ = _attn_block(shared, x, cfg, dims, shard=sh)
     elif fam == "encdec":
         enc = batch["frames"].to(x.dtype)
-        for blk in model.enc_blocks:
-            enc, _ = run(_attn_block, blk, enc, cfg, dims, causal=False)
+        for i, blk in enumerate(model.enc_blocks):
+            enc, _ = run(_attn_block, blk, f"enc_blocks.{i}", enc, dims, causal=False)
         enc = L.rms_norm(enc, model.enc_ln_f)
-        for blk in model.blocks:
-            x, _ = run(_attn_block, blk, x, cfg, dims, enc_out=enc)
+        for i, blk in enumerate(model.blocks):
+            x, _ = run(_attn_block, blk, f"blocks.{i}", x, dims, enc_out=enc)
     else:
         raise ValueError(f"repro_torch.models.lm: unknown family {fam!r}")
 
@@ -634,7 +629,7 @@ def loss_fn(
     batch's loss, equal on every rank, whose backward gives each rank 1/dp
     of its rows' gradient. A vocab-split head's chunks gather their logits
     over the vocab (``_chunk_loss``)."""
-    sharded = _train_sharded(cfg, tp, shard)
+    sharded = _sharded(cfg, tp, shard)
     tokens = batch["tokens"]
     hidden, aux = forward_train(model, cfg, dict(batch, tokens=tokens[:, :-1]), tp=tp,
                                 remat=remat, return_hidden=True, shard=shard)
@@ -769,19 +764,17 @@ def forward_cached(
     the whole logits of its rows. Whisper's prefill projects each decoder
     layer's cross K/V with the rank's ``xattn`` columns; its cross calls
     run flash on them at the encoder's full length, and ``cache["xkv"]``
-    keeps the rank's slice of the sequence, all heads (gathered), so the
-    frames' length must divide by tp. A decode step's cross-attention then
-    merges the slices over the ranks in plain torch: at tp > 1 a whisper
-    decode step launches no flash.
+    keeps the rank's positions of the frames, all heads (gathered): those
+    of [r·⌈S_enc/tp⌉, (r+1)·⌈S_enc/tp⌉) below S_enc, none on a rank past
+    the end. A decode step's cross-attention then merges the slices over
+    the ranks in plain torch: at tp > 1 a whisper decode step launches no
+    flash.
     """
     dims = model_dims(cfg, tp)
     pos = int(pos)
     fam = cfg.family
     sharded = _sharded(cfg, tp, shard)
     if sharded and fam == "encdec":
-        if frames is not None and frames.shape[1] % tp:
-            raise ValueError(f"repro_torch.models.lm.forward_cached: the frames' {frames.shape[1]} "
-                             f"positions do not split over tp={tp}")
         if frames is None and tokens.shape[1] > 1:
             raise ValueError("repro_torch.models.lm.forward_cached: a sharded encdec call over "
                              "more than one token is a prefill and needs frames")
@@ -839,14 +832,18 @@ def forward_cached(
 def _cross_cache(xkv, dims: ModelDims, shard: Shard):
     """The rank's part of the cross K/V cache from its projections (each
     (L, B, KVl, S_enc, Dh): its KV heads under 'shard', all of them
-    otherwise): the heads gathered over the model group, then its slice of
-    the sequence, positions [r·S_enc/tp, (r+1)·S_enc/tp)."""
+    otherwise): the heads gathered over the model group, then its positions
+    of the sequence, [r·S_l, (r+1)·S_l) with S_l = ⌈S_enc / tp⌉, cut at
+    S_enc (``launch.sharding``'s cache layout: every position held is a
+    frame, and a rank past the end holds none)."""
     out = []
     for z in xkv:
         if z.shape[2] < dims.kv:
             z = shard.all_gather(z, 2)
-        s_l = z.shape[3] // shard.tp
-        out.append(z[:, :, :, shard.model_rank * s_l:(shard.model_rank + 1) * s_l].clone())
+        n = z.shape[3]
+        s_l = -(-n // shard.tp)
+        lo = min(shard.model_rank * s_l, n)
+        out.append(z[:, :, :, lo:min(lo + s_l, n)].clone())
     return tuple(out)
 
 

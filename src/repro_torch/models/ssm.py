@@ -22,14 +22,26 @@ package keeps in fp32 in a bf16 model (RWKV-6 ``w0``, ``w_a``, ``w_b``,
 ``u``, ``ln_x``; Mamba-2 ``a_log``, ``dt_bias``, ``d_skip``, ``norm``) are
 fp32 here too.
 
-Tensor parallelism (``shard=``, serving; ``launch.sharding``'s rules) splits
-both mixers by heads: each weight holds this rank's slice and the mixer
-reads the split from its shape. The scans run on the rank's heads and
-update the rank's heads of the state; the norms over all of D (RWKV-6's
-``ln_x``) or d_in (Mamba-2's gated norm) sum their squares over the model
-group (``layers.rms_norm_tp``); the output projections and RWKV-6's
-channel-mix ``wv`` hold the rank's rows (``layers._row_split_product``). The
-token-shift carries are the block input's last row, whole on every rank.
+Tensor parallelism (``shard=``; ``launch.sharding``'s rules) splits both
+mixers by heads: each weight holds this rank's slice and the mixer reads
+the split from its shape. The scans run on the rank's heads and update the
+rank's heads of the state; the norms over all of D (RWKV-6's ``ln_x``) or
+d_in (Mamba-2's gated norm) sum their squares over the model group
+(``layers.rms_norm_tp``); the output projections and RWKV-6's channel-mix
+``wv`` hold the rank's rows (``layers._row_split_product``). The token-shift
+carries are the block input's last row, whole on every rank. A mixer whose
+heads tp does not divide holds every leaf whole and runs whole on every
+rank, with no collective.
+
+Under autograd (training over ranks) every tensor that every rank holds
+whole and that meets the rank's split compute passes ``Shard.enter``
+(identity forward, the gradient summed over the model group backward): the
+block's input and the whole leaves a split mixer reads (RWKV-6's ``mu``,
+``w_a``, and the rank's columns of ``w_b``, ``w0`` and ``ln_x``; Mamba-2's
+``w_B`` / ``w_C``), and in the channel mix the mixed inputs of a split
+``wk`` / ``wr`` and the summed ``kk @ wv`` before the rank takes its
+columns. Each leaf's gradient then comes out whole, or the rank's part,
+with no sum afterwards.
 """
 from __future__ import annotations
 
@@ -163,9 +175,14 @@ def rwkv6_mixer(
     of ``w0``, ``w_b`` and ``ln_x`` (each decay column is computed alone).
     ``state`` is the rank's heads (B, Hl, N, N)."""
     b, t, d = x.shape
-    xx = _token_shift(x, last_x)
-    mu = params["mu"]
     hl = params["wr"].shape[1] // dh  # the rank's heads
+    split = hl < n_heads
+    mu, w_a, w_b, w0, ln_x = (params[k] for k in ("mu", "w_a", "w_b", "w0", "ln_x"))
+    if split:  # whole tensors entering the rank's split compute
+        x, mu, w_a, w_b, w0, ln_x = (shard.enter(z) for z in (x, mu, w_a, w_b, w0, ln_x))
+        cols = slice(shard.model_rank * hl * dh, (shard.model_rank + 1) * hl * dh)
+        w_b, w0, ln_x = w_b[:, cols], w0[cols], ln_x[cols]  # the rank's columns
+    xx = _token_shift(x, last_x)
 
     def mixed(i):
         return x + (xx - x) * mu[i]
@@ -177,11 +194,7 @@ def rwkv6_mixer(
     k = heads(mixed(1) @ params["wk"]).float()
     v = heads(mixed(2) @ params["wv"]).float()
     g = mixed(3) @ params["wg"]
-    w_b, w0, ln_x = params["w_b"], params["w0"], params["ln_x"]
-    if hl < n_heads:  # the rank's columns of the whole leaves
-        cols = slice(shard.model_rank * hl * dh, (shard.model_rank + 1) * hl * dh)
-        w_b, w0, ln_x = w_b[:, cols], w0[cols], ln_x[cols]
-    w_raw = w0 + torch.tanh(mixed(4).float() @ params["w_a"]) @ w_b
+    w_raw = w0 + torch.tanh(mixed(4).float() @ w_a) @ w_b
     logw = -torch.exp(w_raw).reshape(b, t, hl, dh)  # log w <= 0
 
     if state is None:
@@ -217,15 +230,21 @@ def rwkv6_channel_mix(params: Params, x: torch.Tensor, last_x: Optional[torch.Te
     xx = _token_shift(x, last_x)
     xk = x + (xx - x) * params["mu"][0]
     xr = x + (xx - x) * params["mu"][1]
+    kv_split = shard.tp > 1 and params["wv"].shape[0] < L._full(d_ff, "rwkv6_channel_mix")
+    dl = params["wr"].shape[1]
+    r_split = dl < x.shape[-1]
+    if kv_split:
+        xk = shard.enter(xk)
+    if r_split:
+        xr = shard.enter(xr)
     kk = torch.square(F.relu(xk @ params["wk"]))
-    if shard.tp > 1 and params["wv"].shape[0] < L._full(d_ff, "rwkv6_channel_mix"):
+    if kv_split:
         kv = L._row_split_product(kk, params["wv"], shard)
     else:
         kv = kk @ params["wv"]
     r = torch.sigmoid(xr @ params["wr"])
-    dl = r.shape[-1]
-    if dl < x.shape[-1]:  # the rank's columns of the gate
-        kv = kv[..., shard.model_rank * dl:(shard.model_rank + 1) * dl]
+    if r_split:  # the rank's columns of the gate
+        kv = shard.enter(kv)[..., shard.model_rank * dl:(shard.model_rank + 1) * dl]
         return shard.all_gather(r * kv, -1), x[:, -1]
     return r * kv, x[:, -1]
 
@@ -307,11 +326,15 @@ def mamba2_mixer(
     b, t, d = x.shape
     d_in = expand * d
     p = d_in // n_heads
-    n_heads = params["w_dt"].shape[1]  # the rank's heads
+    hl = params["w_dt"].shape[1]  # the rank's heads
+    w_b, w_c = params["w_B"], params["w_C"]
+    if hl < n_heads:  # whole tensors entering the rank's split compute
+        x, w_b, w_c = (shard.enter(y) for y in (x, w_b, w_c))
+    n_heads = hl
     z = x @ params["w_z"]
     xs = x @ params["w_x"]
-    bc = x @ params["w_B"]
-    cc = x @ params["w_C"]
+    bc = x @ w_b
+    cc = x @ w_c
     dt = F.softplus((x @ params["w_dt"]).float() + params["dt_bias"])  # (B, T, H)
     loga = -torch.exp(params["a_log"])[None, None] * dt  # <= 0
     xf = xs.reshape(b, t, n_heads, p).float()

@@ -158,26 +158,29 @@ def test_launch_prints_the_jax_lines(capsys):
     (["--arch", "rwkv6-7b", "--reduced", "--tp", "2"], "item 15"),
     (["--arch", "granite-moe-1b", "--reduced", "--steps", "2"], None),
 ])
-def test_launch_names_the_roadmap_item_for_unported_paths(argv, item, capsys):
-    """What the port still lacks exits naming its ROADMAP.md item (the
-    partition launcher has no such path left: graph files run, see
+def test_launch_names_the_roadmap_item_for_unported_paths(argv, item, capsys, tmp_path):
+    """No launcher path is left unported, so none names a ROADMAP.md item
+    (the partition launcher runs graph files, see
     test_launch_runs_graph_files_like_jax; serving and training run every
-    family, serving runs tensor-parallel, and the dense, moe and vlm
-    families train over ranks, see tests/test_torch_tp.py and
-    tests/test_torch_tp_train.py): ``--tp > 1`` for an ssm family on the
-    train launcher (item 15f). Training a non-dense family (``item`` None)
-    runs: two finite losses."""
+    family, over ranks too, see tests/test_torch_tp*.py). ``--tp 2``
+    training of an ssm family, the path of ``item`` 15f, runs over two
+    spawned ranks with world 1's losses; training a non-dense family
+    (``item`` None) runs: two finite losses."""
+    import _train_ranks
+    from repro_torch.launch import mesh as meshes
     from repro_torch.launch.train import main as train_main
 
-    if item is None:
-        losses = train_main(argv + ["--batch", "2", "--seq", "8", "--device", "cpu"])
-        assert len(losses) == 2 and np.isfinite(losses).all()
-        assert "ROADMAP" not in capsys.readouterr().out
-        return
-    with pytest.raises(SystemExit) as exc:
-        train_main(argv + ["--device", "cpu"])
-    said = str(exc.value) + capsys.readouterr().err
-    assert f"ROADMAP.md port queue 1, {item}" in said
+    run = argv + ["--batch", "2", "--seq", "8", "--steps", "2"]
+    one = run[:run.index("--tp")] + run[run.index("--tp") + 2:] if "--tp" in run else run
+    losses = train_main(one + ["--device", "cpu"])
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    if item is not None:
+        ranks = meshes.spawn(_train_ranks.launcher_rank, 2, (str(tmp_path / "store"), [run]),
+                             timeout=240)
+        for (got, info), in ranks:
+            np.testing.assert_allclose(got, losses, rtol=1e-5, atol=1e-5)
+            assert (info["tp"], info["world"]) == (2, 2)
+    assert "ROADMAP" not in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("form", ["binary", "text"])

@@ -92,6 +92,48 @@ def test_param_specs_with_d_ff_split_experts_equal_jax(arch, mesh, mode):
     _check_params(arch, MESHES[mesh], mode, ep_override=False)
 
 
+# SSM mixers whose heads tp does not divide (4 heads at tp 3, D 192; the
+# hybrid's d_in 384): the JAX rules split their columns over 'model' off
+# head boundaries (192 / 3 = 64 columns, 1.33 heads). JAX's specs only
+# place data, since its serve path runs one program (``repro.launch.serve``
+# builds a mesh and never uses it); the port's ranks run the mixers, so its
+# rules replicate every ``att`` / ``cm`` / ``mamba`` leaf over 'model'
+# (each rank runs the mixer whole). Every other leaf's spec is JAX's.
+MIXER_CASES = [("rwkv6-7b", {"d_model": 192, "d_head": 48, "d_ff": 384}),
+               ("zamba2-7b", {"d_model": 192})]
+
+
+@pytest.mark.parametrize("mode", ["train", "serve"])
+@pytest.mark.parametrize("arch,changes", MIXER_CASES, ids=[c[0] for c in MIXER_CASES])
+def test_param_specs_replicate_mixers_that_tp_does_not_split(arch, changes, mode):
+    """On a (2, 3) mesh: each port spec equals JAX's, except the mixers'
+    leaves, which are JAX's with 'model' dropped (and JAX splits some)."""
+    import dataclasses
+
+    from repro_torch.configs.base import ArchConfig
+
+    mesh = MeshShape(("data", "model"), (2, 3))
+    jcfg = dataclasses.replace(jax_get_config(arch).reduced(), **changes)
+    cfg = ArchConfig(**dict(jcfg.__dict__))
+    assert cfg.n_heads % 3
+    key = jax.ShapeDtypeStruct((2,), jnp.uint32)
+    jshape = jax.eval_shape(lambda k: jlm.init_params(jcfg, k, tp=3), key)
+    want = _flat_specs(jshg.param_specs(jcfg, mesh, 3, jshape, mode=mode))
+    got = sharding.param_specs(cfg, mesh, 3, lm.LM(cfg, 3, device="meta"), mode=mode)
+    differs = 0
+    for name, spec in got.items():
+        key, layer = jax_leaf(name)
+        jspec = want[key.replace(".", "/")]
+        jspec = jspec if layer is None else jspec[1:]
+        if {"att", "cm", "mamba"} & set(key.split(".")):
+            dropped = tuple(None if e == "model" else e for e in jspec)
+            assert spec == dropped and "model" not in spec, (name, spec, jspec)
+            differs += spec != jspec
+        else:
+            assert spec == jspec, (name, spec, jspec)
+    assert differs > 0
+
+
 @pytest.mark.parametrize("mesh", list(MESHES), ids=list(MESHES))
 @pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_cache_specs_equal_jax(arch, mesh):

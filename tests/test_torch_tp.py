@@ -7,8 +7,8 @@ model is carried from JAX's ``init_params(..., tp=T)`` (its heads padded
 for T) to each rank's slice by ``convert.lm_params_from_numpy(shard=)``;
 every rank prefills its rows of the batch and decodes 3 steps fed JAX's
 greedy tokens. The logits each rank returns (gathered over the vocab) and
-the whole cache (reassembled from the ranks' pieces with
-``launch.sharding.local_slice``) are held to JAX's ``forward_cached(...,
+the whole cache (reassembled from the ranks' pieces where each rank's
+``Shard.cache_index`` places them) are held to JAX's ``forward_cached(...,
 tp=T)`` on one device — the function ``repro.launch.serve --tp T``
 computes — within 1e-5 of the tensor's scale, and the greedy tokens must
 be equal. Every spawn is joined with a timeout, so a hung rendezvous fails
@@ -104,23 +104,35 @@ def _jax_run(jcfg, tp, b, t, n_dec, max_seq, seed=0, frames=None):
 
 
 def _reassemble(cfg, tp, mesh, want_cache, results):
-    """The whole cache from the ranks' pieces, each placed where
-    ``local_slice`` says its rank holds it; every element is held by as
-    many ranks as the axes its spec does not name have."""
+    """The whole cache from the ranks' pieces, each placed where its rank's
+    ``Shard.cache_index`` puts it (``local_slice`` of the spec; a sequence
+    tp does not divide laid out over ⌈S / tp⌉ · tp positions, the KV
+    pieces' padding zeros, never written, the cross K/V pieces cut at the
+    frames); every element is held by as many ranks as the axes its spec
+    does not name have."""
     full = jax.tree.map(np.zeros_like, want_cache)
     flat = jax.tree_util.tree_flatten_with_path(full)[0]
     paths = ["/".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in p) for p, _ in flat]
+    shards = [sharding.shard_for(cfg, mesh, coords=tuple(res["coords"][a] for a in mesh.axis_names))
+              for res in results]
     for path, (_, whole) in zip(paths, flat):
         spec = sharding.cache_spec(cfg, mesh, tp, path, whole.shape)
         named = [a for a in spec if a is not None]
         copies = mesh.size // int(np.prod([mesh.shape[a] for a in named]))
-        cover = np.zeros(whole.shape, np.int32)
-        for res in results:
+        padded = tuple(-(-n // tp) * tp if a == "model" else n for n, a in zip(whole.shape, spec))
+        buf, cover = np.zeros(padded, whole.dtype), np.zeros(padded, np.int32)
+        for res, shard in zip(results, shards):
             piece = jax.tree.leaves(res["cache"])[paths.index(path)]
-            idx = sharding.local_slice(whole.shape, spec, mesh, res["coords"])
-            whole[idx] = piece
+            idx = shard.cache_index(path, whole.shape)
+            assert piece.shape == tuple(i.stop - i.start for i in idx), path
+            buf[idx] = piece
             cover[idx] += 1
-        assert (cover == copies).all(), f"{path}: the ranks' pieces tile the leaf"
+        inside = tuple(slice(0, n) for n in whole.shape)
+        assert (cover[inside] == copies).all(), f"{path}: the ranks' pieces tile the leaf"
+        rest = np.ones(padded, bool)
+        rest[inside] = False
+        assert not buf[rest].any(), f"{path}: the padding past the sequence is never written"
+        whole[...] = buf[inside]
     return full
 
 
@@ -183,6 +195,64 @@ def test_serve_tp2_gives_the_tokens_of_tp1(tmp_path):
     assert info1["prefill_collectives"] == {} and info1["decode_collectives"] == {}
 
 
+# Cache lengths that tp does not divide (repaired; ROADMAP.md §3): (id,
+# arch, changes to its reduced config, mesh, prompt length, decode steps);
+# max_seq = prompt + steps = 11 (19 positions with the vlm's 8 patches).
+ODD_CASES = [
+    ("dense-max_seq-11", "llama3.2-3b", {}, (1, 2), 7, 4),
+    ("vlm-max_seq-11", "internvl2-26b", {}, (1, 2), 7, 4),
+]
+
+
+@pytest.mark.parametrize("case", ODD_CASES, ids=[c[0] for c in ODD_CASES])
+def test_odd_lengths_match_jax(case, tmp_path):
+    """A KV cache whose length tp does not divide: each rank holds ⌈S / tp⌉
+    positions (the last rank's slice padded past S), the prefill and every
+    decode step up to the cache's last position give JAX's
+    forward_cached(..., tp=T) logits within 1e-5 of their scale and its
+    greedy tokens, and the reassembled cache equals JAX's, its padding
+    never written."""
+    name, arch, changes, (dp, tp), t, n_dec = case
+    jcfg, cfg = _configs(arch, changes)
+    b, max_seq = 2 * dp, t + n_dec
+    params, prompts, extras, tokens, want, want_cache = _jax_run(jcfg, tp, b, t, n_dec, max_seq)
+    results = meshes.spawn(
+        _tp_ranks.forward_rank, dp * tp,
+        (cfg, tp, params, b, max_seq, prompts, extras, tokens, str(tmp_path / "store"), "cpu"),
+        timeout=SPAWN_TIMEOUT)
+    n_pos = max_seq + (cfg.vlm_patches if cfg.family == "vlm" else 0)
+    assert n_pos % tp
+    for res in results:
+        lo, hi = res["rows"]
+        for i, (got, w) in enumerate(zip(res["logits"], want)):
+            _assert_close(got, w[lo:hi], f"{name} rank {res['coords']} step {i}")
+            np.testing.assert_array_equal(got[:, -1].argmax(-1), w[lo:hi, -1].argmax(-1))
+        assert res["cache"]["kv"][0].shape[3] == -(-n_pos // tp)
+    mesh = MeshShape(("data", "model"), (dp, tp))
+    full = _reassemble(cfg, tp, mesh, want_cache, results)
+    jax.tree.map(lambda g, w: _assert_close(g, w, f"{name} cache"), full, want_cache)
+
+
+def test_serve_tp2_at_an_odd_cache_length(tmp_path):
+    """``launch.serve --tp 2`` of reduced llama at ``--prompt-len 7 --gen
+    4`` (a cache of 11 positions over 2 ranks): the tokens of ``--tp 1``,
+    every step's logits within 1e-5 of their scale."""
+    from repro_torch.launch import serve
+
+    argv = ["--arch", "llama3.2-3b", "--reduced", "--batch", "2", "--prompt-len", "7", "--gen", "4",
+            "--device", "cpu"]
+    info1 = {}
+    want = serve.main(argv, info=info1, keep_logits=True)
+    results = meshes.spawn(_tp_ranks.serve_rank, 2,
+                           (argv + ["--tp", "2", "--dist-init", f"file://{tmp_path / 'store'}"],),
+                           timeout=SPAWN_TIMEOUT)
+    for gen, info, logits in results:
+        np.testing.assert_array_equal(gen, want)
+        assert len(logits) == len(info1["logits"]) == 4
+        for got, w in zip(logits, info1["logits"]):
+            _assert_close(got, w, "serve --tp 2 --prompt-len 7 logits")
+
+
 def test_cache_parts_tile_the_whole_cache(tmp_path):
     """``convert.cache_from_numpy(shard=)`` on a (2, 2) mesh: each rank's part
     is its ``local_slice`` (sequence by model coordinate, batch by data),
@@ -224,10 +294,11 @@ def _exits(capsys, fn, said):
 
 def test_sharded_paths_refuse_what_they_cannot_run(monkeypatch, capsys):
     """No fallback: --tp above 1 with no process group, a world size tp does
-    not divide, an SSM family whose heads tp does not divide, whisper frames
-    whose length tp does not divide, NCCL with two ranks on one device, and
-    a cache whose length tp does not divide all raise or exit naming the
-    cause."""
+    not divide, a sharded whisper prefill without frames, NCCL with two
+    ranks on one device and a tp other than the mesh's all raise or exit
+    naming the cause. (An SSM family whose heads tp does not divide, whisper
+    frames and a cache length tp does not divide run: test_odd_lengths_match_jax
+    here and in tests/test_torch_tp_families.py, and the layouts below.)"""
     from repro_torch.launch import serve
 
     base = ["--reduced", "--batch", "2", "--prompt-len", "8", "--gen", "2", "--device", "cpu"]
@@ -239,35 +310,18 @@ def test_sharded_paths_refuse_what_they_cannot_run(monkeypatch, capsys):
     monkeypatch.setenv("RANK", "0")
     _exits(capsys, lambda: serve.main(["--arch", "qwen1.5-0.5b", "--tp", "3"] + base),
            "world size 2 is not a multiple of --tp 3")
-    for arch, family in (("rwkv6-7b", "ssm"), ("zamba2-7b", "hybrid")):
-        cfg = get_config(arch).reduced()  # 4 heads
-        with pytest.raises(ValueError, match=f"the {family} family's 4 heads do not split over tp=3"):
-            lm.LM(cfg, 3, device="cpu", shard=_fake_shard(cfg, 1, 3))
-        with pytest.raises(ValueError, match="4 heads do not split over tp=3"):
-            lm.init_cache(cfg, 2, 12, tp=3, device="cpu", shard=_fake_shard(cfg, 1, 3))
     wcfg = get_config("whisper-tiny").reduced()
     wshard = _fake_shard(wcfg, 1, 2)
     wmodel = lm.LM(wcfg, 2, device="cpu", shard=wshard)
     wcache = lm.init_cache(wcfg, 2, 12, tp=2, device="cpu", shard=wshard)
     tokens = torch.zeros((2, 6), dtype=torch.int32)
-    with pytest.raises(ValueError, match=r"the frames' 3 positions do not split over tp=2"):
-        lm.forward_cached(wmodel, wcfg, wcache, tokens, 0, tp=2, shard=wshard,
-                          frames=torch.zeros((2, 3, wcfg.d_model)))
     with pytest.raises(ValueError, match="more than one token is a prefill and needs frames"):
         lm.forward_cached(wmodel, wcfg, wcache, tokens, 0, tp=2, shard=wshard)
-    with pytest.raises(ValueError, match=r"cross-attention cache's 5 positions \(max_seq 10 // 2\) "
-                                         "do not split over tp=2"):
-        lm.init_cache(wcfg, 2, 10, tp=2, device="cpu", shard=wshard)
     monkeypatch.setenv("LOCAL_WORLD_SIZE", "2")
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(RuntimeError, match="two ranks on one device"):
         meshes.init_ranks("nccl", torch.device("cuda"))
     cfg = get_config("qwen1.5-0.5b").reduced()
-    with pytest.raises(ValueError, match=r"9 positions \(max_seq 9\) do not split over tp=2"):
-        lm.init_cache(cfg, 2, 9, tp=2, device="cpu", shard=_fake_shard(cfg, 1, 2))
-    vcfg = get_config("internvl2-26b").reduced()
-    with pytest.raises(ValueError, match=r"max_seq 9 \+ vlm_patches 8\) do not split over tp=2"):
-        lm.init_cache(vcfg, 2, 9, tp=2, device="cpu", shard=_fake_shard(vcfg, 1, 2))
     with pytest.raises(ValueError, match="tp=1 but the mesh's model axis is 2"):
         lm.LM(cfg, 1, device="cpu", shard=_fake_shard(cfg, 1, 2))
 

@@ -69,7 +69,8 @@ def _design_counts(cfg, tp, policy, phase):
     - a vocab-split embed: one sum; a vocab-split head: one gather;
     - RWKV-6 a layer: the ``ln_x`` sum of squares, ``wo``'s and the channel
       mix's ``wv`` row-split products (three sums), the gated columns (one
-      gather); Mamba-2 a layer: the gated norm and ``w_out`` (two sums);
+      gather); Mamba-2 a layer: the gated norm and ``w_out`` (two sums); a
+      mixer whose heads tp does not divide runs whole: none;
     - an attention: ``wo`` (a sum, its rows split unless 'replicate'); with
       a cache under 'shard', the fresh K and V gathered over heads; in
       decode, q gathered over heads (unless 'replicate') and the merge's max
@@ -96,11 +97,12 @@ def _design_counts(cfg, tp, policy, phase):
         c["all_reduce_sum"] += 1
         c["all_gather"] += 1
     n = cfg.n_layers
+    split = cfg.n_heads % tp == 0  # the mixers
     if cfg.family == "ssm":
-        c["all_reduce_sum"] += 3 * n
-        c["all_gather"] += n
+        c["all_reduce_sum"] += 3 * n * split
+        c["all_gather"] += n * split
     elif cfg.family == "hybrid":
-        c["all_reduce_sum"] += 2 * n
+        c["all_reduce_sum"] += 2 * n * split
         for _ in range(n // cfg.shared_every):
             attn("self")
             mlp()
@@ -154,6 +156,66 @@ def test_sharded_family_matches_jax(case, tmp_path):
             assert cache["kv"][0][0].shape[2] == max_seq // tp
         if cfg.family == "encdec":
             assert cache["xkv"][0].shape[3] == N_FRAMES // tp
+    full = _reassemble(cfg, tp, mesh, want_cache, results)
+    jax.tree.map(lambda g, w: _assert_close(g, w, f"{name} cache"), full, want_cache)
+
+
+# Shapes tp does not divide (repaired; ROADMAP.md §3): (id, arch, changes
+# to its reduced config, (data, model) mesh, head policy or None, frames,
+# prompt length). max_seq = prompt + 4 = 17 splits over neither tp.
+# whisper's 7 frames over tp 2: rank 0 holds cross positions 0-3, rank 1
+# 4-6; its 4 frames over tp 3: 0-1, 2-3 and none on rank 2. RWKV-6 and Zamba2 with 4 heads at tp 3 (D 192, so that the JAX
+# rules would split the mixers' columns off head boundaries): the mixers
+# run whole on every rank; zamba2's shared block pads its heads to 6.
+WIDE = {"d_model": 192, "d_head": 48}
+ODD_CASES = [
+    ("encdec-frames-7", "whisper-tiny", {}, (1, 2), "shard", 7, 13),
+    ("encdec-frames-4-1x3", "whisper-tiny", {}, (1, 3), "pad", 4, 13),
+    ("ssm-heads-1x3", "rwkv6-7b", WIDE, (1, 3), None, None, 13),
+    ("hybrid-heads-1x3", "zamba2-7b", {"d_model": 192}, (1, 3), "pad", None, 13),
+]
+
+
+@pytest.mark.parametrize("case", ODD_CASES, ids=[c[0] for c in ODD_CASES])
+def test_odd_lengths_and_heads_match_jax(case, tmp_path):
+    """Prefill + 4 decode steps (the cache's last position) against JAX's
+    forward_cached(..., tp=T) where tp divides neither the cache nor the
+    frames nor the SSM heads: each rank's logits and the reassembled cache
+    (its padding never written) within 1e-5 of their scale, greedy tokens
+    equal, each step's collectives as the design counts them (a mixer that
+    runs whole issues none); the cross cache holds each rank's frames, the
+    SSM state every head."""
+    from test_torch_tp import _reassemble
+
+    name, arch, changes, (dp, tp), policy, frames, t = case
+    jcfg, cfg = _configs(arch, changes)
+    if policy is not None:
+        assert cfg.padded_heads(tp)[2] == policy
+    b, n_dec = 2 * dp, 4
+    max_seq = t + n_dec
+    assert max_seq % tp and (frames is None or frames % tp)
+    params, prompts, extras, tokens, want, want_cache = _jax_run(
+        jcfg, tp, b, t, n_dec, max_seq, frames=frames)
+    results = meshes.spawn(
+        _tp_ranks.forward_rank, dp * tp,
+        (cfg, tp, params, b, max_seq, prompts, extras, tokens, str(tmp_path / "store"), "cpu"),
+        timeout=SPAWN_TIMEOUT)
+    mesh = MeshShape(("data", "model"), (dp, tp))
+    for res in results:
+        lo, hi = res["rows"]
+        for i, (got, w) in enumerate(zip(res["logits"], want)):
+            _assert_close(got, w[lo:hi], f"{name} rank {res['coords']} step {i}")
+            np.testing.assert_array_equal(got[:, -1].argmax(-1), w[lo:hi, -1].argmax(-1))
+        for i, got in enumerate(res["step_stats"]):
+            phase = "prefill" if i == 0 else "decode"
+            counts = {op: n for op, (n, _) in got.items() if n}
+            assert counts == _design_counts(cfg, tp, policy, phase), f"{name} step {i}"
+        cache, r = res["cache"], res["coords"]["model"]
+        if cfg.family in ("ssm", "hybrid"):
+            assert cache["s"].shape[2] == cfg.n_heads  # every head: the mixers run whole
+        if cfg.family == "encdec":
+            s_l = -(-frames // tp)
+            assert cache["xkv"][0].shape[3] == min(frames, (r + 1) * s_l) - r * s_l
     full = _reassemble(cfg, tp, mesh, want_cache, results)
     jax.tree.map(lambda g, w: _assert_close(g, w, f"{name} cache"), full, want_cache)
 

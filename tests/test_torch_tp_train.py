@@ -530,7 +530,7 @@ def test_data_gathers_per_block(spawned):
     assert moe["data_all_reduce_sum"][0] == 2 + n  # + the logits' gradient
 
 
-# -- (7) the launcher, (9) refusals -------------------------------------------------
+# -- (7) the launcher -------------------------------------------------
 
 def _launcher_runs(ckpt):
     """Over two gloo ranks: ``--tp 2``, ``--tp 1`` (pure FSDP), ``--tp 2``
@@ -592,27 +592,3 @@ def test_launcher_checkpoints_whole_leaves_and_resumes(launched):
     want_shapes["opt/step"] = ()
     with np.load(ckpt / "step_000000004" / "arrays.npz") as z:
         assert {k: z[k].shape for k in z.files} == want_shapes
-
-
-def test_training_other_families_over_ranks_refuses(monkeypatch, capsys):
-    """The ssm, hybrid and encdec families over ranks exit (code 2) from the
-    launcher, at --tp 2 or at world 2, and raise from ``loss_fn``, naming
-    ROADMAP.md item 15f."""
-    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE"):
-        monkeypatch.delenv(var, raising=False)
-    for arch, family in (("rwkv6-7b", "ssm"), ("zamba2-7b", "hybrid"), ("whisper-tiny", "encdec")):
-        for argv, env in ((["--tp", "2"], None), ([], "2")):
-            if env:
-                monkeypatch.setenv("WORLD_SIZE", env)
-            with pytest.raises(SystemExit) as exc:
-                train.main(["--arch", arch, "--reduced", "--device", "cpu"] + argv)
-            assert exc.value.code == 2
-            assert f"the {family} family over ranks" in capsys.readouterr().err
-            monkeypatch.delenv("WORLD_SIZE", raising=False)
-        cfg = get_config(arch).reduced()
-        shard = sharding.shard_for(cfg, MeshShape(("data", "model"), (1, 2)), coords=(0, 0),
-                                   mode="train")
-        model = lm.LM(cfg, 2, device="meta", shard=shard)
-        with pytest.raises(NotImplementedError, match="item 15f"):
-            lm.loss_fn(model, cfg, {"tokens": torch.zeros((2, 5), dtype=torch.int32)}, tp=2,
-                       shard=shard)

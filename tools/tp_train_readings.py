@@ -4,9 +4,11 @@
     python3 tools/tp_train_readings.py
 
 Runs phase 17 (``chip_smoke.phase_tp_train``: Llama-3.2-3B cut to 2 layers
-in bf16, granite-moe cut to 2 layers in fp32 and two full-width fp32
-layers of llama, granite and internvl, each trained over two gloo ranks on
-cuda:0 at meshes (1, 2) and (2, 1) against tp 1) once per variant below,
+and whisper-tiny in bf16, granite-moe cut to 2 layers in fp32, two
+full-width fp32 layers of llama, granite and internvl, and rwkv6 (1
+layer), zamba2 (3) and whisper (4 + 4) in fp32, each trained over two
+gloo ranks on cuda:0 at meshes (1, 2) and (2, 1) against tp 1) once per
+variant below,
 each in a process of its own, with every check logged instead of raised,
 and prints the phase's readings and the checks that failed under each. A
 variant is a change made at run time in the ranks (the code on disk is not
@@ -32,6 +34,11 @@ touched; tp 1 runs as it is):
                       rank counts its piece of every leaf (``Shard.counted``
                       True inside it), so a piece that several ranks hold
                       is counted several times in the clip's norm
+  norm_unentered    — a fault of a norm over split channels (RWKV-6's
+                      ``ln_x``, Mamba-2's gated norm): the summed squares'
+                      gradient reaches each rank's own squares unsummed
+                      over the model group (``layers.rms_norm_tp`` without
+                      its ``Shard.enter``)
 
 Prints the card's name and power limit first.
 """
@@ -47,7 +54,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, ROOT)
 
 VARIANTS = ("sound", "enter_unsummed", "scatter_unsummed", "grads_unreduced", "plan_per_rank",
-            "moments_misplaced", "norm_overcounted")
+            "moments_misplaced", "norm_overcounted", "norm_unentered")
 ENV = "TP_TRAIN_VARIANT"
 
 
@@ -102,6 +109,19 @@ def install(variant: str) -> None:
                 tp.Shard.counted = real_counted
 
         adamw.global_norm = overcounted
+    elif variant == "norm_unentered":
+        import torch
+
+        from repro_torch.models import layers, ssm
+
+        def unentered(x, gamma, shard, width, eps=1e-6):
+            if shard.tp == 1 or x.shape[-1] == width:
+                return layers.rms_norm(x, gamma, eps)
+            xf = x.float()
+            sq = shard.all_reduce((xf * xf).sum(dim=-1, keepdim=True))
+            return (xf * torch.rsqrt(sq / width + eps)).to(x.dtype) * gamma
+
+        layers.rms_norm_tp = ssm.rms_norm_tp = unentered
     elif variant != "sound":
         raise ValueError(variant)
 
