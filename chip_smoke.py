@@ -33,7 +33,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``benchmarks/bench_total_latency.py`` bills pagerank_300. The kernels'
    launch counts are zeroed just before and read just after.
 3. The card against the port's own CPU path on ``brain_like`` at scale
-   0.01: non-lazy ADWISE bit-identical, lazy ADWISE agreement and RD, and
+   0.005: non-lazy ADWISE bit-identical, lazy ADWISE agreement and RD, and
    pagerank on both devices on the same partition.
 4. A torch.profiler trace of a short ADWISE run: kernels and device busy
    time per step, against the step's wall time from phase 2.
@@ -68,45 +68,45 @@ Phases (any failure exits non-zero, and no result line is printed):
    top-2 margin exceeds that.
 8. The paper's comparison set through the registry, launch counts zeroed
    just before and read just after: ``hdrf`` and ``greedy`` on brain_like at
-   scale 0.12 (a depth cut that keeps the run inside its time limit with
-   phases 10 and 17), k = 32 (steps/s, µs per edge), each bit-equal to its numpy
-   oracle; ``hash``, ``2ps-l`` (bit-equal to the numpy oracles of both
-   phases), ``2ps`` (the same clustering phase) and
-   ``adwise-restream`` with 2 passes at W = 256 (one ``window_score`` launch
+   scale 0.06 (a depth cut for the smoke's time limit), k = 32 (steps/s,
+   µs per edge), each bit-equal to its numpy oracle; ``hash``, ``2ps-l``
+   (bit-equal to the numpy oracles of both phases), ``2ps`` (the same
+   clustering phase) and ``adwise-restream`` with 2 passes at W = 256 (one ``window_score`` launch
    per step of each pass, pass 2 included; RD(ADWISE) below RD(hash)) at
-   scale 0.04 (``bench_total_latency.py``'s is 0.08: a depth cut for phase
-   17's room); every partition run through 30
+   scale 0.02 (``bench_total_latency.py``'s is 0.08: a depth cut for the
+   smoke's time limit); every partition run through 30
    pagerank supersteps on the card (``segment_sum``) and billed for
    pagerank_300. Then non-lazy ``adwise-restream`` (W = 64) and ``2ps`` on
    the card bit-identical to the CPU path at scale 0.005, and the device kernels and
    busy time per edge of each single-edge core (profiler, the difference of
    two runs).
 
-9. Spotlight and tracing: (a) ``adwise`` on brain_like at scale 1.0 with
+9. Spotlight and tracing: (a) ``adwise`` on brain_like at scale 0.3 with
    z = 8 instances on disjoint blocks of 4 of the k = 32 partitions
    (spread k/z), W = 256, one batched step for all instances — one
    ``window_score`` launch per step — then 30 pagerank supersteps on its
    partition (launch counts zeroed just before and read just after), its
    RD beside phase 2's z = 1 RD, ``hdrf`` and ``dbh`` at the same z and
    spread, and the profiler's kernels and busy µs per step at z = 8
-   (phase 4 has z = 1); (b) ``benchmarks/bench_spotlight.py``'s sweep (scale 0.12, z = 8,
+   (phase 4 has z = 1); (b) ``benchmarks/bench_spotlight.py``'s sweep (scale 0.06, z = 8,
    spreads 32/16/8/4, dbh/hdrf/adwise at W = 128), every edge inside its
    instance's spread; (c) batched against the loop backend bit for bit on
    the card for adwise, hdrf, greedy, 2ps, 2ps-l and adwise-restream (scale
-   0.02, z = 4, spread 8), and a skewed batch of two length buckets
+   0.005, z = 4, spread 8), and a skewed batch of two length buckets
    against z = 1 runs; (d) the batched card against the batched CPU path
-   (scale 0.005, non-lazy where the phase-3 rule asks); (e) a traced
-   ``adwise-restream`` run at scale 0.04 equal to phase 8's untraced run,
+   (scale 0.0025, non-lazy where the phase-3 rule asks); (e) a traced
+   ``adwise-restream`` run at scale 0.02 equal to phase 8's untraced run,
    its Chrome trace export (``build/chip_smoke/trace.json``)
    validated, one scan span per scan call, two pass lanes, 30 superstep
    spans.
 10. Out-of-core (``partition_file`` over graph files, the file-fed ring on
-   the card): (a) a SNAP text dump of the main path's stream ingested
-   (wall, MB/s), byte-equal to ``write_edge_file``'s binary; (b) ADWISE at
-   z = 1, W = 256 from the file with the default 65,536-row chunk (a
-   98,304-row ring that wraps), bit-equal to phase 2's resident run, every
-   row shipped once at 8 B, one ``window_score`` launch per step, every
-   refill into the one ring; its wall against phase 2's, scan calls, spans
+   the card): (a) a SNAP text dump of phase 9 (a)'s stream (brain_like at
+   0.3) ingested (wall, MB/s), byte-equal to ``write_edge_file``'s binary;
+   (b) ADWISE at z = 1, W = 256 from a file of brain_like at 0.04 with an
+   8,192-row chunk (a 12,288-row ring that wraps), prefetch 2, traced,
+   bit-equal to a resident run of the same cut, every row shipped once at
+   8 B, one ``window_score`` launch per step, every refill into the one
+   ring; its wall against the resident run's, scan calls, spans
    prestaged / missed, ``h2d_wait_s``, ``prestage_wall_s`` and the overlap
    1 − wait / prestage; (c) ``repro_torch.launch.partition.main`` on the
    text file with ``--ingest --z 8 --spread 4 --chunk-edges 8192
@@ -114,9 +114,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    z = 8 ADWISE, 30 ``segment_sum`` launches; ``hdrf`` at the same z from
    the file bit-equal to phase 9a's; (d) ``adwise-restream`` (2 passes,
    pass 2 adopting the ring: ``h2d_bytes == 12 m``), ``2ps``, ``2ps-l``,
-   ``dbh`` and ``hash`` at scale 0.04 from files (chunk 32,768), each
-   bit-equal to the in-memory run on the card; (e) at scale 0.04, ADWISE
-   with prefetch 0 equal to prefetch 2, the latter traced: ``refill``
+   ``dbh`` and ``hash`` at scale 0.02 from files (chunk 8,192), each
+   bit-equal to the in-memory run on the card; (e) the same file with
+   prefetch 0 equal to (b)'s prefetch 2, and (b)'s trace: ``refill``
    total = ``h2d_wait_s``, ``stage`` total = ``prestage_wall_s``, one scan
    span per scan call, the export (``build/chip_smoke/oocore_trace.json``)
    validated.
@@ -126,7 +126,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    the bare kernel, dq/dk/dv within one bf16 ulp of autograd through the
    plain version; kernel, plain-backward and SDPA forward + backward times;
    (b) ``repro_torch.launch.train.main`` on Llama-3.2-3B (28 layers, bf16,
-   random weights from seed 0), batch 1, seq 4,096 (``train_4k``'s), 10
+   random weights from seed 0), batch 1, seq 4,096 (``train_4k``'s), 6
    steps, counts zeroed just before and read just after: 56
    ``flash_attention`` launches per step (28 forward + 28 under remat), all
    on the ``wgmma`` body, 28 attention backward calls, every parameter's
@@ -194,7 +194,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    and logits bit-equal to tp 1's; (c) with two cards, llama at tp 2 over
    NCCL on cuda:0-1: (a)'s tokens (logged as not run on one card).
 
-15. The partition → process pipeline over ranks (brain_like cut to 0.15,
+15. The partition → process pipeline over ranks (brain_like cut to 0.08,
    k = 32, W = 256, z = 8, spread 4): (a) spotlight through
    ``partition_stream_batched(backend="shard_map")`` as two gloo ranks on
    cuda:0 (spawned; a file store under ``build/chip_smoke/ranks``; joined
@@ -258,6 +258,20 @@ Phases (any failure exits non-zero, and no result line is printed):
    held to the plain version (``tpt_flash_shapes``); (d) NCCL at world 1 in this process: (a)'s losses and (c)'s
    llama sketches bit-equal to the run with no group; with two cards, (a)
    at tp 2 over NCCL on cuda:0-1 (logged as not run on one card).
+
+18. The multi-pod dry run (``repro_torch.launch.dryrun``: a rank's step on
+   ``meta`` tensors, its shard counting collectives without issuing them),
+   held to the runs above: (a) every rank of phase 17 (a) (llama and
+   whisper on (1, 2) and (2, 1)) — each training step's collectives by op,
+   count and bytes equal the dry run's, its parameter and AdamW bytes the
+   pieces the rank held, and its measured peak over the dry run's live
+   peak plus the launcher's residual within ``DRY_PEAK_RATIO``; every
+   rank of phase 14 (a) — the prefill's and the decode steps' collectives;
+   (b) the dry run's CLI on ``DRY_CELLS`` at production size (rank 0 of
+   256): status ok, no card memory allocated and no kernel launched in the
+   phase; (c) the dry run's FLOPs of phase 11's training step over its
+   measured wall: the achieved rate beside phase 11's share of the bf16
+   peak. Phase 18 launches nothing.
 
 The kernels' ``launches`` are those of phases 2, 6, 8, 9, 10, 11, 12, 13, 14,
 15, 16 and 17 (each path's counts zeroed just before it and read just after;
@@ -635,8 +649,9 @@ def phase_kernels(edges, n):
 SS_WAS_MS = {1: 0.01153, 256: 0.26669}
 
 
-def profile_session(fn, what: str, tries: int = 3):
-    """``fn()`` under torch.profiler (CPU and CUDA activity), the device
+def profile_session(fn, what: str, tries: int = 3, cpu: bool = False):
+    """``fn()`` under torch.profiler (CUDA activity; CPU activity too where
+    ``cpu``, which ``record_function`` ranges need), the device
     synchronised before the session ends: (its result, the profile, the
     device's kernels and copies, the session's wall in s). CUPTI now and
     then hands back a session with no device record at all although the
@@ -650,8 +665,9 @@ def profile_session(fn, what: str, tries: int = 3):
 
     from repro_torch.kernels import device_kernels
 
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
     for session in range(1, tries + 1):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=activities) as prof:
             t0 = time.perf_counter()
             out = fn()
             torch.cuda.synchronize()
@@ -661,6 +677,34 @@ def profile_session(fn, what: str, tries: int = 3):
             break
         log(f"{what}: the profiler recorded no device activity (session {session} of {tries})")
     return out, prof, kern, wall
+
+
+def range_device_us(prof, names) -> dict:
+    """Device µs of the kernels launched inside each ``record_function``
+    range of ``names`` in a CPU + CUDA profile, summed over the range's
+    calls: what ``key_averages()`` gives as the range's
+    ``device_time_total``, read from the raw records (a kernel belongs to
+    the range whose span holds its runtime launch on the same thread) in a
+    tenth of a second where ``key_averages()`` takes ~15 s on a full
+    training step."""
+    from torch.autograd import DeviceType
+
+    spans, launches, kernels = [], {}, []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CPU:
+            if e.name() in names:
+                spans.append((e.name(), e.start_thread_id(), e.start_ns(), e.end_ns()))
+            elif e.name().startswith("cu") and e.correlation_id():  # cudaLaunchKernel and kin
+                launches[e.correlation_id()] = (e.start_thread_id(), e.start_ns())
+        elif e.device_type() == DeviceType.CUDA and not e.is_user_annotation():
+            kernels.append((e.correlation_id(), e.duration_ns()))
+    totals = dict.fromkeys(names, 0.0)
+    for corr, dur in kernels:
+        launch = launches.get(corr)
+        for name, tid, start, end in spans if launch else ():
+            if tid == launch[0] and start <= launch[1] <= end:
+                totals[name] += dur / 1e3
+    return totals
 
 
 def profiled(fn, what: str, tries: int = 3):
@@ -810,7 +854,7 @@ def phase_main_path(edges, n, k, window_max):
 
 # Phase 3's scale (a depth cut for the smoke's time limit: the CPU's
 # non-lazy ADWISE run leads the phase).
-CPU_PARITY_SCALE = 0.01
+CPU_PARITY_SCALE = 0.005
 
 
 def phase_cpu_parity(k):
@@ -887,9 +931,9 @@ def phase_profile(k):
 # The window of bench_total_latency.py's adwise-restream rows at W = 256
 # (benchmarks/common.py: window_init = W // 4), and its default scale.
 RESTREAM_CFG = dict(passes=2, window_max=256, window_init=64)
-# The restreaming set's scale: bench_total_latency.py's 0.08, cut to 0.04 for
+# The restreaming set's scale: bench_total_latency.py's 0.08, cut to 0.02 for
 # the smoke's time limit (phases 8, 9 e and 10 d run it).
-BENCH_SCALE = 0.04
+BENCH_SCALE = 0.02
 
 
 def profile_per_edge(run, m_short: int, m_long: int) -> tuple[float, float]:
@@ -928,7 +972,7 @@ def bill(name, res, edges, n, k, graph):
                 wall_s=res.stats["wall_time_s"], t_partition_s=t_part, t_process_s=t_proc)
 
 
-SINGLE_EDGE_SCALE = 0.12  # phase 8's hdrf / greedy: one torch step per edge
+SINGLE_EDGE_SCALE = 0.06  # phase 8's hdrf / greedy: one torch step per edge (a depth cut)
 
 
 def phase_comparison(k):
@@ -945,7 +989,7 @@ def phase_comparison(k):
 
     rows = []
     ops.reset_launch_counts()
-    # Single-edge cores, a quarter of the preset.
+    # Single-edge cores at SINGLE_EDGE_SCALE.
     edges_q, n_q = make_graph("brain_like", seed=0, scale=SINGLE_EDGE_SCALE)
     graph_q = f"brain_like {SINGLE_EDGE_SCALE}"
     for name in ("hdrf", "greedy"):
@@ -1044,6 +1088,10 @@ def phase_comparison(k):
 # ----------------------------------------------------------------------------
 
 SPOT_Z, SPOT_SPREAD = 8, 4  # k/z: disjoint blocks, the paper's recommendation
+# Phase 9 (a)'s stream and phase 10 (a) and (c)'s: brain_like cut to 0.3 of
+# its scale (105,571 edges; a depth cut for the smoke's time limit, each
+# instance's share still past the 12,288-row ring of 10 (c)'s chunk).
+SPOT_SCALE = 0.3
 
 
 def spread_ok(assign, m, k, z, spread):
@@ -1061,11 +1109,12 @@ def spread_ok(assign, m, k, z, spread):
 
 
 def phase_spotlight(edges, n, k, window_max, rd_z1):
-    """(a) the spotlight path at full width: ADWISE with z = 8 instances on
-    blocks of 4 partitions, one batched step each, then pagerank on its
-    partition (the path whose launches are counted); hdrf and dbh at the
-    same z and spread. ``rd_z1`` is phase 2's RD at z = 1. Returns the
-    launch counts of (a)'s ADWISE path."""
+    """(a) the spotlight path at full width on brain_like at ``SPOT_SCALE``
+    (``edges``): ADWISE with z = 8 instances on blocks of 4 partitions, one
+    batched step each, then pagerank on its partition (the path whose
+    launches are counted); hdrf and dbh at the same z and spread. ``rd_z1``
+    is phase 2's RD at z = 1 (full scale). Returns the launch counts of
+    (a)'s ADWISE path."""
     import numpy as np
     import torch
 
@@ -1096,7 +1145,7 @@ def phase_spotlight(edges, n, k, window_max, rd_z1):
     counts = ops.launch_counts()
     check(np.isfinite(pr).all() and counts["segment_sum"] == 30,
           "spotlight adwise: pagerank finite, 30 segment_sum launches")
-    log(f"spotlight adwise z={z} spread={spread} (brain_like 1.0, m={m}, k={k}, W={window_max}): "
+    log(f"spotlight adwise z={z} spread={spread} (brain_like {SPOT_SCALE}, m={m}, k={k}, W={window_max}): "
         f"RD={rd:.4f} (z=1, phase 2: {rd_z1:.4f}) wall_s={st['wall_time_s']:.3f} "
         f"setup_s={st['setup_s']:.3f} steps={st['steps_run']} "
         f"us_per_step={loop_s / st['steps_run'] * 1e6:.2f} scan_calls={st['scan_calls']} "
@@ -1134,14 +1183,18 @@ def phase_spotlight(edges, n, k, window_max, rd_z1):
     return counts, spot
 
 
+# Phase 9 (b)'s scale: bench_spotlight.py's 0.12, cut for the smoke's time.
+SWEEP_SCALE = 0.06
+
+
 def phase_spotlight_sweep(k):
     """(b) benchmarks/bench_spotlight.py's sweep on the card."""
     from repro_torch.core import AdwiseConfig, spotlight_partition
     from repro_torch.graph import make_graph, replica_sets_from_assignment, replication_degree
 
-    edges, n = make_graph("brain_like", seed=0, scale=0.12)
+    edges, n = make_graph("brain_like", seed=0, scale=SWEEP_SCALE)
     z = SPOT_Z
-    log(f"spotlight sweep brain_like 0.12 (m={len(edges)}), k={k}, z={z}")
+    log(f"spotlight sweep brain_like {SWEEP_SCALE} (m={len(edges)}), k={k}, z={z}")
     log("strategy,spread,RD,improvement_vs_full,wall_s")
     for strategy in ("dbh", "hdrf", "adwise"):
         full_rd = None
@@ -1155,6 +1208,13 @@ def phase_spotlight_sweep(k):
             full_rd = full_rd or rd
             log(f"{strategy},{spread},{rd:.4f},{100 * (1 - rd / full_rd):.1f}%,"
                 f"{res.stats['wall_time_s']:.3f}")
+
+
+# Phase 9 (c)'s and (d)'s scales (depth cuts for the smoke's time limit:
+# the loop backend runs its four instances one after another, and the CPU
+# path is slower still).
+SPOT_PARITY_SCALE = 0.005
+SPOT_CPU_SCALE = 0.0025
 
 
 def phase_spotlight_parity(k):
@@ -1172,17 +1232,18 @@ def phase_spotlight_parity(k):
         ("hdrf", {}), ("greedy", {}), ("2ps", {}), ("2ps-l", {}),
         ("adwise-restream", dict(strategy_cfg=dict(passes=2, window_max=64, window_init=16))),
     ]
-    edges, n = make_graph("brain_like", seed=0, scale=0.02)
+    par, n_par = make_graph("brain_like", seed=0, scale=SPOT_PARITY_SCALE)
     for name, kw in cases:
-        a = spotlight_partition(edges, n, k, z=4, spread=8, strategy=name, device="cuda", **kw)
-        b = spotlight_partition(edges, n, k, z=4, spread=8, strategy=name, device="cuda",
+        a = spotlight_partition(par, n_par, k, z=4, spread=8, strategy=name, device="cuda", **kw)
+        b = spotlight_partition(par, n_par, k, z=4, spread=8, strategy=name, device="cuda",
                                 backend="loop", **kw)
         check(np.array_equal(a.assign, b.assign),
-              f"spotlight {name} (brain_like 0.02, z=4): batched equals loop on the card")
+              f"spotlight {name} (brain_like {SPOT_PARITY_SCALE}, z=4): batched equals loop on the card")
         log(f"spotlight parity {name}: batched wall_s={a.stats['wall_time_s']:.3f} "
             f"loop max-instance wall_s={b.stats['wall_time_s']:.3f} "
             f"loop serial wall_s={b.stats['wall_time_serial_s']:.3f}")
     # Two length buckets: 3 instances of 300 edges, one of 3,000.
+    edges, n = make_graph("brain_like", seed=0, scale=0.02)
     ms = [300, 300, 3000, 300]
     streams = np.zeros((4, max(ms), 2), np.int32)
     valid = np.zeros((4, max(ms)), bool)
@@ -1199,7 +1260,7 @@ def phase_spotlight_parity(k):
         check(np.array_equal(one.assign, got[i].assign),
               f"skewed batch instance {i} ({mi} edges): equals its z = 1 run on the card")
 
-    small, n_small = make_graph("brain_like", seed=0, scale=0.005)
+    small, n_small = make_graph("brain_like", seed=0, scale=SPOT_CPU_SCALE)
     nonlazy = dict(window_max=64, window_init=16, lazy=False)
     cases = [
         ("adwise", dict(cfg=AdwiseConfig(k=k, window_max=64))),
@@ -1210,7 +1271,7 @@ def phase_spotlight_parity(k):
         a = spotlight_partition(small, n_small, k, z=4, spread=8, strategy=name, device="cuda", **kw)
         b = spotlight_partition(small, n_small, k, z=4, spread=8, strategy=name, device="cpu", **kw)
         check(np.array_equal(a.assign, b.assign),
-              f"spotlight {name} (brain_like 0.005, z=4): the batched card equals the batched CPU")
+              f"spotlight {name} (brain_like {SPOT_CPU_SCALE}, z=4): the batched card equals the batched CPU")
 
 
 def phase_tracing(k, untraced):
@@ -1262,14 +1323,15 @@ def phase_tracing(k, untraced):
 # Phase 10: out-of-core — graph files, the file-fed ring, partition_file
 # ----------------------------------------------------------------------------
 
-OOC_CHUNK_SMALL = 32768  # phase 10(d): B = 49,152 rows >= m, so restream adopts the ring
-# Phase 10(b)'s depth cut: 105,571 edges, past the 98,304 rows of the
-# default chunk's ring, so the ring still wraps (at full scale, 137.0 s on
-# an NVIDIA H100 80GB HBM3 at 700 W, the smoke's largest phase after 2).
-OOC_FILE_SCALE = 0.3
-# Phase 10(e)'s scale (a depth cut): its stream still wraps the 12,288-row
-# ring of the 8,192-row chunk.
-OOC_PREFETCH_SCALE = 0.04
+# Phase 10(d)'s chunk: its ring of B = 12,288 rows holds the m = 7,077 rows
+# of BENCH_SCALE, so restream adopts the ring; a file run's scan call runs
+# the chunk's steps whatever m is, so a larger chunk only adds padded steps.
+OOC_CHUNK_SMALL = 8192
+# Phase 10 (b) and (e)'s depth cut: 14,069 edges, past the 12,288 rows of
+# the 8,192-row chunk's ring, so the ring still wraps (at full scale and the
+# default 65,536-row chunk, 137.0 s on an NVIDIA H100 80GB HBM3 at 700 W).
+OOC_FILE_SCALE = 0.04
+OOC_FILE_CHUNK = 8192
 
 
 def ooc_dir() -> str:
@@ -1295,14 +1357,14 @@ def ring_line(st: dict) -> str:
 
 
 def phase_oocore(edges, n, k, window_max, spot, cmp_res):
-    """(a) ingest a SNAP text dump of brain_like, byte-equal to the binary
-    writer; (b) ADWISE at z = 1 from a file of brain_like at scale
-    ``OOC_FILE_SCALE``, bit-equal to a resident run of the same cut; (c)
-    z = 8 through the launcher from the full-scale text file, bit-equal to
-    phase 9a (``spot``), then pagerank; hdrf at the
-    same z; (d) the restreaming set, dbh and hash at ``BENCH_SCALE`` from files,
+    """(a) ingest a SNAP text dump of phase 9a's stream (``edges``, brain_like
+    at ``SPOT_SCALE``), byte-equal to the binary writer; (b) ADWISE at z = 1
+    from a file of brain_like at scale ``OOC_FILE_SCALE`` (prefetch 2,
+    traced), bit-equal to a resident run of the same cut; (c) z = 8
+    through the launcher from the text file, bit-equal to phase 9a
+    (``spot``), then pagerank; hdrf at the same z; (d) the restreaming set, dbh and hash at ``BENCH_SCALE`` from files,
     bit-equal to the in-memory runs (phase 8's, ``cmp_res``); (e) prefetch
-    0 against 2 at scale ``OOC_PREFETCH_SCALE``, and a traced file run
+    0 against (b)'s prefetch 2, and (b)'s traced file run
     whose category totals are its counters. Returns the launch counts of
     (b)-(e)."""
     import contextlib
@@ -1320,10 +1382,10 @@ def phase_oocore(edges, n, k, window_max, spot, cmp_res):
 
     out_dir = ooc_dir()
     m = len(edges)
-    # (a) Ingest: the SNAP text form of the main path's stream.
+    # (a) Ingest: the SNAP text form of phase 9a's stream.
     text = os.path.join(out_dir, "brain_like.txt")
     with open(text, "w") as f:
-        f.write(f"# brain_like scale 1.0: {n} vertices, {m} edges (u v)\n")
+        f.write(f"# brain_like scale {SPOT_SCALE}: {n} vertices, {m} edges (u v)\n")
         np.savetxt(f, edges, fmt="%d", delimiter="\t")
     binary = os.path.join(out_dir, "brain_like.adw")
     ingested = os.path.join(out_dir, "ingested.adw")
@@ -1336,10 +1398,10 @@ def phase_oocore(edges, n, k, window_max, spot, cmp_res):
         f"parser {rep.parser}); binary {os.path.getsize(binary)} bytes")
 
     ops.reset_launch_counts()
-    # (b) ADWISE from a file at a depth cut that still wraps the default
-    # chunk's ring (65,536-row chunk, 98,304-row ring), beside a resident run
-    # of the same cut. Phase 2 holds the resident path at full scale, and (c)
-    # the file path at full scale.
+    # (b) ADWISE from a file at a depth cut that still wraps its chunk's ring
+    # (8,192-row chunk, 12,288-row ring), prefetch 2 and traced (the run (e)
+    # reads), beside a resident run of the same cut. Phase 2 holds the
+    # resident path at full scale.
     cut, n_cut = make_graph("brain_like", seed=0, scale=OOC_FILE_SCALE)
     m_cut = len(cut)
     cut_path = os.path.join(out_dir, f"brain_like_{OOC_FILE_SCALE}.adw")
@@ -1347,9 +1409,10 @@ def phase_oocore(edges, n, k, window_max, spot, cmp_res):
     resident = run_partitioner("adwise", cut, n_cut, k, window_max=window_max, device="cuda")
     torch.cuda.synchronize()
     before = ops.launch_counts()["window_score"]
+    tr = Tracer()
     with EdgeFileReader(cut_path) as r:
-        res = partition_file(r, "adwise", k, window_max=window_max, device="cuda",
-                             spill_dir=os.path.join(out_dir, "b"))
+        res = partition_file(r, "adwise", k, window_max=window_max, chunk_edges=OOC_FILE_CHUNK,
+                             prefetch=2, trace=tr, device="cuda", spill_dir=os.path.join(out_dir, "b"))
     torch.cuda.synchronize()
     ws = ops.launch_counts()["window_score"] - before
     st = res.stats
@@ -1363,7 +1426,8 @@ def phase_oocore(edges, n, k, window_max, spot, cmp_res):
     check(st["buffer_rows"] < m_cut, "oocore adwise z=1: the ring wraps")
     rst = resident.stats
     loop_s = st["wall_time_s"] - st["setup_s"]
-    log(f"oocore adwise z=1 (brain_like {OOC_FILE_SCALE}, m={m_cut}, k={k}, W={window_max}, chunk 65536): "
+    log(f"oocore adwise z=1 (brain_like {OOC_FILE_SCALE}, m={m_cut}, k={k}, W={window_max}, "
+        f"chunk {OOC_FILE_CHUNK}, prefetch 2, traced): "
         f"wall_s={st['wall_time_s']:.3f} (resident, same cut: {rst['wall_time_s']:.3f}; "
         f"ratio {st['wall_time_s'] / rst['wall_time_s']:.4f}) setup_s={st['setup_s']:.3f} "
         f"us_per_step={loop_s / st['steps_run'] * 1e6:.2f} resident_steps={rst['steps_run']} "
@@ -1436,19 +1500,13 @@ def phase_oocore(edges, n, k, window_max, spot, cmp_res):
             check(fst["h2d_rows"] == ms and fst["h2d_bytes"] == 12 * ms,
                   "oocore adwise-restream: pass 2 adopts the ring (h2d_bytes == 12 m)")
 
-    # (e) The pipeline: prefetch 0 against 2, the second run traced.
-    mid, n_mid = make_graph("brain_like", seed=0, scale=OOC_PREFETCH_SCALE)
-    mid_path = os.path.join(out_dir, f"brain_like_{OOC_PREFETCH_SCALE}.adw")
-    write_edge_file(mid_path, mid, n_mid)
-    runs = {}
-    tr = Tracer()
-    for pf, trace in ((0, None), (2, tr)):
-        with EdgeFileReader(mid_path) as r:
-            runs[pf] = partition_file(r, "adwise", k, window_max=window_max, chunk_edges=8192,
-                                      prefetch=pf, trace=trace, device="cuda",
-                                      spill_dir=os.path.join(out_dir, f"e{pf}"))
+    # (e) The pipeline: prefetch 0 against (b)'s prefetch 2, which ran traced.
+    runs = {2: res}
+    with EdgeFileReader(cut_path) as r:
+        runs[0] = partition_file(r, "adwise", k, window_max=window_max, chunk_edges=OOC_FILE_CHUNK,
+                                 prefetch=0, device="cuda", spill_dir=os.path.join(out_dir, "e0"))
     check(np.array_equal(np.asarray(runs[0].assign), np.asarray(runs[2].assign)),
-          f"oocore adwise (brain_like {OOC_PREFETCH_SCALE}): prefetch 0 equals prefetch 2 bit for bit")
+          f"oocore adwise (brain_like {OOC_FILE_SCALE}): prefetch 0 equals prefetch 2 bit for bit")
     est = runs[2].stats
     cats = tr.summary().categories
     check(abs(cats.get("refill", {}).get("wall_s", 0.0) - est["h2d_wait_s"]) < 1e-6,
@@ -1462,7 +1520,7 @@ def phase_oocore(edges, n, k, window_max, spot, cmp_res):
         problems = validate_chrome_trace(json.load(f))
     check(problems == [], f"oocore trace export validates ({problems[:3]})")
     for pf in (0, 2):
-        log(f"oocore adwise prefetch={pf} (brain_like {OOC_PREFETCH_SCALE}, m={len(mid)}, chunk 8192"
+        log(f"oocore adwise prefetch={pf} (brain_like {OOC_FILE_SCALE}, m={m_cut}, chunk {OOC_FILE_CHUNK}"
             f"{', traced' if pf else ''}): wall_s={runs[pf].stats['wall_time_s']:.3f} "
             f"{ring_line(runs[pf].stats)}")
     log(f"oocore trace: events={n_events} "
@@ -1785,7 +1843,7 @@ def phase_lm_parity():
 # ----------------------------------------------------------------------------
 
 TRAIN_SEQ = 4096  # the sequence length of the train_4k shape (configs/base.py)
-TRAIN_STEPS = 10
+TRAIN_STEPS = 6
 TRAIN_ARGS = ["--arch", "llama3.2-3b", "--seq", str(TRAIN_SEQ), "--batch", "1",
               "--steps", str(TRAIN_STEPS), "--lr", "1e-3", "--device", "cuda"]
 # Names of the GEMM kernels (cuBLAS / CUTLASS) in a profile.
@@ -1900,12 +1958,13 @@ def phase_train(attn):
     """(b) ``launch.train.main`` on full-width Llama-3.2-3B (bf16, batch 1,
     seq 4096, random weights from seed 0), its launches counted from zero;
     then a profile of one step and the step split by CUDA events. Returns
-    the run's kernel launch counts."""
+    the run's kernel launch counts and its reading (``step_s``, the median
+    step's wall; ``model_flops`` and ``bf16_peak_share`` as logged), which
+    phase 18 (c) reads."""
     import gc
 
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
 
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
@@ -1927,7 +1986,7 @@ def phase_train(attn):
     counts = ops.launch_counts()
     by_body = dict(fa.LAUNCHES_BY_BODY)
     per_step = 2 * cfg.n_layers
-    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)), "train: 10 finite losses")
+    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)), f"train: {TRAIN_STEPS} finite losses")
     check(losses[-1] < losses[0], f"train: the last loss below the first ({losses[0]:.4f} -> {losses[-1]:.4f})")
     check(info["flash_launches"] == [per_step] * TRAIN_STEPS,
           f"train: exactly {per_step} flash_attention launches per step ({info['flash_launches']})")
@@ -1956,6 +2015,8 @@ def phase_train(attn):
         f"bf16_peak_share={model_flops / step_s / BF16_OPS_PER_S:.4f} "
         f"peak_mem_GiB={info['peak_bytes'] / 2**30:.3f} main_wall_s={wall:.3f} "
         f"flash_launches_per_step={per_step} attn_backward_per_step={cfg.n_layers}")
+    reading = dict(step_s=step_s, model_flops=model_flops,
+                   bf16_peak_share=model_flops / step_s / BF16_OPS_PER_S)
     del info, losses
     gc.collect()
     torch.cuda.empty_cache()
@@ -1966,9 +2027,8 @@ def phase_train(attn):
     data = SyntheticTokens(cfg, ShapeConfig("cli", TRAIN_SEQ, 1, "train"), seed=0)
     batch = {"tokens": torch.as_tensor(data.batch_at(0)["tokens"]).cuda()}
     step(state, batch)  # warm
-    _, prof, kern, wall_prof = profile_session(lambda: step(state, batch), "train step profile")
-    ranges = {e.key: e.device_time_total for e in prof.key_averages()
-              if e.key in TRAIN_RANGES and e.device_type != DeviceType.CUDA}
+    _, prof, kern, wall_prof = profile_session(lambda: step(state, batch), "train step profile", cpu=True)
+    ranges = range_device_us(prof, TRAIN_RANGES)
     check(not any(e.key in TRAIN_RANGES for e in kern),
           "train step profile: device_kernels holds no record_function range")
     busy = sum(e.self_device_time_total for e in kern)
@@ -2012,7 +2072,7 @@ def phase_train(attn):
     del model, state, params, loss, batch
     gc.collect()
     torch.cuda.empty_cache()
-    return counts
+    return counts, reading
 
 
 def phase_train_parity():
@@ -2042,17 +2102,18 @@ def phase_train_parity():
         with torch.no_grad():
             for n, p in model.named_parameters():
                 p.copy_(start[n] if start is not None else p.bfloat16())
-        begin = {n: p.detach().cpu().float().clone() for n, p in model.named_parameters()}
+        begin = {n: p.detach().float().clone() for n, p in model.named_parameters()}
         step = train.make_step(model, cfg, lambda s: 1e-3)
         bodies = dict(fa.LAUNCHES_BY_BODY)
         _, metrics = step(state, {"tokens": toks.to(dev)})
+        # Each run's tensors stay on its device; the CPU's go to the card
+        # once, where the comparisons run.
         res = dict(
             start=begin, loss=metrics["loss"], launches=metrics["flash_launches"],
             bodies={b: fa.LAUNCHES_BY_BODY[b] - bodies[b] for b in fa.BODIES},
-            grads={n: p.grad.cpu().float() for n, p in model.named_parameters()},
-            m={n: t.cpu() for n, t in state["opt"]["m"].items()},
-            v={n: t.cpu() for n, t in state["opt"]["v"].items()},
-            params={n: p.detach().cpu().float() for n, p in model.named_parameters()},
+            grads={n: p.grad.float() for n, p in model.named_parameters()},
+            m=dict(state["opt"]["m"]), v=dict(state["opt"]["v"]),
+            params={n: p.detach().float() for n, p in model.named_parameters()},
         )
         del model, state, step
         gc.collect()
@@ -2061,6 +2122,8 @@ def phase_train_parity():
     a = run(cfg32, "cpu", None)
     g = run(cfg32, "cuda", a["start"])
     h = run(cfg16, "cuda", a["start"])
+    for key in ("start", "grads", "m", "v", "params"):
+        a[key] = {n: t.cuda() for n, t in a[key].items()}
     torch.cuda.empty_cache()
 
     def rel(x, y):
@@ -2101,6 +2164,8 @@ def phase_train_parity():
           f"train parity bf16: every gradient within {BF16_GRAD_TOL} relative norm of fp32 "
           f"({bf_worst} {bf_grads[bf_worst]:.2e})")
     del a, g, h
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def phase_train_launcher():
@@ -2714,11 +2779,14 @@ def phase_family_train_parity():
                         state, {k: torch.as_tensor(v).to(dev) for k, v in batch.items()})
                     del state
                 walls[key] = time.perf_counter() - t1
-                res[key] = dict(metrics=metrics, grads={n: p.grad.float().cpu() for n, p in params.items()})
+                # Each run's gradients stay on its device; the CPU's go to
+                # the card once, where the comparisons run.
+                res[key] = dict(metrics=metrics, grads={n: p.grad.float() for n, p in params.items()})
                 del params, model
                 gc.collect()
                 torch.cuda.empty_cache()
             a = res.pop("cpu")
+            a["grads"] = {n: y.cuda() for n, y in a["grads"].items()}
             launches, n_bwd = lm.attention_calls(cfg)
             notes = []
             tols = {"cuda": (FAMILY_TRAIN_LOSS_TOL, FAMILY_TRAIN_LOSS_TOL, FAMILY_TRAIN_GRAD_TOL),
@@ -2762,6 +2830,7 @@ def phase_family_train_parity():
                 + f"; wall cpu loss+backward={walls['cpu']:.1f}s total {time.perf_counter() - t0:.1f}s")
             del a, res
             gc.collect()
+            torch.cuda.empty_cache()
 
 
 # ----------------------------------------------------------------------------
@@ -3027,7 +3096,8 @@ def phase_tp():
     over NCCL through the distributed path: tokens and every step's logits
     bit-equal to tp 1's; (c) with two cards, llama at tp 2 over NCCL on
     cuda:0-1: (a)'s tokens. Returns the ranks' launch counts (both ranks,
-    every run of (a)-(c))."""
+    every run of (a)-(c)) and (a)'s infos, arch -> [rank 0's, rank 1's]
+    (phase 18 reads their collectives)."""
     import gc
 
     import torch
@@ -3050,6 +3120,16 @@ def phase_tp():
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
 
+    # (b)'s one NCCL rank runs beside (a)'s two gloo ranks (its process
+    # start overlaps theirs); its check is bit-equality, which sharing the
+    # card cannot move.
+    arch_b = TP_RUNS[0]
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    t0_b = time.perf_counter()
+    future_b = pool.submit(meshes.spawn, tp_rank, 1,
+                           ([base[arch_b] + ["--dist-backend", "nccl", "--dist-init",
+                                             f"file://{tp_store('nccl-1')}"]],),
+                           timeout=TP_TIMEOUT)
     t0 = time.perf_counter()
     argvs = [base[a] + ["--tp", "2", "--dist-backend", "gloo",
                         "--dist-init", f"file://{tp_store('gloo-' + a)}"] for a in TP_RUNS]
@@ -3098,15 +3178,15 @@ def phase_tp():
                     + "; prefill: " + ", ".join(f"{op} {n} {nb}" for op, (n, nb)
                                                 in sorted(info["prefill_collectives"].items())))
         check(np.array_equal(ranks[0][i][0], ranks[1][i][0]), f"tp (a) {arch}: both ranks' tokens equal")
+    infos = {arch: [runs[i][1] for runs in ranks] for i, arch in enumerate(TP_RUNS)}
     tokens_a = ranks[0][0][0]
     del ranks
     gc.collect()
 
-    t0 = time.perf_counter()
-    arch = TP_RUNS[0]
-    (one,) = meshes.spawn(tp_rank, 1, ([base[arch] + ["--dist-backend", "nccl", "--dist-init",
-                                                       f"file://{tp_store('nccl-1')}"]],),
-                          timeout=TP_TIMEOUT)
+    arch = arch_b
+    (one,) = future_b.result()
+    pool.shutdown()
+    t_b = time.perf_counter() - t0_b
     gen, info, logits = one[0][:3]
     add(info["counts"])
     check(info["backend"] == "nccl" and info["world"] == 1, "tp (b): the NCCL group of one rank ran")
@@ -3114,7 +3194,7 @@ def phase_tp():
         np.array_equal(a, c) for a, c in zip(logits, ref[arch][2])),
         "tp (b): NCCL at world 1 gives tp 1's tokens and logits bit for bit")
     log(f"tp (b) {arch} NCCL world 1: tokens and {len(logits)} steps' logits bit-equal to the "
-        f"non-distributed run; {time.perf_counter() - t0:.1f}s (spawn included)")
+        f"non-distributed run; {t_b:.1f}s (spawn included, beside (a)'s ranks)")
 
     if torch.cuda.device_count() >= 2:
         t0 = time.perf_counter()
@@ -3130,17 +3210,17 @@ def phase_tp():
             f"{time.perf_counter() - t0:.1f}s")
     else:
         log(f"tp (c): not run: {torch.cuda.device_count()} card(s), two needed")
-    return total
+    return total, infos
 
 # ----------------------------------------------------------------------------
 # Phase 15: the partition -> process pipeline over ranks
 # ----------------------------------------------------------------------------
 
-# brain_like cut to 0.15 of its scale (a depth cut for the phase's time,
-# 0.25 until phase 17 came: two ranks on one card share it, so the batched
-# steps take about twice as long as one process's); k, W, z and spread are
-# phase 9's.
-RANKS_SCALE = 0.15
+# brain_like cut to 0.08 of its scale (a depth cut for the smoke's time
+# limit; 0.25 until phase 17 came, 0.15 until phase 18 came: two ranks on
+# one card share it, so the batched steps take about twice as long as one
+# process's); k, W, z and spread are phase 9's.
+RANKS_SCALE = 0.08
 RANKS_K, RANKS_W, RANKS_ITERS = 32, 256, 30
 RANKS_TIMEOUT = 300.0
 # Per-instance stats a sharded run must give as one process does (the walls,
@@ -3864,8 +3944,9 @@ def tpt_train(argv, cfg):
     """``launch.train.main(argv, info, cfg=cfg)`` in this process (a rank or
     the smoke's own), its counts zeroed just before and read just after,
     the flash launches' (q, k) shapes and each MoE call's routes (this
-    rank's rows), expert loads and the first call's output recorded.
-    Returns (losses, info, the MoE record)."""
+    rank's rows), expert loads and the first call's output recorded, and
+    the bytes of the state the rank holds (``info["state_bytes"]``: params,
+    m, v, residual). Returns (losses, info, the MoE record)."""
     import torch
 
     from repro_torch.kernels import ops
@@ -3885,16 +3966,26 @@ def tpt_train(argv, cfg):
             rec["outputs"].append(out[0].detach().float().cpu().numpy())
         return out
 
+    real_build = train.build_state
+
+    def build(*a, **kw):  # the bytes of the state the rank holds
+        model, state = real_build(*a, **kw)
+        info["state_bytes"] = {k: sum(t.numel() * t.element_size() for t in tree.values())
+                               for k, tree in (("params", state["params"]), ("m", state["opt"]["m"]),
+                                               ("v", state["opt"]["v"]),
+                                               ("residual", state["residual"]))}
+        return model, state
+
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    layers.moe_ffn = recording_moe
+    layers.moe_ffn, train.build_state = recording_moe, build
     try:
         with FlashShapes() as fl:
             ops.reset_launch_counts()
             losses = train.main(argv, info=info, cfg=cfg)
             info["counts"] = ops.launch_counts()
     finally:
-        layers.moe_ffn = real_moe
+        layers.moe_ffn, train.build_state = real_moe, real_build
     if info["peak_bytes"] is not None:
         info["peak_bytes"] -= base  # what the run itself held at its peak
     info["flash_shapes"] = sorted(set(fl.shapes))
@@ -4153,7 +4244,9 @@ def phase_tp_train(pending=None):
     (c)'s llama sketches bit-equal to the run with no group (in this
     process, while the ranks start); with two cards, (a) at tp 2 over NCCL
     on cuda:0-1. ``pending``: the ranks ``tpt_start`` spawned ahead (else
-    they are spawned here). Returns the ranks' launch counts, with (d)'s."""
+    they are spawned here). Returns the ranks' launch counts, with (d)'s,
+    and (a)'s infos, mesh -> [llama's, whisper's], each [rank 0's, rank
+    1's] (phase 18 reads them)."""
     import gc
 
     import numpy as np
@@ -4215,6 +4308,8 @@ def phase_tp_train(pending=None):
              + [f"(c) {a}" for a in TPT_GRAD_ARCHS]],
             walls[1:])))
     launched = set()  # (q shape, k shape, dtype, causal) of the ranks' and (d)'s flash launches
+    infos = {mesh: [[rank_runs[j][1] for rank_runs in ranks] for j in (0, 1)]
+             for mesh, ranks in runs.items()}
     for (dp, tp), ranks in runs.items():
         what = f"({dp}, {tp})"
         for rank_runs in ranks:
@@ -4344,7 +4439,182 @@ def phase_tp_train(pending=None):
             f"{[round(s * 1e3, 3) for s in ranks[0][0][1]['step_s']]}; {time.perf_counter() - t0:.1f}s")
     else:
         log(f"tp train (d) NCCL across two cards: not run: {torch.cuda.device_count()} card(s)")
-    return total
+    return total, infos
+
+
+# ----------------------------------------------------------------------------
+# Phase 18: the dry run, held to phases 14 and 17's runs
+# ----------------------------------------------------------------------------
+
+# (b) cells of the dry run's CLI at production size (rank 0 of the (16, 16)
+# mesh): a dense training cell and an SSM decode cell.
+DRY_CELLS = [("llama3.2-3b", "train_4k"), ("rwkv6-7b", "decode_32k")]
+# (a) A phase-17 rank's measured peak (``peak_bytes``: its run's
+# ``max_memory_allocated`` above what it held before) against the dry run's
+# live peak (argument + temp) plus the fp32 residual the launcher allocates
+# beside the state (the dry run's state is JAX's, which has none). Read
+# from the 8 ranks of phase 17 (a) (llama and whisper, both meshes;
+# NVIDIA H100 80GB HBM3 at 700 W): 1.0005-1.0048, the excess the
+# allocator's 512-byte rounding and what gloo stages. The bound's floor:
+# a run holds at least its live tensors; its ceiling sits 4 x above the
+# largest excess read, and far below the 1.19-1.22 a prediction without
+# the residual reads.
+DRY_PEAK_RATIO = (1.0, 1.02)
+
+
+def dry_rank(cfg, kind, mesh, rank, inputs, mode, cache_len=None):
+    """``launch.dryrun.dry_run_rank`` of rank ``rank`` of a (data, model)
+    ``mesh`` in ``mode``: one ``kind`` step on meta stand-ins of the whole
+    batch's ``inputs`` (name -> (shape, torch dtype)) and a cache of
+    ``cache_len`` positions."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.launch.sharding import rank_coords
+
+    m = MeshShape(("data", "model"), tuple(mesh))
+    c = rank_coords(m, rank)
+    meta = {k: torch.empty(shape, dtype=dt, device="meta") for k, (shape, dt) in inputs.items()}
+    b, t = inputs["tokens"][0]
+    shape = ShapeConfig(f"dry-{kind}", cache_len or t, b, kind)
+    return dryrun.dry_run_rank(cfg, shape, m, tuple(c[a] for a in m.axis_names), mode=mode,
+                               inputs=meta, cache_len=cache_len)
+
+
+def phase_dryrun(train_read, tp_infos, tpt_infos):
+    """(a) The dry run (``launch.dryrun``, meta tensors, shards in counting
+    mode) of every rank phases 14 and 17 ran, held to what the ranks
+    measured: phase 17 (a)'s llama (2 layers, bf16, 2 x 512) and whisper
+    (8 x 448) on (1, 2) and (2, 1) — each training step's collectives by
+    op, count and bytes equal the launcher's, the parameter and AdamW
+    bytes (``alias``) equal the pieces the rank held, and the predicted
+    live peak (+ the launcher's residual) against the measured peak
+    (``DRY_PEAK_RATIO``); phase 14 (a)'s llama and granite at tp 2 (4 x
+    512, 8 generated) — the prefill's collectives, and the decode's over
+    its 7 steps. (b) The CLI on ``DRY_CELLS`` at production size: status
+    ok, no card memory allocated at any point and no kernel launched in
+    the phase. (c) The dry run's FLOPs of phase 11 (b)'s step (full-width
+    Llama-3.2-3B, 1 x 4,096, tp 1) over its measured median wall: the
+    achieved rate, beside phase 11's share of the bf16 peak from
+    ``model_flops``."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+
+    card = card_line()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    alloc0, counts0, meta0 = torch.cuda.memory_allocated(), ops.launch_counts(), fa.META_CALLS
+    i32, f32 = torch.int32, torch.float32
+
+    # (a) phase 17: training steps
+    t0 = time.perf_counter()
+    runs = ((tpf_cfg("llama3.2-3b", TPT_LAYERS), TPT_BATCH, TPT_SEQ),
+            (tpf_cfg("whisper-tiny"), 8, 448))
+    ratios = []
+    for (dp, tp), mesh_infos in tpt_infos.items():
+        for (cfg, b, t), infos in zip(runs, mesh_infos):
+            inputs = {"tokens": ((b, t + 1), i32)}
+            if cfg.family == "encdec":
+                inputs["frames"] = ((b, max(t // 2, 1), cfg.d_model), f32)
+            for r, info in enumerate(infos):
+                rec = dry_rank(cfg, "train", (dp, tp), r, inputs, "train")
+                what = f"dry run (a) {cfg.name} ({dp}, {tp}) rank {r}"
+                check(all(c == rec["collectives"] for c in info["collectives"]),
+                      f"{what}: every training step's collectives equal the dry run's "
+                      f"({sorted(rec['collectives'].items())})")
+                sb, bpd = info["state_bytes"], rec["bytes_per_device"]
+                held = sb["params"] + sb["m"] + sb["v"] + 4  # + AdamW's int32 step
+                check(bpd["alias"] == held, f"{what}: params and moments {bpd['alias']} B == the "
+                                            f"pieces the rank held, {held} B")
+                live = bpd["argument"] + bpd["temp"]
+                ratio = info["peak_bytes"] / (live + sb["residual"])
+                ratios.append(ratio)
+                log(f"{what} [{card}]: collectives a step {sorted(rec['collectives'].items())}; "
+                    f"argument={bpd['argument']} temp={bpd['temp']} peak(JAX's formula)={bpd['peak']} "
+                    f"live peak={live} + residual {sb['residual']} = {live + sb['residual']} B; "
+                    f"measured peak {info['peak_bytes']} B, ratio {ratio:.4f}; "
+                    f"flops={rec['hlo_flops']:.6e} bytes={rec['hlo_bytes']:.6e} "
+                    f"pass {rec['compile_s']:.2f}s")
+                check(DRY_PEAK_RATIO[0] <= ratio <= DRY_PEAK_RATIO[1],
+                      f"{what}: measured peak / (live peak + residual) {ratio:.4f} within "
+                      f"{DRY_PEAK_RATIO}")
+    t_a17 = time.perf_counter() - t0
+
+    # (a) phase 14: prefill and decode steps
+    t0 = time.perf_counter()
+    steps = TP_GEN - 1
+    for arch, infos in tp_infos.items():
+        cfg = get_config(arch)
+        kw = dict(mode="serve", cache_len=TP_PROMPT + TP_GEN)
+        for r, info in enumerate(infos):
+            pre = dry_rank(cfg, "prefill", (1, 2), r, {"tokens": ((TP_BATCH, TP_PROMPT), i32)}, **kw)
+            dec = dry_rank(cfg, "decode", (1, 2), r, {"tokens": ((TP_BATCH, 1), i32)}, **kw)
+            got_pre = {op: v for op, v in info["prefill_collectives"].items() if v[0]}
+            got_dec = {op: v for op, v in info["decode_collectives"].items() if v[0]}
+            want_dec = {op: [n * steps, nb * steps] for op, (n, nb) in dec["collectives"].items()}
+            what = f"dry run (a) {arch} tp 2 rank {r}"
+            check(got_pre == pre["collectives"], f"{what}: the prefill's collectives equal the dry run's")
+            check(got_dec == want_dec, f"{what}: the decode's collectives equal {steps} x the dry "
+                                       "run's step")
+            log(f"{what} [{card}]: prefill {sorted(pre['collectives'].items())}; decode step "
+                f"{sorted(dec['collectives'].items())}; prefill flops={pre['hlo_flops']:.6e} "
+                f"bytes={pre['hlo_bytes']:.6e}, decode step flops={dec['hlo_flops']:.6e} "
+                f"bytes={dec['hlo_bytes']:.6e}")
+    t_a14 = time.perf_counter() - t0
+
+    # (b) production cells through the CLI
+    path = os.path.join(HERE, "build", "chip_smoke", "dryrun.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if os.path.exists(path):
+        os.remove(path)
+    walls = []
+    for arch, shape in DRY_CELLS:
+        t0 = time.perf_counter()
+        rc = dryrun.main(["--arch", arch, "--shape", shape, "--out", path])
+        walls.append(time.perf_counter() - t0)
+        with open(path) as f:
+            rec = json.load(f)[-1]
+        check(rc == 0 and rec["status"] == "ok", f"dry run (b) {arch} {shape}: status ok")
+        bpd = rec["bytes_per_device"]
+        log(f"dry run (b) {arch} x {shape} x 1pod (rank 0 of {rec['n_chips']}) [{card}]: wall {walls[-1]:.2f}s "
+            f"(pass {rec['compile_s']:.2f}s) hlo_flops={rec['hlo_flops']:.6e} "
+            f"hlo_bytes={rec['hlo_bytes']:.6e} collective_bytes={rec['collective_bytes']} "
+            f"model_flops={rec['model_flops']:.6e} useful_flops_ratio={rec['useful_flops_ratio']:.4f} "
+            f"t_compute={rec['t_compute_s']:.6f}s t_memory={rec['t_memory_s']:.6f}s "
+            f"t_collective={rec['t_collective_s']:.6f}s dominant={rec['dominant']} bytes_per_device={bpd}")
+
+    # (c) the achieved rate of phase 11's step
+    cfg = get_config("llama3.2-3b")
+    t0 = time.perf_counter()
+    rec = dry_rank(cfg, "train", (1, 1), 0, {"tokens": ((1, TRAIN_SEQ + 1), i32)}, "train")
+    t_c = time.perf_counter() - t0
+    rate = rec["hlo_flops"] / train_read["step_s"]
+    check(0 < rate <= BF16_OPS_PER_S, f"dry run (c): the achieved rate {rate:.4e} FLOP/s within the "
+                                      "bf16 peak")
+    log(f"dry run (c) llama3.2-3b train 1 x {TRAIN_SEQ} tp 1 [{card}]: hlo_flops={rec['hlo_flops']:.6e} "
+        f"(model_flops 6*N*tokens {rec['model_flops']:.6e}) over phase 11's median step "
+        f"{train_read['step_s'] * 1e3:.3f} ms = {rate / 1e12:.3f} TFLOP/s, "
+        f"{rate / BF16_OPS_PER_S:.4f} of the bf16 peak (phase 11's bf16_peak_share from its "
+        f"model_flops: {train_read['bf16_peak_share']:.4f}); pass {t_c:.2f}s")
+
+    torch.cuda.synchronize()
+    check(torch.cuda.memory_allocated() == alloc0 and torch.cuda.max_memory_allocated() == alloc0,
+          f"dry run: no card memory allocated in the phase ({alloc0} B before, "
+          f"{torch.cuda.memory_allocated()} after, peak {torch.cuda.max_memory_allocated()})")
+    check(ops.launch_counts() == counts0, "dry run: no kernel launched in the phase")
+    check(fa.META_CALLS > meta0, "dry run: flash_attention's meta branch credited the kernel's work")
+    log(f"dry run: phase walls (a) phase 17 {t_a17:.1f}s, phase 14 {t_a14:.1f}s; (b) "
+        f"{', '.join(f'{w:.1f}s' for w in walls)}; (c) {t_c:.1f}s; peak ratios "
+        f"{min(ratios):.4f}-{max(ratios):.4f}")
 
 
 def main() -> int:
@@ -4420,7 +4690,8 @@ def main() -> int:
             check(cmp_counts[name] > 0, f"{name} launched on the comparison set's path")
             counts[name] += cmp_counts[name]
         t0 = time.perf_counter()
-        spot_counts, spot = phase_spotlight(edges, n, k=32, window_max=256, rd_z1=rd_z1)
+        spot_edges, spot_n = make_graph("brain_like", seed=0, scale=SPOT_SCALE)
+        spot_counts, spot = phase_spotlight(spot_edges, spot_n, k=32, window_max=256, rd_z1=rd_z1)
         t_a = time.perf_counter() - t0
         phase_spotlight_sweep(k=32)
         t_b = time.perf_counter() - t0 - t_a
@@ -4433,7 +4704,7 @@ def main() -> int:
             check(spot_counts[name] > 0, f"{name} launched on the spotlight path")
             counts[name] += spot_counts[name]
         t0 = time.perf_counter()
-        ooc_counts = phase_oocore(edges, n, 32, 256, spot, cmp_res)
+        ooc_counts = phase_oocore(spot_edges, spot_n, 32, 256, spot, cmp_res)
         log(f"phase 10 (out-of-core): {time.perf_counter() - t0:.1f}s launches={ooc_counts}")
         for name in ("window_score", "segment_sum"):
             check(ooc_counts[name] > 0, f"{name} launched on the out-of-core path")
@@ -4441,7 +4712,7 @@ def main() -> int:
         t0 = time.perf_counter()
         attn = phase_train_attention()
         t_a = time.perf_counter() - t0
-        train_counts = phase_train(attn)
+        train_counts, train_read = phase_train(attn)
         t_b = time.perf_counter() - t0 - t_a
         phase_train_parity()
         t_c = time.perf_counter() - t0 - t_a - t_b
@@ -4469,7 +4740,7 @@ def main() -> int:
         check(fam_train_counts["flash_attention"] > 0, "flash_attention launched on the families' training path")
         counts["flash_attention"] += fam_train_counts["flash_attention"]
         t0 = time.perf_counter()
-        tp_counts = phase_tp()
+        tp_counts, tp_infos = phase_tp()
         log(f"phase 14 (tensor-parallel serving): {time.perf_counter() - t0:.1f}s launches={tp_counts}")
         check(tp_counts["flash_attention"] > 0, "flash_attention launched on the tensor-parallel path")
         counts["flash_attention"] += tp_counts["flash_attention"]
@@ -4488,12 +4759,15 @@ def main() -> int:
         check(tpf_counts["flash_attention"] > 0, "flash_attention launched on the families' tensor-parallel path")
         counts["flash_attention"] += tpf_counts["flash_attention"]
         t0 = time.perf_counter()
-        tpt_counts = phase_tp_train(pending)
+        tpt_counts, tpt_infos = phase_tp_train(pending)
         pending = None
         log(f"phase 17 (tensor-parallel + FSDP training): {time.perf_counter() - t0:.1f}s "
             f"launches={tpt_counts}")
         check(tpt_counts["flash_attention"] > 0, "flash_attention launched on the sharded training path")
         counts["flash_attention"] += tpt_counts["flash_attention"]
+        t0 = time.perf_counter()
+        phase_dryrun(train_read, tp_infos, tpt_infos)
+        log(f"phase 18 (the dry run, held to phases 14 and 17): {time.perf_counter() - t0:.1f}s")
         sources = {"window_score": ws_mod, "segment_sum": ss_mod, "flash_attention": fa_mod}
         kernels = []
         for name, row in kernel_rows.items():

@@ -18,7 +18,11 @@ Tk % 128 == 0.
 :func:`flash_attention` takes CUDA tensors only; ``kernels.ops`` checks the
 shapes and sends CPU tensors to the plain version,
 :func:`~repro_torch.kernels.ref.flash_attention_ref`, bound here as
-``flash_attention_plain``. ``LAUNCHES`` counts kernel launches (a launch
+``flash_attention_plain``, and ``meta`` tensors (the dry run,
+``launch.dryrun``) to :func:`flash_attention_meta`, which computes nothing:
+it returns an output of the kernel's shape and layout and credits the work
+the kernel would do (:func:`kernel_flops`, over the tiles it runs) to
+``META_FLOPS`` and its bytes to ``META_BYTES``. ``LAUNCHES`` counts kernel launches (a launch
 recorded into a CUDA graph counts in ``CAPTURED`` instead; see
 ``kernels/window_score.py``), and ``LAUNCHES_BY_BODY`` splits them by body.
 
@@ -62,6 +66,12 @@ __all__ = [
     "LAUNCHES",
     "LAUNCHES_BY_BODY",
     "REPLACES",
+    "TILES",
+    "kernel_flops",
+    "flash_attention_meta",
+    "META_CALLS",
+    "META_FLOPS",
+    "META_BYTES",
 ]
 
 REPLACES = "src/repro/kernels/flash_attention.py:77"  # flash_attention_pallas
@@ -75,6 +85,13 @@ BACKWARD_CALLS = 0
 # Query rows per block of the backward's recompute: the q_block of JAX's
 # _blocked_softmax_attn, which bounds the live fp32 logits to (B, H, 512, Tk).
 BACKWARD_Q_BLOCK = 512
+# (query rows a block, KV rows a tile) of each body: kBQ / kBK of the fma
+# and mma_sync bodies, kWgRows of the wgmma body (csrc/flash_attention.cu).
+TILES = {"fma": (64, 64), "mma_sync": (64, 64), "wgmma": (128, 128)}
+# The dry run's calls on meta tensors: calls, and the work credited to them.
+META_CALLS = 0
+META_FLOPS = 0
+META_BYTES = 0
 
 _DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 # The launcher's codes above every cudaError_t (csrc/flash_attention.cu).
@@ -139,6 +156,45 @@ def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool
         raise ValueError(f"flash_attention: Hq={hq} is not a multiple of Hkv={hkv}")
     if causal and tq > tk:
         raise ValueError(f"flash_attention: causal needs Tq <= Tk, got Tq={tq}, Tk={tk}")
+
+
+def kernel_flops(q_shape, tk: int, dtype: torch.dtype, causal: bool) -> int:
+    """The floating-point operations a CUDA call with q of ``q_shape``
+    (B, Hq, Tq, Dh) and ``tk`` keys runs on the body :func:`body_for`
+    names: two products (q·kᵀ, p·v) of 2·rows·cols·Dh a tile pair, the
+    ragged edges at the tiles' full size, over the pairs the kernel's loop
+    bound gives — every q tile walks the KV tiles up to the one that holds
+    its last row's position (Tk - Tq + row) when ``causal``, else all
+    ⌈Tk / tile⌉ of them."""
+    b, hq, tq, dh = (int(n) for n in q_shape)
+    bq, bk = TILES[body_for(dtype, dh)]
+    n_kv, pairs = -(-tk // bk), 0
+    for q0 in range(0, tq, bq):
+        last_row = tk - tq + min(q0 + bq, tq) - 1
+        pairs += min(n_kv, last_row // bk + 1) if causal else n_kv
+    return b * hq * pairs * 4 * bq * bk * dh
+
+
+def flash_attention_meta(
+    q: torch.Tensor,  # (B, Hq, Tq, Dh), on the meta device
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+) -> torch.Tensor:
+    """The kernel's call on ``meta`` tensors, for the dry run: the shape
+    checks the CUDA call makes, then an output of its shape and layout
+    ((B, Tq, Hq, Dh) in memory, returned as its (B, Hq, Tq, Dh) view), with
+    :func:`kernel_flops` added to ``META_FLOPS`` and the inputs' and the
+    output's bytes to ``META_BYTES``. Nothing is computed or launched."""
+    global META_CALLS, META_FLOPS, META_BYTES
+    check_shapes(q, k, v, causal)
+    b, hq, tq, dh = q.shape
+    out = torch.empty((b, tq, hq, dh), dtype=q.dtype, device=q.device).transpose(1, 2)
+    META_CALLS += 1
+    META_FLOPS += kernel_flops(q.shape, k.shape[2], q.dtype, causal)
+    META_BYTES += sum(t.numel() * t.element_size() for t in (q, k, v, out))
+    return out
 
 
 def flash_attention(
@@ -267,9 +323,10 @@ def attention_backward_plain(
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """``flash_attention`` under autograd: the kernel (CUDA) or the plain
-    version (CPU) forward, :func:`attention_backward_plain` backward. Saves
-    q, k and v; ``BACKWARD_CALLS`` counts the backward calls."""
+    """``flash_attention`` under autograd: the kernel (CUDA), the plain
+    version (CPU) or :func:`flash_attention_meta` (meta) forward,
+    :func:`attention_backward_plain` backward. Saves q, k and v;
+    ``BACKWARD_CALLS`` counts the backward calls."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale):
@@ -277,6 +334,8 @@ class FlashAttentionFn(torch.autograd.Function):
         ctx.causal, ctx.scale = causal, scale
         if q.device.type == "cpu":
             return flash_attention_plain(q, k, v, causal=causal, scale=scale)
+        if q.device.type == "meta":
+            return flash_attention_meta(q, k, v, causal=causal)
         return flash_attention(q, k, v, causal=causal, scale=scale)
 
     @staticmethod

@@ -4,7 +4,9 @@ Counterpart of the JAX package's ``kernels/ops.py`` (``window_score``,
 ``segment_sum_sorted``, ``flash_attention``), without its tier ladder: a CPU tensor goes to the
 plain torch version in ``kernels/ref.py``, a CUDA tensor to the hand-written
 kernel — which launches or raises. Nothing falls back from one to the other,
-and there is no autotune table in this slice.
+and there is no autotune table in this slice. ``flash_attention`` on
+``meta`` tensors (the dry run) returns its output's shape and credits the
+kernel's work, computing nothing.
 """
 from __future__ import annotations
 
@@ -131,11 +133,17 @@ def flash_attention(
     Differentiable on both devices, through
     :class:`~repro_torch.kernels.flash_attention.FlashAttentionFn`.
 
+    On ``meta`` tensors (the dry run, ``launch.dryrun``) it is shape
+    arithmetic: an output of the kernel's shape and layout, the kernel's
+    work over the tiles it runs credited to ``flash_attention.META_FLOPS``
+    (:func:`~repro_torch.kernels.flash_attention.flash_attention_meta`);
+    no launch, no fallback. Its backward is the plain one, as on the card.
+
     Raises on shapes outside the op's contract
-    (:func:`~repro_torch.kernels.flash_attention.check_shapes`) on either
+    (:func:`~repro_torch.kernels.flash_attention.check_shapes`) on every
     device.
     """
-    if _device_of(q, k, v).type == "cpu":
+    if _device_of(q, k, v).type in ("cpu", "meta"):
         _fa.check_shapes(q, k, v, causal)
     return _fa.FlashAttentionFn.apply(q, k, v, causal, scale)
 

@@ -351,15 +351,17 @@ def shard_for(cfg: ArchConfig, mesh, backend: Optional[str] = None,
     ``mesh`` is a ``DeviceMesh`` with axes ("data", "model")
     (``launch.mesh.make_local_mesh``), whose coordinates and groups the
     shard takes; or a :class:`~repro_torch.models.tp.MeshShape` with the
-    rank's ``coords``, a shard with no process group (it can allocate and
-    fill pieces but issues no collective)."""
+    rank's ``coords``, a shard with no process group: it can allocate and
+    fill pieces, and it is in counting mode (``Shard.counting``: its
+    collectives are counted and shaped, never issued; what
+    ``launch.dryrun`` runs a rank's step with)."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import mesh_shape
     from repro_torch.models import lm
 
     if isinstance(mesh, MeshShape):
-        shape, groups = mesh, dict(model_group=None, data_group=None)
+        shape, groups = mesh, dict(model_group=None, data_group=None, counting=True)
     else:
         shape = mesh_shape(mesh)
         coords = tuple(int(c) for c in mesh.get_coordinate())

@@ -61,7 +61,7 @@ from repro_torch.optim import adamw_init, adamw_update, cosine_schedule, topk_co
 from repro_torch.dist import rank_mesh
 from repro_torch.runtime import FaultTolerantLoop, StepFailure, StragglerMonitor
 
-__all__ = ["build_state", "make_step", "history_info", "main"]
+__all__ = ["build_state", "device_step", "make_step", "history_info", "main"]
 
 
 def build_state(cfg, device, tp: int = 1, seed: int = 0, shard: Shard = NO_SHARD):
@@ -85,6 +85,27 @@ def _collectives(before: dict, after: dict) -> dict:
             for op, (n, b) in after.items() if n - before.get(op, [0, 0])[0]}
 
 
+def device_step(model, cfg, state, batch, lr_fn, compress: float = 0.0, tp: int = 1,
+                shard: Shard = NO_SHARD) -> dict:
+    """The device part of one training step, in place on ``state``:
+    ``lm.loss_fn`` + ``backward()`` + ``lm.reduce_grads`` + optional
+    ``topk_compress_allreduce`` + ``adamw_update`` at ``lr_fn(step)``.
+    Returns the metrics as 0-dim tensors (``loss``, ``ce``, ``moe_aux``),
+    unread: nothing here waits for the device, so it runs on ``meta``
+    tensors too (``launch.dryrun.make_train_step``)."""
+    params = state["params"]
+    for p in params.values():
+        p.grad = None
+    loss, metrics = lm.loss_fn(model, cfg, batch, tp=tp, shard=shard)
+    loss.backward()
+    lm.reduce_grads(model, shard)
+    grads = {n: p.grad for n, p in params.items()}
+    if compress > 0:
+        grads, _ = topk_compress_allreduce(grads, state["residual"], None, compress, shard=shard)
+    adamw_update(grads, state["opt"], params, lr_fn(state["opt"]["step"]), shard=shard)
+    return dict(metrics, loss=loss)
+
+
 def make_step(model, cfg, lr_fn, compress: float = 0.0, tp: int = 1, shard: Shard = NO_SHARD):
     """``step(state, batch) -> (state, metrics)``: one training step, in
     place on ``state``. The gradients stay in the parameters' ``.grad``
@@ -94,24 +115,16 @@ def make_step(model, cfg, lr_fn, compress: float = 0.0, tp: int = 1, shard: Shar
     ``flash_bodies``) and its backward calls. Under a ``shard`` (``batch``
     holds the rank's rows; the shard says whether they are its share) the
     step runs over the ranks, and ``metrics["collectives"]`` holds the
-    step's collectives (op -> [count, bytes this rank sent])."""
+    step's collectives (op -> [count, bytes this rank sent]). The device
+    work is :func:`device_step`'s; the host reads are here."""
 
     def step(state, batch):
-        params = state["params"]
-        for p in params.values():
-            p.grad = None
         launches0, backward0 = ops.launch_counts()["flash_attention"], fa.BACKWARD_CALLS
         bodies0 = dict(fa.LAUNCHES_BY_BODY)
         coll0 = {op: list(v) for op, v in shard.stats.items()}
-        loss, metrics = lm.loss_fn(model, cfg, batch, tp=tp, shard=shard)
-        loss.backward()
-        lm.reduce_grads(model, shard)
-        grads = {n: p.grad for n, p in params.items()}
-        if compress > 0:
-            grads, _ = topk_compress_allreduce(grads, state["residual"], None, compress, shard=shard)
-        adamw_update(grads, state["opt"], params, lr_fn(state["opt"]["step"]), shard=shard)
+        metrics = device_step(model, cfg, state, batch, lr_fn, compress, tp, shard)
         # staticcheck: disable=SC003 the step hands host metrics to the loop, as JAX's step_fn does
-        out = {k: v.item() for k, v in dict(metrics, loss=loss).items()}
+        out = {k: v.item() for k, v in metrics.items()}
         out["flash_launches"] = ops.launch_counts()["flash_attention"] - launches0
         out["flash_bodies"] = {b: fa.LAUNCHES_BY_BODY[b] - bodies0[b] for b in fa.BODIES}
         out["attn_backward_calls"] = fa.BACKWARD_CALLS - backward0

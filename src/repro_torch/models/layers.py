@@ -244,10 +244,12 @@ def _fp32_product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     result. A 16-bit product on the card keeps its operands and takes
     cuBLAS's fp32 accumulator as the result (``out_dtype``: the tensor-core
     rate, no fp32 copy of the weight); that op has no derivative, so under
-    autograd it runs inside :class:`_Fp32Product`. Elsewhere the operands
+    autograd it runs inside :class:`_Fp32Product`. A ``meta`` tensor (the
+    dry run, ``launch.dryrun``) takes the card's branch, so that the
+    operations and bytes counted are the card's. Elsewhere the operands
     are taken to fp32, which holds them exactly (the CPU has no such
     kernel)."""
-    if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16):
+    if (a.is_cuda or a.is_meta) and a.dtype in (torch.bfloat16, torch.float16):
         if torch.is_grad_enabled() and (a.requires_grad or w.requires_grad):
             return _Fp32Product.apply(a, w)
         return _mm_fp32(a, w)
@@ -547,14 +549,19 @@ def moe_ffn(
     flat_t = torch.arange(n_tok, device=x.device).repeat_interleave(k)
     order = torch.sort(flat_e, stable=True).indices
     se, st_, sw = flat_e[order], flat_t[order], gate_vals.reshape(-1)[order]
-    counts = torch.bincount(se, minlength=e)
+    # the pairs per expert with no host sync (bincount sizes its output on the host)
+    counts = torch.zeros(e, dtype=se.dtype, device=x.device).index_add_(0, se, torch.ones_like(se))
     starts = torch.cumsum(counts, 0) - counts
     rank = torch.arange(n_tok * k, device=x.device) - starts[se]
     keep = rank < cap
     dest = torch.where(keep, se * cap + rank, e * cap)  # overflow -> the dump row
-    if n_tok != n_mine:  # this rank's pairs, its tokens counted from its first row
+    if n_tok != n_mine:
+        # This rank's pairs, its tokens counted from its first row, in a fixed
+        # size: another rank's pair goes to the dump row from the rank's row
+        # 0 with weight 0, so it dispatches nothing and adds 0 to that row.
         own = (st_ >= lo) & (st_ < lo + n_mine)
-        se, st_, sw, keep, dest = se[own], st_[own] - lo, sw[own], keep[own], dest[own]
+        keep, dest = keep & own, torch.where(own, dest, e * cap)
+        st_, sw = torch.where(own, st_ - lo, 0), torch.where(own, sw, 0.0)
 
     el = params["w_gate"].shape[0]
     ep = shard.tp > 1 and el < e

@@ -365,7 +365,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, tp: int = 1, device=No
     by data coordinate when the data axis divides it (every row otherwise).
     """
     if _sharded(cfg, tp, shard):
-        dev = compat.resolve_device(device)
+        dev = torch.device("meta") if str(device) == "meta" else compat.resolve_device(device)
 
         def local(path, t):
             idx = shard.cache_index(path, t.shape)
@@ -769,6 +769,13 @@ def forward_cached(
     the end. A decode step's cross-attention then merges the slices over
     the ranks in plain torch: at tp > 1 a whisper decode step launches no
     flash.
+
+    Under a train shard (FSDP + TP pieces: JAX's default layout for a
+    serving cell of its dry run, whose GSPMD gathers the weights in the
+    step) each block's leaves are gathered over the data axes into their
+    serve-layout pieces before the block runs (the hybrid's shared block
+    once), and the ``head``, ``vit_proj`` and whisper's cross K/V
+    projections before their use.
     """
     dims = model_dims(cfg, tp)
     pos = int(pos)
@@ -778,52 +785,63 @@ def forward_cached(
         if frames is None and tokens.shape[1] > 1:
             raise ValueError("repro_torch.models.lm.forward_cached: a sharded encdec call over "
                              "more than one token is a prefill and needs frames")
+    fsdp = sharded and shard.mode == "train" and shard.dp > 1
+
+    def whole(blk, prefix):
+        return _gathered(blk, prefix, shard) if fsdp else blk
+
     x = _embed_tp(model, cfg, tokens, shard) if sharded else model.embed[tokens]
     if fam == "vlm" and patches is not None:
-        x = torch.cat([_patch_prefix(model, patches, x.dtype), x], dim=1)
+        x = torch.cat([_patch_prefix(model, patches, x.dtype, _leaf(model, "vit_proj", shard)), x],
+                      dim=1)
 
     if fam in ("dense", "moe", "vlm"):
         ck, cv = cache["kv"]
         for i, blk in enumerate(model.blocks):
-            x, _ = _attn_block(blk, x, cfg, dims, (ck[i], cv[i]), pos, shard=shard)
+            x, _ = _attn_block(whole(blk, f"blocks.{i}"), x, cfg, dims, (ck[i], cv[i]), pos,
+                               shard=shard)
     elif fam == "ssm":
         s, lxa, lxc = cache["s"], cache["lx_att"], cache["lx_cm"]
         for i, blk in enumerate(model.blocks):
-            x, s[i], lxa[i], lxc[i] = _rwkv_block(blk, x, cfg, s[i], lxa[i], lxc[i], shard=shard)
+            x, s[i], lxa[i], lxc[i] = _rwkv_block(whole(blk, f"blocks.{i}"), x, cfg, s[i], lxa[i],
+                                                  lxc[i], shard=shard)
     elif fam == "hybrid":
         s, se = cache["s"], cfg.shared_every
+        shared = whole(model.shared, "shared") if cfg.n_layers >= se else None
         for i, blk in enumerate(model.blocks):
-            x, s[i] = _mamba_block(blk, x, cfg, s[i], shard=shard)
+            x, s[i] = _mamba_block(whole(blk, f"blocks.{i}"), x, cfg, s[i], shard=shard)
             if (i + 1) % se == 0:  # the last n_layers % se layers have no shared block after them
-                x, _ = _attn_block(model.shared, x, cfg, dims, cache["kv"][i // se], pos,
-                                   shard=shard)
+                x, _ = _attn_block(shared, x, cfg, dims, cache["kv"][i // se], pos, shard=shard)
     elif fam == "encdec":
         fresh = None
         if frames is not None:
             enc = frames.to(x.dtype)
-            for blk in model.enc_blocks:
-                enc, _ = _attn_block(blk, enc, cfg, dims, causal=False, shard=shard)
+            for i, blk in enumerate(model.enc_blocks):
+                enc, _ = _attn_block(whole(blk, f"enc_blocks.{i}"), enc, cfg, dims, causal=False,
+                                     shard=shard)
             enc = L.rms_norm(enc, model.enc_ln_f)
             b, te = enc.shape[:2]
 
             def proj(w):
                 return (enc @ w).reshape(b, te, w.shape[1] // dims.dh, dims.dh).transpose(1, 2)
 
-            fresh = [tuple(proj(blk.xattn[name]) for name in ("wk", "wv")) for blk in model.blocks]
+            fresh = [tuple(proj(_leaf(model, f"blocks.{i}.xattn.{name}", shard))
+                           for name in ("wk", "wv")) for i in range(len(model.blocks))]
             cache["xkv"] = tuple(torch.stack([kv[j] for kv in fresh]) for j in (0, 1))
             if sharded:
                 cache["xkv"] = _cross_cache(cache["xkv"], dims, shard)
         (ck, cv), (xk, xv) = cache["kv"], cache["xkv"]
         for i, blk in enumerate(model.blocks):
             xkv = fresh[i] if sharded and tokens.shape[1] > 1 else (xk[i], xv[i])
-            x, _ = _attn_block(blk, x, cfg, dims, (ck[i], cv[i]), pos, xattn_kv=xkv, shard=shard)
+            x, _ = _attn_block(whole(blk, f"blocks.{i}"), x, cfg, dims, (ck[i], cv[i]), pos,
+                               xattn_kv=xkv, shard=shard)
     else:
         raise ValueError(f"repro_torch.models.lm: unknown family {fam!r}")
 
     if fam == "vlm" and patches is not None:
         x = x[:, patches.shape[1]:]  # text positions only
     x = L.rms_norm(x, model.ln_f)
-    logits = x @ _head(model, cfg)
+    logits = x @ _head(model, cfg, shard)
     if sharded and logits.shape[-1] < cfg.vocab:
         logits = shard.all_gather(logits, -1)
     return logits, cache

@@ -51,6 +51,14 @@ forward and backward alike), the data group's ``data_all_gather``,
 ``data_all_reduce_sum`` and ``data_reduce_scatter``, the whole world's
 ``world_all_reduce_sum`` and ``world_all_gather``.
 
+A shard in counting mode (``counting=True``: what
+``launch.sharding.shard_for`` builds from a shape-only mesh, which has no
+process group) makes the same calls with the same counts and bytes and
+returns results of the right shapes, but issues nothing: an all-reduce
+returns its input as it is, a gather or a reduce-scatter its buffers
+unfilled. The dry run (``launch.dryrun``) runs a rank's step on ``meta``
+tensors that way.
+
 :data:`NO_SHARD` is the one-device context (tp 1): it issues no collective
 and no extra operation, so every path that does not ask for a shard runs
 as it did. A shard with a ``model`` axis of size 1 is treated the same way
@@ -135,7 +143,10 @@ class Shard:
     ``rows_split`` says that the rows the model is given are this rank's
     share of a batch split over the data axes (``launch.sharding.
     batch_specs``), not all of them: the MoE then plans over the whole
-    batch (:meth:`gather_rows`), as one device does. ``with_rows`` sets it."""
+    batch (:meth:`gather_rows`), as one device does. ``with_rows`` sets it.
+
+    ``counting`` puts the shard in counting mode (module docstring): its
+    collectives are counted and shaped but not issued."""
 
     mesh: MeshShape = MeshShape(("data", "model"), (1, 1))
     coords: Tuple[int, ...] = (0, 0)
@@ -146,6 +157,7 @@ class Shard:
     ep_override: bool | None = None
     mode: str = "serve"
     rows_split: bool = False
+    counting: bool = False
     param_index: Mapping[str, Index] = dataclasses.field(default_factory=dict, compare=False,
                                                          repr=False)
     param_spec: Mapping[str, Spec] = dataclasses.field(default_factory=dict, compare=False,
@@ -228,14 +240,16 @@ class Shard:
 
     def _all_reduce(self, x: torch.Tensor, op: str, axis: str) -> torch.Tensor:
         self._count(f"{self._prefix(axis)}all_reduce_{op}", x)
-        dist.all_reduce(x, op=_OPS[op], group=self._group(axis))
+        if not self.counting:
+            dist.all_reduce(x, op=_OPS[op], group=self._group(axis))
         return x
 
     def _all_gather(self, x: torch.Tensor, dim: int, axis: str) -> torch.Tensor:
         self._count(f"{self._prefix(axis)}all_gather", x)
         x = x.contiguous()
         parts = [torch.empty_like(x) for _ in range(self._size(axis))]
-        dist.all_gather(parts, x, group=self._group(axis))
+        if not self.counting:
+            dist.all_gather(parts, x, group=self._group(axis))
         return torch.cat(parts, dim=dim)
 
     # -- the model group ---------------------------------------------------
@@ -358,8 +372,9 @@ def _reduce_scatter(shard: Shard, buf: torch.Tensor) -> torch.Tensor:
     """This rank's row of ``buf`` (dp, n) summed over the data group."""
     shard._count("data_reduce_scatter", buf)
     out = torch.empty(buf.shape[1:], dtype=buf.dtype, device=buf.device)
-    scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
-    scatter(out, buf.reshape(-1), group=shard.data_group)
+    if not shard.counting:
+        scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+        scatter(out, buf.reshape(-1), group=shard.data_group)
     return out
 
 
@@ -371,8 +386,9 @@ def _fsdp_gather(shard: Shard, pieces, dims) -> List[torch.Tensor]:
         flat = torch.cat([p.reshape(-1) for p in group])
         shard._count("data_all_gather", flat)
         buf = torch.empty((dp, flat.numel()), dtype=flat.dtype, device=flat.device)
-        gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
-        gather(buf.reshape(-1), flat, group=shard.data_group)
+        if not shard.counting:
+            gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+            gather(buf.reshape(-1), flat, group=shard.data_group)
         off = 0
         for p in group:
             i, n = order[id(p)], p.numel()

@@ -27,8 +27,8 @@ def train_rank(rank, tp, store, cases):
     numpy), ``batch`` (the whole batch, numpy), optional ``ep``
     (``ep_override``), ``remat`` (default True), ``steps`` (whole batches of
     AdamW steps after the gradient step, each run by ``launch.train.
-    make_step`` from a zero optimizer state) with ``compress`` and ``lr``.
-    Returns one dict per case."""
+    make_step`` from a zero optimizer state, each step's collectives kept)
+    with ``compress`` and ``lr``. Returns one dict per case."""
     torch.set_num_threads(1)
     from repro_torch.launch import mesh as meshes
     from repro_torch.launch.sharding import shard_for
@@ -42,7 +42,7 @@ def train_rank(rank, tp, store, cases):
             out.append(_compress_group(case))
             continue
         cfg = case["cfg"]
-        mode = "serve" if kind == "prefill" else "train"
+        mode = case.get("mode", "serve" if kind == "prefill" else "train")
         shard = shard_for(cfg, mesh, ep_override=case.get("ep"), mode=mode)
         fn = {"train": _one_case, "prefill": _prefill, "pieces": _pieces_case}[kind]
         out.append(fn(shard, tp, case))
@@ -51,7 +51,7 @@ def train_rank(rank, tp, store, cases):
 
 def _prefill(shard, tp, case):
     """``forward_cached``'s prefill of ``prompts`` (whole) on the rank's
-    rows: its logits."""
+    rows (the shard's ``mode``: the case's, else 'serve'): its logits."""
     from repro_torch import convert
     from repro_torch.launch.sharding import rank_rows
     from repro_torch.models import lm
@@ -152,11 +152,13 @@ def _one_case(shard, tp, case):
                      residual={n: torch.from_numpy(np.ascontiguousarray(a)) for n, a in res0.items()})
         lr_fn = cosine_schedule(case.get("lr", 1e-2), 1, 10)
         step = train.make_step(model, cfg, lr_fn, case.get("compress", 0.0), tp, shard)
-        losses, step_grads = [], []
+        losses, step_grads, step_coll = [], [], []
         for batch in case["steps"]:
-            losses.append(step(state, local(batch))[1]["loss"])
+            metrics = step(state, local(batch))[1]
+            losses.append(metrics["loss"])
+            step_coll.append(metrics["collectives"])
             step_grads.append({n: _np(p.grad) for n, p in params.items()})
-        res.update(step_losses=losses, step_grads=step_grads,
+        res.update(step_losses=losses, step_grads=step_grads, step_collectives=step_coll,
                    params={n: _np(p) for n, p in params.items()},
                    m={n: _np(t) for n, t in state["opt"]["m"].items()},
                    v={n: _np(t) for n, t in state["opt"]["v"].items()},

@@ -122,7 +122,8 @@ ROOT = SRC.parent
 CHIP_SCRIPTS = [
     "chip_smoke.py", "tools/time_flash_attention.py", "tools/time_segment_sum.py",
     "tools/time_partition.py", "tools/time_collectives.py", "tools/tp_readings.py",
-    "tools/tp_family_readings.py", "tools/tp_train_readings.py",
+    "tools/tp_family_readings.py", "tools/tp_train_readings.py", "tools/timed_smoke.py",
+    "tools/time_profile_readers.py",
 ]
 
 

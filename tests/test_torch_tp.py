@@ -31,6 +31,7 @@ from repro_torch.launch import sharding
 from repro_torch.launch.mesh import MeshShape
 from repro_torch.models import lm
 
+import _dry
 import _tp_ranks
 
 TOL = 1e-5
@@ -136,12 +137,26 @@ def _reassemble(cfg, tp, mesh, want_cache, results):
     return full
 
 
+def _assert_dry_run_counts(cfg, mesh, res, prompts, extras, tokens, max_seq, ep=None):
+    """The dry run of the rank (``launch.dryrun`` on meta tensors, its
+    shard in counting mode) counts the collectives the rank issued over
+    gloo, by op, count and bytes: the prefill's, and each decode step's."""
+    kw = dict(mode="serve", cache_len=max_seq, ep=ep)
+    coords = res["coords"]
+    prefill = _dry.collectives(cfg, mesh, coords, "prefill", dict(extras, tokens=prompts), **kw)
+    assert _dry.counted(res["step_stats"][0]) == prefill, (coords, "prefill")
+    decode = _dry.collectives(cfg, mesh, coords, "decode", {"tokens": tokens[0]}, **kw)
+    for i, got in enumerate(res["step_stats"][1:]):
+        assert _dry.counted(got) == decode, (coords, "decode", i)
+
+
 @pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
 def test_sharded_forward_cached_matches_jax(case, tmp_path):
     """Prefill + 3 decode steps on every rank against JAX's forward_cached(...,
     tp=T): logits of each rank's rows and the reassembled cache within 1e-5
     of their scale, greedy tokens equal; the decode merge ran (one max
-    all-reduce per layer and step)."""
+    all-reduce per layer and step); the dry run of each rank counts its
+    collectives."""
     name, arch, changes, (dp, tp), ep = case
     jcfg, cfg = _configs(arch, changes)
     if name in POLICY:
@@ -161,6 +176,7 @@ def test_sharded_forward_cached_matches_jax(case, tmp_path):
             _assert_close(got, w[lo:hi], f"{name} rank {res['coords']} step {i}")
             np.testing.assert_array_equal(got[:, -1].argmax(-1), w[lo:hi, -1].argmax(-1))
         assert res["stats"]["all_reduce_max"][0] == cfg.n_layers * n_dec
+        _assert_dry_run_counts(cfg, (dp, tp), res, prompts, extras, tokens, max_seq, ep)
     _full = _reassemble(cfg, tp, mesh, want_cache, results)
     jax.tree.map(lambda g, w: _assert_close(g, w, f"{name} cache"), _full, want_cache)
     if ep is False:  # d_ff split: every rank holds every expert
@@ -191,6 +207,13 @@ def test_serve_tp2_gives_the_tokens_of_tp1(tmp_path):
         assert (info["tp"], info["world"], info["backend"], info["policy"]) == (2, 2, "gloo", "shard")
         assert info["prefill_collectives"]["all_gather"][0] > 0
         assert info["decode_collectives"]["all_reduce_max"][0] == 4 * 7  # layers x steps
+    cfg = get_config("qwen1.5-0.5b").reduced()
+    for r, (_, info, _) in enumerate(results):  # the dry run of each rank counts its collectives
+        kw = dict(mode="serve", cache_len=24)
+        assert _dry.counted(info["prefill_collectives"]) == _dry.collectives(
+            cfg, (1, 2), r, "prefill", {"tokens": ((4, 16), np.int32)}, **kw)
+        assert _dry.counted(info["decode_collectives"]) == _dry.times(_dry.collectives(
+            cfg, (1, 2), r, "decode", {"tokens": ((4, 1), np.int32)}, **kw), 7)
     assert (info1["tp"], info1["world"], info1["backend"]) == (1, 1, None)
     assert info1["prefill_collectives"] == {} and info1["decode_collectives"] == {}
 
@@ -211,7 +234,7 @@ def test_odd_lengths_match_jax(case, tmp_path):
     decode step up to the cache's last position give JAX's
     forward_cached(..., tp=T) logits within 1e-5 of their scale and its
     greedy tokens, and the reassembled cache equals JAX's, its padding
-    never written."""
+    never written; the dry run of each rank counts its collectives."""
     name, arch, changes, (dp, tp), t, n_dec = case
     jcfg, cfg = _configs(arch, changes)
     b, max_seq = 2 * dp, t + n_dec
@@ -228,6 +251,7 @@ def test_odd_lengths_match_jax(case, tmp_path):
             _assert_close(got, w[lo:hi], f"{name} rank {res['coords']} step {i}")
             np.testing.assert_array_equal(got[:, -1].argmax(-1), w[lo:hi, -1].argmax(-1))
         assert res["cache"]["kv"][0].shape[3] == -(-n_pos // tp)
+        _assert_dry_run_counts(cfg, (dp, tp), res, prompts, extras, tokens, max_seq)
     mesh = MeshShape(("data", "model"), (dp, tp))
     full = _reassemble(cfg, tp, mesh, want_cache, results)
     jax.tree.map(lambda g, w: _assert_close(g, w, f"{name} cache"), full, want_cache)

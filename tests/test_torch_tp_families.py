@@ -23,12 +23,15 @@ import numpy as np
 import pytest
 
 from repro.configs import get_config as jax_get_config
+from repro_torch.configs import get_config
 from repro_torch.configs.base import ArchConfig
 from repro_torch.launch import mesh as meshes
 from repro_torch.launch.mesh import MeshShape
 
+import _dry
 import _tp_ranks
-from test_torch_tp import SPAWN_TIMEOUT, _assert_close, _jax_run, _reassemble
+from test_torch_tp import (SPAWN_TIMEOUT, _assert_close, _assert_dry_run_counts, _jax_run,
+                           _reassemble)
 
 # (id, arch, changes to its reduced config, (data, model) mesh, head policy
 # of the attention at that tp or None); 2 layers (the hybrid keeps its 5,
@@ -124,8 +127,9 @@ def test_sharded_family_matches_jax(case, tmp_path):
     """Prefill + 3 decode steps on every rank against JAX's
     forward_cached(..., tp=T): each rank's logits and the reassembled cache
     within 1e-5 of their scale, the cache's leaves tiled, greedy tokens
-    equal, each step's collectives as the design counts them; a rank holds
-    its heads of the state and its slice of each KV sequence."""
+    equal, each step's collectives as the design counts them and as the
+    dry run of the rank counts them (bytes too); a rank holds its heads of
+    the state and its slice of each KV sequence."""
     name, arch, changes, (dp, tp), policy = case
     jcfg, cfg = _configs(arch, changes)
     if policy is not None:
@@ -149,6 +153,7 @@ def test_sharded_family_matches_jax(case, tmp_path):
             phase = "prefill" if i == 0 else "decode"
             counts = {op: n for op, (n, _) in got.items() if n}
             assert counts == _design_counts(cfg, tp, policy, phase), f"{name} step {i}"
+        _assert_dry_run_counts(cfg, (dp, tp), res, prompts, extras, tokens, max_seq)
         cache = res["cache"]
         if cfg.family in ("ssm", "hybrid"):
             assert cache["s"].shape[2] == cfg.n_heads // tp  # the rank's heads of the state
@@ -183,8 +188,8 @@ def test_odd_lengths_and_heads_match_jax(case, tmp_path):
     frames nor the SSM heads: each rank's logits and the reassembled cache
     (its padding never written) within 1e-5 of their scale, greedy tokens
     equal, each step's collectives as the design counts them (a mixer that
-    runs whole issues none); the cross cache holds each rank's frames, the
-    SSM state every head."""
+    runs whole issues none) and as the dry run of the rank counts them; the
+    cross cache holds each rank's frames, the SSM state every head."""
     from test_torch_tp import _reassemble
 
     name, arch, changes, (dp, tp), policy, frames, t = case
@@ -210,6 +215,7 @@ def test_odd_lengths_and_heads_match_jax(case, tmp_path):
             phase = "prefill" if i == 0 else "decode"
             counts = {op: n for op, (n, _) in got.items() if n}
             assert counts == _design_counts(cfg, tp, policy, phase), f"{name} step {i}"
+        _assert_dry_run_counts(cfg, (dp, tp), res, prompts, extras, tokens, max_seq)
         cache, r = res["cache"], res["coords"]["model"]
         if cfg.family in ("ssm", "hybrid"):
             assert cache["s"].shape[2] == cfg.n_heads  # every head: the mixers run whole
@@ -232,7 +238,8 @@ def test_serve_tp2_gives_the_tokens_of_tp1(arch, tmp_path):
     tokens of ``--tp 1`` (the same weights drawn whole and split; whisper's
     frames drawn after the prompts), every step's logits within 1e-5 of
     their scale; each rank's info carries its collectives per phase, with
-    one decode merge (a max all-reduce) per attention a step."""
+    one decode merge (a max all-reduce) per attention a step, as the dry
+    run of the rank counts them."""
     from repro_torch.launch import serve
 
     argv = ["--arch", arch, "--reduced", "--batch", "4", "--prompt-len", "16", "--gen", "8",
@@ -252,3 +259,13 @@ def test_serve_tp2_gives_the_tokens_of_tp1(arch, tmp_path):
         assert info["decode_collectives"]["all_reduce_sum"][0] > 0
         merges = info["decode_collectives"].get("all_reduce_max", [0])[0]
         assert merges == MERGES_PER_STEP[arch] * 7
+    cfg = get_config(arch).reduced()
+    inputs = {"tokens": ((4, 16), np.int32)}
+    if cfg.family == "encdec":
+        inputs["frames"] = ((4, 8, cfg.d_model), np.float32)
+    for r, (_, info, _) in enumerate(results):
+        kw = dict(mode="serve", cache_len=24)
+        assert _dry.counted(info["prefill_collectives"]) == _dry.collectives(
+            cfg, (1, 2), r, "prefill", inputs, **kw)
+        assert _dry.counted(info["decode_collectives"]) == _dry.times(_dry.collectives(
+            cfg, (1, 2), r, "decode", {"tokens": ((4, 1), np.int32)}, **kw), 7)

@@ -48,6 +48,7 @@ from repro_torch.launch.mesh import MeshShape
 from repro_torch.models import lm
 from repro_torch.optim import global_norm, topk_compress_allreduce
 
+import _dry
 import _train_ranks
 
 SPAWN_TIMEOUT = 240.0
@@ -87,6 +88,10 @@ STEP_CASES = [
 ]
 # The MoE fault's repair: a prefill of granite with drops over a data axis.
 PREFILL_CASES = [("prefill-2x1", (2, 1)), ("prefill-2x2", (2, 2))]
+# The same prefill on the train layout (FSDP + TP pieces: JAX's default
+# layout for a serving cell of its dry run), each block gathered first.
+TRAIN_LAYOUT_PREFILL_CASES = [("prefill-train-layout-2x1", (2, 1)),
+                              ("prefill-train-layout-2x2", (2, 2))]
 MESHES = [(1, 4), (1, 3), (1, 2), (2, 1), (2, 2)]
 LAUNCH_ARGV = ["--arch", "qwen1.5-0.5b", "--reduced", "--steps", "4", "--batch", "4", "--seq", "16",
                "--lr", "1e-2", "--seed", "3"]
@@ -222,6 +227,8 @@ def _mesh_cases(mesh):
     cases = [(c[0], _model_case(c)) for c in MODEL_CASES if c[3] == mesh]
     cases += [(c[0], _step_case(c)) for c in STEP_CASES if c[1] == mesh]
     cases += [(c[0], _prefill_case(c)) for c in PREFILL_CASES if c[1] == mesh]
+    cases += [(c[0], dict(_prefill_case(c), mode="train"))
+              for c in TRAIN_LAYOUT_PREFILL_CASES if c[1] == mesh]
     return cases + _extra_cases(mesh)
 
 
@@ -277,7 +284,9 @@ def test_loss_and_grads_match_jax(case, spawned):
     """Loss, ce and moe_aux within 1e-5 of JAX's value_and_grad(loss_fn(...,
     tp=T)) over the whole batch, equal on every rank; every assembled
     gradient leaf (its pieces equal wherever ranks share one) within 1e-4
-    relative norm; each rank's pieces in the train layout."""
+    relative norm; each rank's pieces in the train layout; the dry run of
+    each rank's training step, AdamW's clip aside, counts the collectives
+    the rank issued (op, count and bytes)."""
     name, arch, changes, (dp, tp), ep, b = case
     inputs = _model_case(case)
     jloss, jaux, jgrads = _jax_grads(arch, changes, tp, inputs["params"], inputs["batch"])
@@ -290,6 +299,9 @@ def test_loss_and_grads_match_jax(case, spawned):
                                                        results[0]["moe_aux"])
         lo, hi = r["rows"]
         assert hi - lo == (b // dp if b % dp == 0 else b)
+        dry = _dry.collectives(cfg, (dp, tp), r["coords"], "train", inputs["batch"], mode="train",
+                               ep=ep)
+        assert r["stats"] == _dry.without_clip(dry), r["coords"]
     np.testing.assert_allclose(results[0]["loss"], jloss, rtol=LOSS_TOL, atol=LOSS_TOL)
     np.testing.assert_allclose(results[0]["ce"], jaux["ce"], rtol=LOSS_TOL, atol=LOSS_TOL)
     np.testing.assert_allclose(results[0]["moe_aux"], jaux["moe_aux"], rtol=LOSS_TOL, atol=LOSS_TOL)
@@ -367,15 +379,21 @@ def test_adamw_steps_match_jax(case, spawned):
     that reduced gradient give the assembled params, m, v and residual
     within 1e-6 (the bound of test_torch_train.py's
     test_adamw_update_matches_jax; the selection and residual bit for
-    bit). Each step continues from JAX's state."""
+    bit). Each step continues from JAX's state. Without compression (the
+    dry run's step has none, as JAX's) each step's collectives are those
+    the dry run of the rank counts, AdamW's clip included."""
     name, (dp, tp), compress = case
     params, st, res, steps = _jax_state(tp, compress)
     vg = _value_and_grad("qwen1.5-0.5b", (), tp)
     jlr = jcosine_schedule(1e-2, 1, 10)
     results = _results(spawned, (dp, tp), name)
+    _, cfg = _configs("qwen1.5-0.5b", ())
     for r in results:
         assert r["step_losses"] == results[0]["step_losses"]
         assert r["step"] == 3
+        if not compress:
+            dry = _dry.collectives(cfg, (dp, tp), r["coords"], "train", steps[0], mode="train")
+            assert r["step_collectives"] == [dry] * len(steps), r["coords"]
     for i, b in enumerate(steps):
         (loss, _), jg = vg(params, batch={"tokens": jnp.asarray(b["tokens"])})
         np.testing.assert_allclose(results[0]["step_losses"][i], float(loss), rtol=LOSS_TOL,
@@ -408,7 +426,8 @@ def test_moe_prefill_plans_over_the_whole_batch(case, spawned):
     data axis of 2: every rank's logits within 1e-5 of the scale of JAX's
     ``forward_cached(..., tp=T)`` over the whole batch. A plan over each
     rank's rows alone (the fault) drops other pairs: the same model over
-    the half batch lies far outside the bound, so it would fail here."""
+    the half batch lies far outside the bound, so it would fail here. The
+    dry run of each rank's prefill counts its collectives."""
     name, (dp, tp) = case
     jcfg, cfg = _configs(GRANITE, _key(DROPS))
     params = _params(GRANITE, _key(DROPS), tp)
@@ -425,10 +444,39 @@ def test_moe_prefill_plans_over_the_whole_batch(case, spawned):
         np.testing.assert_allclose(r["logits"], want[lo:hi], rtol=1e-5, atol=1e-5 * scale,
                                    err_msg=f"{name} rank {r['coords']}")
         assert r["stats"]["data_all_gather"][0] == cfg.n_layers
+        assert r["stats"] == _dry.collectives(cfg, (dp, tp), r["coords"], "prefill",
+                                              {"tokens": prompts}, mode="serve", cache_len=32)
     half = convert.lm_params_from_numpy(params, cfg, "cpu", tp=tp)
     per_rank = lm.forward_cached(half, cfg, lm.init_cache(cfg, b // dp, 32, tp=tp, device="cpu"),
                                  torch.from_numpy(prompts[:b // dp]), 0, tp=tp)[0].numpy()
     assert np.abs(per_rank - want[:b // dp]).max() > 1e-2 * scale
+
+
+@pytest.mark.parametrize("case", TRAIN_LAYOUT_PREFILL_CASES,
+                         ids=[c[0] for c in TRAIN_LAYOUT_PREFILL_CASES])
+def test_prefill_on_the_train_layout_matches_jax(case, spawned):
+    """Granite's prefill (pairs dropped) on ranks that hold the train
+    layout's FSDP + TP pieces: each block's pieces gathered over data
+    before it runs, the head's before the logits. Every rank's logits
+    within 1e-5 of the scale of JAX's ``forward_cached(..., tp=T)`` over the
+    whole batch; its collectives those the dry run of the rank counts in
+    mode 'train' (one data gather a block, the head's and the router
+    logits')."""
+    name, (dp, tp) = case
+    jcfg, cfg = _configs(GRANITE, _key(DROPS))
+    params = _params(GRANITE, _key(DROPS), tp)
+    prompts = _prefill_inputs()
+    want, _ = jlm.forward_cached(params, jcfg, jlm.init_cache(jcfg, prompts.shape[0], 32, tp=tp),
+                                 jnp.asarray(prompts), jnp.int32(0), tp=tp)
+    want = np.asarray(want)
+    scale = max(1.0, float(np.abs(want).max()))
+    for r in _results(spawned, (dp, tp), name):
+        lo, hi = r["rows"]
+        np.testing.assert_allclose(r["logits"], want[lo:hi], rtol=1e-5, atol=1e-5 * scale,
+                                   err_msg=f"{name} rank {r['coords']}")
+        assert r["stats"]["data_all_gather"][0] == 2 * cfg.n_layers + 1
+        assert r["stats"] == _dry.collectives(cfg, (dp, tp), r["coords"], "prefill",
+                                              {"tokens": prompts}, mode="train", cache_len=32)
 
 
 # -- (5) compression, (6) the global norm ---------------------------------------
@@ -556,10 +604,15 @@ def launched(spawned):
 def test_launcher_over_two_ranks_gives_world1_losses(run, launched):
     """``launch.train --tp 2`` and ``--tp 1`` (FSDP) at world 2: world 1's
     losses within 1e-5, the same on both ranks (``rank_losses``), rank 0's
-    info with the run's tp, world, backend, policy and collectives."""
+    info with the run's tp, world, backend, policy and collectives, each
+    step's as the dry run of the rank counts them."""
     want, info1, ranks, _ = launched
     tp = (2, 1)[run]
-    for losses, info in (r[run] for r in ranks):
+    cfg = get_config("qwen1.5-0.5b").reduced()
+    for rank, (losses, info) in enumerate(r[run] for r in ranks):
+        dry = _dry.collectives(cfg, (2 // tp, tp), rank, "train", {"tokens": ((4, 17), np.int32)},
+                               mode="train")
+        assert info["collectives"] == [dry] * 4, rank
         np.testing.assert_allclose(losses, want, rtol=1e-5, atol=1e-5)
         assert info["rank_losses"] == [losses, losses]
         assert (info["tp"], info["world"], info["backend"]) == (tp, 2, "gloo")

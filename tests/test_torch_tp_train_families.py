@@ -45,6 +45,7 @@ from repro_torch.launch import sharding, train
 from repro_torch.launch.mesh import MeshShape
 from repro_torch.models import lm
 
+import _dry
 import _train_ranks
 from test_torch_tp_train import (LOSS_TOL, _assert_grads, _get, _leaf_items, _np_tree,
                                  _results, _whole)
@@ -199,7 +200,8 @@ def test_loss_and_grads_match_jax(case, spawned):
     """Loss and ce within 1e-5 of JAX's value_and_grad(loss_fn(..., tp=T))
     over the whole batch, equal on every rank; every assembled gradient leaf
     (its pieces equal wherever ranks share one) within 1e-4 relative
-    norm."""
+    norm; the dry run of each rank's training step, AdamW's clip aside,
+    counts the collectives the rank issued (op, count and bytes)."""
     name, arch, changes, (dp, tp), b = case
     inputs = _model_case(case)
     jloss, jaux, jgrads = _jax_grads(arch, changes, tp, inputs["params"], inputs["batch"])
@@ -210,6 +212,9 @@ def test_loss_and_grads_match_jax(case, spawned):
         assert (r["loss"], r["ce"]) == (results[0]["loss"], results[0]["ce"])
         lo, hi = r["rows"]
         assert hi - lo == b // dp
+        dry = _dry.collectives(inputs["cfg"], (dp, tp), r["coords"], "train", inputs["batch"],
+                               mode="train")
+        assert r["stats"] == _dry.without_clip(dry), r["coords"]
     np.testing.assert_allclose(results[0]["loss"], jloss, rtol=LOSS_TOL, atol=LOSS_TOL)
     np.testing.assert_allclose(results[0]["ce"], jaux["ce"], rtol=LOSS_TOL, atol=LOSS_TOL)
     _assert_grads(_whole(results, "grads"), jgrads, name)
@@ -269,14 +274,17 @@ def test_adamw_step_matches_jax(case, spawned):
     initial state: the loss within 1e-5 of JAX's, the reduced gradient
     within 1e-4 relative norm, and repro's ``adamw_update`` applied to that
     reduced gradient gives the assembled params, m and v within 1e-6 (the
-    bounds of tests/test_torch_tp_train.py)."""
+    bounds of tests/test_torch_tp_train.py); the step's collectives are
+    those the dry run of the rank counts, AdamW's clip included."""
     name, arch, (dp, tp) = case
-    _, params, st, _, batch = _step_inputs(case)
+    cfg, params, st, _, batch = _step_inputs(case)
     results = _results(spawned, (dp, tp), name)
     (loss, _), jg = _value_and_grad(arch, (), tp)(
         jax.tree.map(jnp.asarray, params), batch={k: jnp.asarray(v) for k, v in batch.items()})
     for r in results:
         assert r["step_losses"] == results[0]["step_losses"] and r["step"] == 1
+        dry = _dry.collectives(cfg, (dp, tp), r["coords"], "train", batch, mode="train")
+        assert r["step_collectives"] == [dry], r["coords"]
     np.testing.assert_allclose(results[0]["step_losses"][0], float(loss), rtol=LOSS_TOL,
                                atol=LOSS_TOL)
     grads = convert.lm_params_to_numpy(
@@ -300,11 +308,16 @@ def test_adamw_step_matches_jax(case, spawned):
 def test_launcher_over_two_ranks_gives_world1_losses(run, spawned):
     """``launch.train --tp 2`` and ``--tp 1`` (FSDP) of whisper at world 2:
     world 1's losses within 1e-5, the same on both ranks, rank 0's info
-    with the run's tp, world, backend, policy and collectives."""
+    with the run's tp, world, backend, policy and collectives, each step's
+    as the dry run of the rank counts them."""
     want = train.main(LAUNCH_ARGV + ["--device", "cpu"])
     tp = (2, 1)[run]
-    for ranks in spawned["launcher"][1].result():
+    cfg = get_config("whisper-tiny").reduced()
+    inputs = {"tokens": ((4, 17), np.int32), "frames": ((4, 8, cfg.d_model), np.float32)}
+    for rank, ranks in enumerate(spawned["launcher"][1].result()):
         losses, info = ranks[run]
+        dry = _dry.collectives(cfg, (2 // tp, tp), rank, "train", inputs, mode="train")
+        assert info["collectives"] == [dry] * 3, rank
         np.testing.assert_allclose(losses, want, rtol=1e-5, atol=1e-5)
         assert info["rank_losses"] == [losses, losses]
         assert (info["tp"], info["world"], info["backend"], info["policy"]) == \
